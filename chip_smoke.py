@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py            # all phases, exits 0 only if all pass
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line. Path 1 (build and serve):
 
-  env      card name and power limit (nvidia-smi), torch/CUDA versions, and
-           the kernel build time (nvcc, one process per source, in parallel)
-  kernels  B2 against its plain version at 200k x 128 with B=2048: the packed
-           output itself (loc bits, decoded distances), then the ids and
-           distances after the refine
+  env      card name and power limit (nvidia-smi), torch/CUDA versions, the
+           kernel build time (nvcc, one process per source, in parallel) and
+           ptxas's registers and spilled bytes of every kernel entry
+  kernels  B2 and B5 against their plain versions at 200k x 128 with B=2048:
+           the scan outputs themselves (B2: loc bits, decoded distances; B5:
+           f32 values, row ids), then the ids and distances after the refine
   build    Hnsw(M=24, efC=400, L2) with level scale 0.5 and kept pruned
            links, ``parallel_insert(mode="device", batch_size=16384,
            build_max_iters=96)`` on the 200k x 128 gauss corpus of bench.py
@@ -17,21 +18,41 @@ Phases, each printing one JSON line:
            4096 queries; exact-scan recall@10
   serve    device_search_stream (batch 16384, expand 4, int8 codec, pivots)
            at ef 32/64/96, k=10: recall@10 scored in fp64, streamed QPS
-  kernels  B1 and B3 against their plain version on the codec the serve
-           phase read (its M0 and id rows), B=16384, E=4, L2/Dot/Cosine
+
+Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
+
+  persist  ``save_native`` -> ``load_native`` (h2) and ``file_dump`` ->
+           ``HnswIo.load_hnsw`` (h3), both onto the card; origin ids, levels,
+           entry, vectors and every layer's ids, dists, counts and width must
+           equal the built index's (h2 array for array; h3, stored in layer
+           order, through ``check_graph_equality`` and the row-sorted tables);
+           file sizes and the seconds of the four steps
+  serve2   on h2: (a) k=100 through the pool reservoir (ef 192, expand 8,
+           pool 256): ids identical to the built index's, recall@100 in fp64;
+           (b) ef=256, k=10 with ``allow_fused=False`` (kernel B4) and
+           ``True`` (B1): recall@10 of each, B4 launches per batch; (c) exact
+           k=100 over 4096 queries with ``packed=False`` (kernel B5) against
+           ``packed=True`` (B2): id sets, recall@100; streamed QPS of each
+
+  kernels  B1, B3 and B4 against their plain versions on the codec the serve
+           phases read (its M0 and id rows), B=16384, L2/Dot/Cosine: B1 and
+           B3 at E=4 and at E=8 (the k=100 run's width), B4 at E=4
 
 Each kernels line carries median CUDA-event times of the kernel, its plain
 version and a one-call PyTorch yardstick, and the bound the card allows for
-the same work. ``--profile`` then traces one served batch per ef and a second
-build with torch.profiler (device time by kernel, the device's idle share of
-the window); a window whose kernel time exceeds its wall time fails the run.
+the same work. ``--profile`` then traces one served batch per operating point
+and a second build with torch.profiler (device time by kernel, the device's
+idle share of the window); a window whose kernel time exceeds its wall time
+fails the run.
 
-The launch counters are reset just before the build and read after the
-serve phase: B1 and B2 must both have run on that path, and the comparison
-launches fall outside that window. The kernels line
-(``{"kernels": [...]}``) and the card line come before the last line, which
-is ``{"ok": true, "device": {...}}`` when every phase passed. Without CUDA, or
-without the package beside it, the script exits non-zero and prints no result.
+The launch counters are set to 0 just before each path and read just after
+it: B1 and B2 must have run on path 1, B4, B5 (and B1, B2) on path 2, and the
+comparison launches fall outside both windows. The kernels line
+(``{"kernels": [...]}``, all five kernels; ``launches`` is the count on the
+first path that runs the kernel, ``launches_by_path`` both) and the card line
+come before the last line, which is ``{"ok": true, "device": {...}}`` when
+every phase passed. Without CUDA, or without the package beside it, the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -41,6 +62,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -63,8 +85,17 @@ B2_SCAN_RTOL, B2_SCAN_ATOL = 1e-4, 1e-4
 # a cell whose two best candidates tie within the summation-order error may
 # keep either one: loc bits must agree on all but such cells
 B2_LOC_EQUAL = 0.999
+# unpacked scan: full f32 values of |x|^2 - 2 q.x; near 0 the form cancels
+# and nothing clamps it (atol); a near-tie may swap a cell's pick
+B5_RTOL, B5_ATOL = 1e-5, 1e-4
+B5_ID_EQUAL = 0.999
 RECALL_EF96 = 0.97
 RECALL_EXACT = 0.999
+RECALL_K100 = 0.95          # k=100 through the pool reservoir, ef=192
+RECALL_EF256 = 0.995        # unfused; path 1 reads 0.9955 at ef=96
+FUSED_UNFUSED_GAP = 0.002   # recall@10 of the two codec routes at ef=256
+MAX_ITERS_EF256 = 66        # max(8, 256 // 4 + 2) beam iterations
+CODEC_EXPANDS = (4, 8)      # beam widths the two paths give B1: [B, E] src rows
 
 
 def emit(obj):
@@ -130,7 +161,7 @@ def phase_env(torch, kernel_lib):
     build_s = time.time() - t0
     emit({"phase": "env", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "kernel_build_s": build_s})
+          "kernel_build_s": build_s, "ptxas": kernel_lib.ptxas_report()})
     return card
 
 
@@ -138,12 +169,14 @@ def codec_rows(torch, Q, seed, codec=None, n=None):
     """B1 and B3 against their plain version on the card. With ``codec`` (the
     built index's BeamCodec) the check runs on the table the serve phase
     reads, at its M0 and id rows; without, on a random table of that shape
-    (M0=56, 8 id rows, the 200k build's)."""
+    (M0=56, 8 id rows, the 200k build's). Each is checked and timed at every
+    beam width the paths give it (``CODEC_EXPANDS``: src [16384, 4] and
+    [16384, 8])."""
     from hnsw_tpu_torch.ops import codec_scores as cs
 
     dev = torch.device("cuda")
     rows, failures = [], []
-    B, E, d = 16384, 4, Q.shape[1]
+    B, d = 16384, Q.shape[1]
     g = torch.Generator(device=dev).manual_seed(seed)
     if codec is not None:
         M0, blocks, scale = codec.M0, codec.blocks, codec.scale
@@ -157,11 +190,13 @@ def codec_rows(torch, Q, seed, codec=None, n=None):
         blocks = torch.cat([vec, ids_tbl.view(torch.int8).reshape(cap1, RID, d)], 1)
         scale = torch.tensor(0.0123, dtype=torch.float32, device=dev)
         del vec, ids_tbl
-    src = torch.randint(0, n, (B, E), generator=g, device=dev, dtype=torch.int32)
     q = torch.as_tensor(Q[:B], device=dev)
     qsq = (q * q).sum(1, keepdim=True)
-    for name in ("B1", "B3"):
-        blk = blocks if name == "B1" else blocks[:, :M0].contiguous()
+
+    def at_width(name, blk, E):
+        """One kernel at one beam width: the three forms against the plain
+        version, then the L2 times and the bound of this shape."""
+        src = torch.randint(0, n, (B, E), generator=g, device=dev, dtype=torch.int32)
         err = 0.0
         for form in ("l2", "dot", "cosine"):
             qsn = qsq if form == "l2" else torch.sqrt(qsq)
@@ -170,12 +205,12 @@ def codec_rows(torch, Q, seed, codec=None, n=None):
             torch.cuda.synchronize()
             err = max(err, float((sk - sp).abs().max()))
             if not close(sk, sp, B1_RTOL, B1_ATOL):
-                failures.append(f"{name} {form} scores beyond tolerance")
+                failures.append(f"{name} E={E} {form} scores beyond tolerance")
             if (ik is None) != (ip_ is None) or (ik is not None and not torch.equal(ik, ip_)):
-                failures.append(f"{name} {form} ids differ")
-        qsn = qsq
-        ms = cuda_ms(torch, lambda: cs.codec_scores(src, q, qsn, scale, blk, M0, "l2"))
-        plain_ms = cuda_ms(torch, lambda: cs.codec_scores_plain(src, q, qsn, scale, blk, M0, "l2"))
+                failures.append(f"{name} E={E} {form} ids differ")
+            del sk, ik, sp, ip_
+        ms = cuda_ms(torch, lambda: cs.codec_scores(src, q, qsq, scale, blk, M0, "l2"))
+        plain_ms = cuda_ms(torch, lambda: cs.codec_scores_plain(src, q, qsq, scale, blk, M0, "l2"))
 
         def library():
             cv = blk[src.long()][:, :, :M0].reshape(B, E * M0, d).to(torch.float32)
@@ -189,26 +224,89 @@ def codec_rows(torch, Q, seed, codec=None, n=None):
                   + B * E * M0 * 4 * (2 if rid else 1))
         flops = 4 * B * E * M0 * d  # ip and |c|^2 FMAs, f32 outside tensor cores
         bms, by = bound_ms(nbytes, flops, F32_FLOPS)
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+    for name in ("B1", "B3"):
+        blk = blocks if name == "B1" else blocks[:, :M0].contiguous()
+        # both widths the paths give the kernel: expand=4 (path 1, ef=256)
+        # and expand=8 (path 2, k=100); the row's own numbers are expand=4's
+        by_E = {E: at_width(name, blk, E) for E in CODEC_EXPANDS}
         rows.append({"name": name, "route": "cuda",
                      "source": "hnsw_tpu_torch/csrc/codec_scores.cu",
                      "replaces": ("hnsw_tpu/ops/pallas_scores.py:154" if name == "B1"
                                   else "hnsw_tpu/ops/pallas_scores.py:93"),
                      "counter": "codec_scores_ids" if name == "B1" else "codec_scores",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-                     "shape": {"B": B, "E": E, "M0": M0, "id_rows": rid, "d": d,
+                     **by_E[CODEC_EXPANDS[0]],
+                     "shape": {"B": B, "E": CODEC_EXPANDS[0], "M0": M0,
+                               "id_rows": blk.shape[1] - M0, "d": d,
                                "table": "built index" if codec is not None
-                               else "random"}})
+                               else "random"},
+                     "shapes_checked": {"E": list(CODEC_EXPANDS)},
+                     **{f"E{E}": by_E[E] for E in CODEC_EXPANDS[1:]}})
         del blk
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "rows": rows, "failures": failures})
     return rows, failures
 
 
+def gathered_rows(torch, Q, seed, codec, n):
+    """B4 against its plain version on the card, on blocks and ``blocks_sq``
+    gathered from the built codec as ``scores_codec(allow_fused=False)``
+    gathers them: B=16384, K = E * M0."""
+    from hnsw_tpu_torch.ops import codec_scores as cs
+
+    dev = torch.device("cuda")
+    failures = []
+    B, E, d, M0 = 16384, 4, Q.shape[1], codec.M0
+    K = E * M0
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    src = torch.randint(0, n, (B, E), generator=g, device=dev).long()
+    q = torch.as_tensor(Q[:B], device=dev)
+    qsq = (q * q).sum(1, keepdim=True)
+
+    def gather():
+        return (codec.blocks[src, :M0].reshape(B, K * d),
+                codec.blocks_sq[src].reshape(B, K))
+    blk, csq = gather()
+    err = 0.0
+    for form in ("l2", "dot", "cosine"):
+        qsn = qsq if form == "l2" else torch.sqrt(qsq)
+        sk = cs.codec_scores_gathered(q, blk, csq, qsn, codec.scale, form)
+        sp = cs.codec_scores_gathered_plain(q, blk, csq, qsn, codec.scale, form)
+        torch.cuda.synchronize()
+        err = max(err, float((sk - sp).abs().max()))
+        if not close(sk, sp, B1_RTOL, B1_ATOL):
+            failures.append(f"B4 {form} scores beyond tolerance")
+    ms = cuda_ms(torch, lambda: cs.codec_scores_gathered(q, blk, csq, qsq, codec.scale, "l2"))
+    plain_ms = cuda_ms(torch, lambda: cs.codec_scores_gathered_plain(
+        q, blk, csq, qsq, codec.scale, "l2"))
+
+    def library():
+        ip = torch.einsum("bd,bkd->bk", q, blk.reshape(B, K, d).float()) * codec.scale
+        return torch.sqrt(torch.clamp_min(qsq - 2.0 * ip + csq, 0.0))
+    lib_ms = cuda_ms(torch, library)
+    gather_ms = cuda_ms(torch, gather)
+    nbytes = B * K * d + 2 * B * K * 4 + B * d * 4 + B * 4
+    bms, by = bound_ms(nbytes, 2 * B * K * d, F32_FLOPS)
+    row = {"name": "B4", "route": "cuda",
+           "source": "hnsw_tpu_torch/csrc/codec_scores_gathered.cu",
+           "replaces": "hnsw_tpu/ops/pallas_scores.py:28",
+           "counter": "codec_scores_gathered",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+           "bound_by": by, "library_ms": lib_ms, "torch_gather_ms": gather_ms,
+           "shape": {"B": B, "K": K, "d": d, "table": "built index"}}
+    del blk, csq
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "rows": [row], "failures": failures})
+    return [row], failures
+
+
 def scan_rows(torch, X, Q):
-    """B2 against its plain version on the card at 200k x 128, B=2048: the
-    packed output directly (loc bits, decoded distances), then the ids and
-    distances after the overfetch and f32 refine."""
+    """B2 and B5 against their plain versions on the card at 200k x 128,
+    B=2048: the scan outputs directly (B2: loc bits, decoded distances; B5:
+    f32 values and row ids), then the ids and distances after the overfetch
+    and f32 refine."""
     from hnsw_tpu_torch.ops import scan_topk as st
 
     dev = torch.device("cuda")
@@ -272,8 +370,45 @@ def scan_rows(torch, X, Q):
            "library_ms": lib_ms, "loc_equal_frac": loc_equal,
            "refined_max_abs_err": float((dk - dp).abs().max()),
            "set_equal_frac": frac}
-    emit({"phase": "kernels", "rows": [row], "failures": failures})
-    return [row], failures
+    rows = [row]
+    # ---- B5: the unpacked scan on the same inputs
+    uk, jk = st.scan_unpacked(qs, Xs, xsq, tn, grp, acc)
+    up, jp = st.scan_unpacked_plain(qs, Xs, xsq, tn, grp, acc)
+    torch.cuda.synchronize()
+    u_err = float((uk - up).abs().max())
+    if not close(uk, up, B5_RTOL, B5_ATOL):
+        failures.append("B5 unpacked scan: values beyond tolerance")
+    id_equal = float((jk == jp).float().mean())
+    if id_equal < B5_ID_EQUAL:
+        failures.append(f"B5 unpacked scan: ids equal on {id_equal:.6f} of cells")
+    del uk, jk, up, jp
+    du, iu = st.l2_topk(qb, Xd, xsq, k, Xscan=Xs, acc=acc, packed=False)
+    dup, iup = st.l2_topk(qb, Xd, xsq, k, Xscan=Xs, acc=acc, packed=False, plain=True)
+    torch.cuda.synchronize()
+    u_frac = float((torch.sort(iu, 1).values == torch.sort(iup, 1).values).all(1)
+                   .float().mean())
+    if u_frac < B2_SET_EQUAL:
+        failures.append(f"B5 ids set-equal on {u_frac:.4f} of queries")
+    if not close(du, dup, B2_RTOL, 0.0):
+        failures.append("B5 distances beyond tolerance")
+    vs_packed = float((torch.sort(iu, 1).values == torch.sort(ik, 1).values).all(1)
+                      .float().mean())
+    u_ms = cuda_ms(torch, lambda: st.scan_unpacked(qs, Xs, xsq, tn, grp, acc))
+    u_plain_ms = cuda_ms(torch, lambda: st.scan_unpacked_plain(qs, Xs, xsq, tn, grp, acc),
+                         warmup=1, iters=3)
+    u_bytes = Np * d * 2 + Np * 4 + Bq * d * 2 + 2 * n_blocks * Bq * 256 * 4
+    u_bms, u_by = bound_ms(u_bytes, 2 * Bq * Np * d, BF16_FLOPS)
+    rows.append({"name": "B5", "route": "cuda",
+                 "source": "hnsw_tpu_torch/csrc/scan_topk_unpacked.cu",
+                 "replaces": "hnsw_tpu/ops/pallas_topk.py:38",
+                 "counter": "scan_topk_unpacked",
+                 "max_abs_err": u_err, "ms": u_ms, "plain_ms": u_plain_ms,
+                 "bound_ms": u_bms, "bound_by": u_by,
+                 "library_ms": cuda_ms(torch, library), "id_equal_frac": id_equal,
+                 "refined_max_abs_err": float((du - dup).abs().max()),
+                 "set_equal_frac": u_frac, "set_equal_packed_frac": vs_packed})
+    emit({"phase": "kernels", "rows": rows, "failures": failures})
+    return rows, failures
 
 
 def recall_fp64(X, Q, kth, origin_ids, k=10):
@@ -314,6 +449,17 @@ def phase_build(torch, X):
     return h
 
 
+def kth_fp64(bf, X, Q, nq, k, pool):
+    """fp64 k-th neighbour distance of the first ``nq`` queries: a top-``pool``
+    candidate set from the exact engine, refined on the host."""
+    pool_ids, _ = bf.search_batch(Q[:nq], pool)
+    kth = np.empty(nq)
+    for b in range(nq):
+        dv = X[pool_ids[b]].astype(np.float64) - Q[b].astype(np.float64)
+        kth[b] = np.sqrt(np.partition((dv * dv).sum(-1), k - 1)[k - 1])
+    return kth
+
+
 def phase_gt(torch, X, Q, k=10):
     from hnsw_tpu_torch import BruteForceIndex
 
@@ -323,12 +469,8 @@ def phase_gt(torch, X, Q, k=10):
     if not bf._use_scan():
         raise RuntimeError("the exact engine must take the scan (kernel B2) here")
     t0 = time.time()
-    pool_ids, _ = bf.search_batch(Q[:nq_gt], pool)
+    kth = kth_fp64(bf, X, Q, nq_gt, k, pool)
     gt_s = time.time() - t0
-    kth = np.empty(nq_gt)
-    for b in range(nq_gt):
-        dv = X[pool_ids[b]].astype(np.float64) - Q[b].astype(np.float64)
-        kth[b] = np.sqrt(np.partition((dv * dv).sum(-1), k - 1)[k - 1])
     ids_bf, _ = bf.search_batch(Q, k)  # all queries; recall scores the first nq_gt
     torch.cuda.synchronize()
     t0 = time.time()
@@ -338,7 +480,7 @@ def phase_gt(torch, X, Q, k=10):
     emit({"phase": "gt", "nq": nq_gt, "pool": pool, "pool_s": gt_s,
           "exact_recall_at_10": recall, "exact_qps": len(Q) / scan_s,
           "exact_queries": len(Q)})
-    return kth, recall
+    return kth, recall, bf
 
 
 def phase_serve(torch, h, X, Q, kth, k=10):
@@ -369,6 +511,167 @@ def phase_serve(torch, h, X, Q, kth, k=10):
     return out
 
 
+def index_differences(h, r, layer_order: bool):
+    """What differs between the built index ``h`` and a reload ``r``: origin
+    ids, levels, ranks, entry, vectors, and every layer's width, counts, ids
+    and dists. An ``.npz`` reload keeps the rows where they were and compares
+    array for array. A reference-format reload stores points in layer order
+    (``layer_order``): row k of ``r`` is row ``order[k]`` of ``h``; there the
+    per-point tables compare through ``order``, each layer's dists as sorted
+    rows, and ``check_graph_equality`` pairs every neighbour id with its
+    distance through the points' (layer, rank) names."""
+    n = h._nb_point
+    if r._nb_point != n:
+        return [f"{r._nb_point} points != {n}"]
+    order = h._iteration_order() if layer_order else np.arange(n)
+    bad = [name for name in ("_origin", "_level", "_rank_in_layer")
+           if not np.array_equal(getattr(r, name)[:n], getattr(h, name)[order])]
+    if not np.array_equal(np.asarray(r._data[:n]), h._data[order]):
+        bad.append("vectors")
+    live = {l for l, t in h._layers.items() if t.counts[:n].any()}
+    if live != {l for l, t in r._layers.items() if t.counts[:n].any()}:
+        return bad + ["layers"]
+    for l in sorted(live):
+        a, b = h._layers[l], r._layers[l]
+        if a.width != b.width:
+            bad.append(f"layer {l} width {b.width} != {a.width}")
+            continue
+        tables = [("counts", a.counts[order], b.counts[:n]),
+                  ("dists", np.sort(a.dists[order], 1), np.sort(b.dists[:n], 1))]
+        if not layer_order:
+            tables += [("ids", a.ids[:n], b.ids[:n]), ("dists in place", a.dists[:n], b.dists[:n])]
+        bad += [f"layer {l} {what}" for what, x, y in tables if not np.array_equal(x, y)]
+    if layer_order:
+        if not h.check_graph_equality(r):
+            bad.append("graph (check_graph_equality)")
+    elif r._entry != h._entry:
+        bad.append("entry")
+    return bad
+
+
+def phase_persist(torch, h):
+    """Dump the built index both ways and reload both onto the card."""
+    from hnsw_tpu_torch import HnswIo, load_native
+
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        npz = os.path.join(tmp, "smoke.npz")
+        t = [time.time()]
+        h.save_native(npz)
+        t.append(time.time())
+        h2 = load_native(npz)
+        t.append(time.time())
+        base = h.file_dump(tmp, "smoke")
+        t.append(time.time())
+        h3 = HnswIo(tmp, base).load_hnsw()
+        t.append(time.time())
+        sizes = {os.path.basename(p): os.path.getsize(p)
+                 for p in (npz, os.path.join(tmp, base + ".hnsw.graph"),
+                           os.path.join(tmp, base + ".hnsw.data"))}
+    t.append(time.time())
+    for name, r, layer_order in (("load_native", h2, False), ("load_hnsw", h3, True)):
+        if r.device.type != "cuda":
+            failures.append(f"{name}: reloaded onto {r.device}, not the card")
+        failures += [f"{name}: {d} differs from the built index"
+                     for d in index_differences(h, r, layer_order)]
+    compare_s = time.time() - t[5]
+    emit({"phase": "persist", "n": h._nb_point,
+          "layer0_width": {"built": int(h._layers[0].width),
+                           "npz": int(h2._layers[0].width),
+                           "dump": int(h3._layers[0].width)},
+          "save_native_s": t[1] - t[0], "load_native_s": t[2] - t[1],
+          "file_dump_s": t[3] - t[2], "load_hnsw_s": t[4] - t[3],
+          "compare_s": compare_s,
+          "bytes": sizes, "failures": failures})
+    return h2, h3, failures
+
+
+def phase_serve2(torch, h, h2, bf, X, Q, kth10):
+    """Recall-critical serving from the reloaded index ``h2``."""
+    from hnsw_tpu_torch.ops import kernel_lib
+    from hnsw_tpu_torch.ops.beam_search import device_search_stream
+    from hnsw_tpu_torch.ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk_stream
+
+    failures = []
+    Qs = np.concatenate([Q, Q])
+    nq_gt = len(kth10)
+
+    def oids(hh, ids):
+        return np.where(ids >= 0, hh._origin[np.clip(ids, 0, hh._nb_point - 1)], -1)
+
+    def stream_qps(hh, k, ef, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        device_search_stream(hh, Qs, k, ef, batch=16384, **kw)
+        return len(Qs) / (time.time() - t0)
+
+    # (a) k=100 through the pool reservoir
+    kth100 = kth_fp64(bf, X, Q, nq_gt, 100, 400)
+    kw = dict(expand=8, pool=256)
+    ids_h, _ = device_search_stream(h, Q, 100, 192, batch=16384, **kw)
+    ids_h2, _ = device_search_stream(h2, Q, 100, 192, batch=16384, **kw)
+    if not np.array_equal(ids_h, ids_h2):
+        failures.append("k=100: the reloaded index answers differently from the built one")
+    r100 = recall_fp64(X, Q, kth100, oids(h2, ids_h2), 100)
+    if r100 < RECALL_K100:
+        failures.append(f"recall@100 at ef=192 pool=256 {r100:.4f} < {RECALL_K100}")
+    out = {"k100": {"ef": 192, "expand": 8, "pool": 256, "recall_at_100": r100,
+                    "ids_equal_built": bool(np.array_equal(ids_h, ids_h2)),
+                    "qps": stream_qps(h2, 100, 192, **kw)}}
+    # (b) ef=256 through the unfused (B4) and the fused (B1) codec scores
+    for name, fused, counter in (("unfused", False, "codec_scores_gathered"),
+                                 ("fused", True, "codec_scores_ids")):
+        before = kernel_lib.LAUNCHES[counter]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ids, _ = device_search_stream(h2, Q, 10, 256, batch=16384, expand=4,
+                                      allow_fused=fused)
+        batch_ms = (time.time() - t0) * 1e3
+        iters = kernel_lib.LAUNCHES[counter] - before
+        out[name] = {"ef": 256, "expand": 4,
+                     "recall_at_10": recall_fp64(X, Q, kth10, oids(h2, ids), 10),
+                     "launches_per_batch": iters, "batch_ms": batch_ms,
+                     "ms_per_iteration": batch_ms / max(iters, 1),
+                     "qps": stream_qps(h2, 10, 256, expand=4, allow_fused=fused)}
+    if out["unfused"]["recall_at_10"] < RECALL_EF256:
+        failures.append(f"unfused recall@10 at ef=256 {out['unfused']['recall_at_10']:.4f} "
+                        f"< {RECALL_EF256}")
+    if abs(out["unfused"]["recall_at_10"] - out["fused"]["recall_at_10"]) > FUSED_UNFUSED_GAP:
+        failures.append("fused and unfused recall@10 at ef=256 differ by more than "
+                        f"{FUSED_UNFUSED_GAP}")
+    if not 0 < out["unfused"]["launches_per_batch"] <= MAX_ITERS_EF256:
+        failures.append(f"B4 launches per batch {out['unfused']['launches_per_batch']} "
+                        f"outside (0, {MAX_ITERS_EF256}]")
+    # (c) exact k=100, unpacked (B5) against packed (B2), on the exact
+    # engine's padded corpus
+    Xd, xsq, Xscan, perm, acc = bf._scan_device()
+    nq = 4096
+    exact = {}
+    for name, packed in (("unpacked", False), ("packed", True)):
+        kw = dict(tn=SCAN_TN, group=SCAN_GROUP, Xscan=Xscan, acc=acc,
+                  overfetch=bf.SCAN_OVERFETCH, batch=2048, packed=packed)
+        _, idx = l2_topk_stream(Q[:nq], Xd, xsq, 100, **kw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        l2_topk_stream(Q[:nq], Xd, xsq, 100, **kw)
+        qps = nq / (time.time() - t0)
+        exact[name] = (idx, qps)
+    same = float((np.sort(exact["unpacked"][0], 1) == np.sort(exact["packed"][0], 1))
+                 .all(1).mean())
+    r_exact = recall_fp64(X, Q, kth100, bf._ids[perm[exact["unpacked"][0]]], 100)
+    if same < B2_SET_EQUAL:
+        failures.append(f"exact k=100: unpacked and packed ids set-equal on {same:.4f}")
+    if r_exact < RECALL_EXACT:
+        failures.append(f"exact k=100 unpacked recall@100 {r_exact:.4f} < {RECALL_EXACT}")
+    out["exact_k100"] = {"queries": nq, "set_equal_frac": same,
+                         "unpacked_recall_at_100": r_exact,
+                         "unpacked_qps": exact["unpacked"][1],
+                         "packed_qps": exact["packed"][1]}
+    emit({"phase": "serve2", "batch": 16384, "stream_queries": len(Qs), **out,
+          "failures": failures})
+    return out, failures
+
+
 def profiled(torch, label, fn, top=12):
     """Run ``fn`` under torch.profiler; emit device busy time by kernel and
     the device's idle share of the window's wall time. Returns a failure
@@ -397,11 +700,11 @@ def profiled(torch, label, fn, top=12):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="env,kernels,build,gt,serve")
+    ap.add_argument("--phases", default="env,kernels,build,gt,serve,persist,serve2")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--profile", action="store_true",
-                    help="after the phases, trace one served batch per ef and a "
-                         "second build with torch.profiler")
+                    help="after the phases, trace one served batch per operating "
+                         "point and a second build with torch.profiler")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -424,12 +727,12 @@ def main():
     if "kernels" in phases:
         rows, f = scan_rows(torch, X, Q)
         failures += f
-    # ---- the main path: counts run from zero over build, gt and serve ----
+    # ---- path 1: counts run from zero over build, gt and serve ----
     kernel_lib.reset_launch_counts()
     h = phase_build(torch, X) if "build" in phases else None
-    kth = None
+    kth = bf = None
     if "gt" in phases:
-        kth, exact = phase_gt(torch, X, Q)
+        kth, exact, bf = phase_gt(torch, X, Q)
         if exact < RECALL_EXACT:
             failures.append(f"exact-scan recall@10 {exact:.4f} < {RECALL_EXACT}")
     if h is not None and kth is not None and "serve" in phases:
@@ -437,31 +740,62 @@ def main():
         if by_ef[96]["recall_at_10"] < RECALL_EF96:
             failures.append(f"recall@10 at ef=96 {by_ef[96]['recall_at_10']:.4f} "
                             f"< {RECALL_EF96}")
-    launches = dict(kernel_lib.LAUNCHES)
+    path1 = dict(kernel_lib.LAUNCHES)
+    # ---- path 2: counts run from zero over persist and serve2 ----
+    kernel_lib.reset_launch_counts()
+    h2 = None
+    if h is not None and "persist" in phases:
+        h2, _, f = phase_persist(torch, h)
+        failures += f
+    if h2 is not None and kth is not None and "serve2" in phases:
+        _, f = phase_serve2(torch, h, h2, bf, X, Q, kth)
+        failures += f
+    path2 = dict(kernel_lib.LAUNCHES)
     if "kernels" in phases:
-        # after the main path, on the codec the serve phase read
+        # after the paths, on the codec the serve phases read
         codec = h.device_codec() if h is not None else None
         r, f = codec_rows(torch, Q, args.seed, codec,
                           h._nb_point if h is not None else None)
         rows = r + rows
         failures += f
+        if codec is not None:
+            r, f = gathered_rows(torch, Q, args.seed, codec, h._nb_point)
+            rows += r
+            failures += f
     if args.profile and h is not None:
         from hnsw_tpu_torch.ops.beam_search import device_search_stream
         windows = [(f"serve ef={ef} batch=16384",
                     lambda ef=ef: device_search_stream(h, Q, 10, ef, batch=16384,
                                                        expand=4))
                    for ef in (32, 64, 96)]
+        windows += [(f"serve ef=256 allow_fused={fused} batch=16384",
+                     lambda fused=fused: device_search_stream(
+                         h, Q, 10, 256, batch=16384, expand=4, allow_fused=fused))
+                    for fused in (True, False)]
+        windows.append(("serve k=100 ef=192 expand=8 pool=256 batch=16384",
+                        lambda: device_search_stream(h, Q, 100, 192, batch=16384,
+                                                     expand=8, pool=256)))
         windows.append(("build (a second, traced build of the same index)",
                         lambda: phase_build(torch, X)))
         for label, fn in windows:
             f = profiled(torch, label, fn)
             if f:
                 failures.append(f)
-    main_path = all(p in phases for p in ("build", "gt", "serve"))
+    # a kernel's launches are read on the path that drives it: B1 and B2 on
+    # path 1 (and again on path 2), B4 and B5 on path 2; B3 is on neither
+    ran1 = all(p in phases for p in ("build", "gt", "serve"))
+    ran2 = ran1 and all(p in phases for p in ("persist", "serve2"))
+    needed = {"B1": (ran1, path1), "B2": (ran1, path1),
+              "B4": (ran2, path2), "B5": (ran2, path2)}
     for r in rows:
-        r["launches"] = launches[r.pop("counter")]
-        if main_path and r["name"] in ("B1", "B2") and r["launches"] == 0:
-            failures.append(f"kernel {r['name']} never launched on the main path")
+        c = r.pop("counter")
+        r["launches_by_path"] = {"path1": path1[c], "path2": path2[c]}
+        r["launches"] = path1[c] or path2[c]
+        ran, counts = needed.get(r["name"], (False, None))
+        if ran and counts[c] == 0:
+            failures.append(f"kernel {r['name']} never launched on its path")
+    if ran2 and (path2["codec_scores_ids"] == 0 or path2["scan_topk"] == 0):
+        failures.append("path 2 did not run B1 and B2")
     print(card, flush=True)
     emit({"kernels": rows})
     if failures:

@@ -1,0 +1,195 @@
+// Exact L2 scan with unpacked keep-2 per lane group (kernel B5).
+//
+// Replaces hnsw_tpu/ops/pallas_topk.py::_tile_kernel, the scan for callers
+// that cannot give up mantissa bits to the index-in-mantissa packing of
+// scan_topk.cu. Same geometry: the corpus X [Np, d] (Np a multiple of tn,
+// padding rows carry a huge |x|^2) is cut into tiles of tn = 128 * group rows;
+// tile row s * 128 + lane belongs to lane group `lane` (strided groups, G =
+// 128 lanes); `acc` consecutive tiles form one span. For each (span, query,
+// lane) the kernel keeps the two smallest of
+//   v = |x|^2 - 2 q.x
+// (no |q|^2 — the caller adds it after its top-k — and no clamp: v may be
+// negative) with full f32 values and the candidates' global row ids as a
+// second output: outd f32 [spans, B, 2G], outi int32 [spans, B, 2G] (min1
+// lanes, then min2 lanes).
+//
+// Ties: candidates stream through a cell in row order with strict
+// comparisons, so the lower row wins a tie for either place. That is the
+// Pallas kernel's rule inside a tile and for first place across tiles; for
+// second place across tiles the Pallas merge prefers a later tile's minimum
+// over an equal earlier second. Both keep the same values; only the id of
+// an exactly tied second place can differ.
+//
+// Bound on the H100: operations. 2*B*N*d flops (105 GFLOP at B=2048,
+// N=200704, d=128) against 51 MB of bf16 corpus plus two [spans, B, 256]
+// outputs: ~0.11 ms at the bf16 tensor-core peak. Like scan_topk.cu this
+// version computes the tile with f32 FMAs in a register-tiled layout: a block
+// owns 64 queries x one span, each of its 256 threads a 4-query x 8-lane
+// accumulator tile and the keep-2 state of those 32 cells. Registers are the
+// scarce resource: a value and an id for two places would take 128 registers
+// a thread on top of the 32 accumulators, and a first version that kept 96
+// (two values and one packed id word per cell) compiled to 180 registers, one
+// block per SM, and ran at half the packed scan's rate. So only the two
+// values stay in registers (every candidate is compared with them); a cell's
+// two candidates are remembered as their local offsets loc = tile_in_span *
+// group + s, 16 bits each in one word (the wrapper checks acc * group <=
+// 65536), and those words live in shared memory, [cell][thread] so that no
+// two threads of a warp share a bank: they are touched only when a candidate
+// enters a cell, which becomes rare as the span goes on. Global row ids are
+// formed when the span is done. __launch_bounds__(256, 2) holds the kernel to
+// the 128 registers that let two blocks share an SM.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int QT = 64;      // queries per block
+constexpr int LANES = 128;  // G: lane groups per tile row block
+constexpr int KC = 32;      // depth of one staging chunk
+constexpr int XS_LD = LANES + 1;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__global__ void __launch_bounds__(256, 2)
+scan_topk_unpacked_kernel(const T* __restrict__ q, const T* __restrict__ X,
+                          const float* __restrict__ xsq, int B, int d, int tn,
+                          int group, int acc, int n_tiles,
+                          float* __restrict__ outd, int32_t* __restrict__ outi) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                 // [d][QT]
+  float* Xs = Qs + (size_t)d * QT;  // [KC][XS_LD]
+  // [32 cells][256 threads]: loc of m1 in the low 16 bits, of m2 in the high
+  uint32_t* Ls = reinterpret_cast<uint32_t*>(Xs + KC * XS_LD) + threadIdx.x;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;   // lane slot: lanes tx + 16 j
+  const int ty = tid >> 4;   // query slot: queries ty + 16 i
+  const int q0 = blockIdx.x * QT;
+  const int span = blockIdx.y;
+
+  for (int idx = tid; idx < QT * d; idx += blockDim.x) {
+    const int qi = idx / d, k = idx - qi * d;
+    const int qg = q0 + qi;
+    Qs[(size_t)k * QT + qi] = qg < B ? to_f(q[(size_t)qg * d + k]) : 0.f;
+  }
+
+  float m1[4][8], m2[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      m1[i][j] = CUDART_INF_F;
+      m2[i][j] = CUDART_INF_F;
+      Ls[(i * 8 + j) * 256] = 0u;
+    }
+
+  for (int t = 0; t < acc; ++t) {
+    const int tile = span * acc + t;
+    if (tile >= n_tiles) break;
+    for (int s = 0; s < group; ++s) {
+      const size_t row0 = (size_t)tile * tn + (size_t)s * LANES;
+      float a[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) a[i][j] = 0.f;
+      for (int k0 = 0; k0 < d; k0 += KC) {
+        const int kc = min(KC, d - k0);
+        __syncthreads();
+        for (int idx = tid; idx < LANES * KC; idx += blockDim.x) {
+          const int r = idx / KC, kk = idx - r * KC;
+          Xs[kk * XS_LD + r] = kk < kc ? to_f(X[(row0 + r) * d + k0 + kk]) : 0.f;
+        }
+        __syncthreads();
+        for (int kk = 0; kk < kc; ++kk) {
+          float qa[4], xb[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[i] = Qs[(size_t)(k0 + kk) * QT + ty + 16 * i];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) xb[j] = Xs[kk * XS_LD + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) a[i][j] += qa[i] * xb[j];
+        }
+      }
+      const uint32_t loc = (uint32_t)(t * group + s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float xs = xsq[row0 + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = xs - 2.0f * a[i][j];
+          if (v < m1[i][j]) {
+            m2[i][j] = m1[i][j];
+            m1[i][j] = v;
+            uint32_t& L = Ls[(i * 8 + j) * 256];
+            L = (L << 16) | loc;
+          } else if (v < m2[i][j]) {
+            m2[i][j] = v;
+            uint32_t& L = Ls[(i * 8 + j) * 256];
+            L = (L & 0xFFFFu) | (loc << 16);
+          }
+        }
+      }
+    }
+  }
+  const size_t row_base = (size_t)span * acc * tn;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qg = q0 + ty + 16 * i;
+    if (qg >= B) continue;
+    const size_t o = ((size_t)span * B + qg) * (2 * LANES);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int lane = tx + 16 * j;
+      const uint32_t L = Ls[(i * 8 + j) * 256];
+      const uint32_t l1 = L & 0xFFFFu, l2 = L >> 16;
+      outd[o + lane] = m1[i][j];
+      outd[o + LANES + lane] = m2[i][j];
+      outi[o + lane] = (int32_t)(row_base + (size_t)(l1 / group) * tn +
+                                 (size_t)(l1 % group) * LANES + lane);
+      outi[o + LANES + lane] = (int32_t)(row_base + (size_t)(l2 / group) * tn +
+                                         (size_t)(l2 % group) * LANES + lane);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* X, const void* xsq, int B, int Np, int d,
+           int tn, int group, int acc, void* outd, void* outi, cudaStream_t s) {
+  const int n_tiles = Np / tn;
+  const int spans = (n_tiles + acc - 1) / acc;
+  const dim3 grid((B + QT - 1) / QT, spans), block(256);
+  const size_t smem = ((size_t)d * QT + KC * XS_LD + 32 * 256) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        scan_topk_unpacked_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  scan_topk_unpacked_kernel<T><<<grid, block, smem, s>>>(
+      (const T*)q, (const T*)X, (const float*)xsq, B, d, tn, group, acc,
+      n_tiles, (float*)outd, (int32_t*)outi);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int scan_topk_unpacked_launch(const void* q, const void* X,
+                                         const void* xsq, int B, int Np, int d,
+                                         int tn, int group, int acc, int bf16,
+                                         void* outd, void* outi, void* stream) {
+  if (B == 0) return 0;
+  if (tn != group * LANES || Np % tn != 0 || (long long)acc * group > 65536)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16>(q, X, xsq, B, Np, d, tn, group, acc, outd, outi, s);
+  return launch<float>(q, X, xsq, B, Np, d, tn, group, acc, outd, outi, s);
+}

@@ -11,8 +11,9 @@ paths (``ops/beam_search.py``, ``ops/insert_rounds.py``) and the parity tests.
 The host side is numpy, as in the JAX package; the batched paths run on
 ``Hnsw.device`` (default ``"cuda"``; ``device="cpu"`` runs them on the CPU).
 
-Persistence (``file_dump``, ``save_native``) belongs to a later slice of the
-port (ROADMAP.md, queue A).
+``file_dump`` and ``save_native`` delegate to ``io/hnswio.py``; a reload with
+``ReloadOptions(datamap=True)`` leaves ``_data`` a ``LazyMmapData`` view over
+the dump's data file (``io/datamap.py``) instead of an array.
 """
 
 from __future__ import annotations
@@ -264,9 +265,11 @@ class Hnsw:
         new_cap = self._cap
         while new_cap < need:
             new_cap *= 2
-        if self._data is not None:
+        if isinstance(self._data, np.ndarray):
             self._data = np.concatenate(
                 [self._data, np.zeros((new_cap - self._cap, self._dim), self.dtype)])
+        elif self._data is not None:  # LazyMmapData grows its permutation only
+            self._data.grow(new_cap)
         for a_name in ("_origin", "_level", "_rank_in_layer"):
             old = getattr(self, a_name)
             pad = np.full(new_cap - self._cap, -1, old.dtype)
@@ -558,6 +561,19 @@ class Hnsw:
 
     # ---------------------------------------------------- batched / parallel paths ---
 
+    def _batched_mode(self, mode: str, large: bool) -> str:
+        """Resolve ``mode`` to ``"device"`` or ``"serial"``. ``"auto"`` takes
+        the device when the work is ``large`` and the metric has a batched
+        form, else the serial host path. An explicit ``"device"`` with a metric
+        that has none (NoDist) raises: the caller asked for the accelerator
+        and would get the host without notice."""
+        if mode == "auto":
+            return "device" if large and self.metric.scores is not None else "serial"
+        if mode == "device" and self.metric.scores is None:
+            raise ValueError(f"mode='device': metric {self.metric.name!r} has no batched "
+                             "form; use mode='serial' or mode='auto'")
+        return mode
+
     def parallel_insert(self, data_with_ids: Sequence[tuple], mode: str = "auto",
                         batch_size: Optional[int] = None,
                         build_max_iters: Optional[int] = None):
@@ -585,8 +601,7 @@ class Hnsw:
                 raise ValueError(f"ids length {len(ids)} != rows {len(X)}")
         if X is not None:
             n = len(X)
-            if mode == "auto":
-                mode = "device" if n >= 2048 else "serial"
+            mode = self._batched_mode(mode, n >= 2048)
             if mode == "serial":
                 for j in range(n):
                     self.insert(X[j], int(ids[j]))
@@ -596,8 +611,7 @@ class Hnsw:
                                    build_max_iters=build_max_iters)
             return
         pairs = [(np.asarray(v, dtype=self.dtype), int(i)) for v, i in data_with_ids]
-        if mode == "auto":
-            mode = "device" if len(pairs) >= 2048 else "serial"
+        mode = self._batched_mode(mode, len(pairs) >= 2048)
         if mode == "serial":
             for v, i in pairs:
                 self.insert(v, i)
@@ -853,8 +867,7 @@ class Hnsw:
         queries = np.asarray(queries, dtype=self.dtype)
         if queries.ndim == 1:
             queries = queries[None, :]
-        if mode == "auto":
-            mode = "device" if (len(queries) >= 4 and self._nb_point >= 64) else "serial"
+        mode = self._batched_mode(mode, len(queries) >= 4 and self._nb_point >= 64)
         if mode == "serial":
             return [self.search_filter(q, knbn, ef, filter) for q in queries]
         ids, dists = self.search_batch(queries, knbn, ef, filter=filter)
@@ -957,6 +970,18 @@ class Hnsw:
                                      width=getattr(self, "_codec_width", None)))
             self._codec_cache = cache
         return cache[1]
+
+    # --------------------------------------------------------------- persistence ----
+
+    def file_dump(self, path, basename: str) -> str:
+        """Reference-format dump (``src/api.rs:70-94``); returns the (possibly
+        uniquified) basename."""
+        from ..io.hnswio import file_dump as _fd
+        return _fd(self, path, basename)
+
+    def save_native(self, path: str):
+        from ..io.hnswio import save_native as _sn
+        _sn(self, path)
 
     # ------------------------------------------------------------------ equality ----
 

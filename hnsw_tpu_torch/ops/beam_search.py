@@ -6,7 +6,8 @@ A batch of queries advances in lock-step; per iteration each query
   1. picks its ``expand`` nearest not-yet-expanded beam entries,
   2. scores their whole layer-0 neighbourhoods — through the int8 codec
      (kernel B1, ``ops/codec_scores.py``, which also returns the neighbour
-     ids) or the exact f32 vector gather,
+     ids; or, with ``allow_fused=False``, a torch gather of the blocks and
+     kernel B4 over them) or the exact f32 vector gather,
   3. suppresses revisits (beam membership, an expansion-history ring and
      intra-step duplicates), and
   4. merges beam and candidates into the best ``ef``.
@@ -15,10 +16,11 @@ Termination follows the reference's rule (nearest unexpanded candidate
 farther than the worst kept result). The loop runs up to ``max_iters`` and
 stops as soon as every query is done; the TPU package's unrolled fixed-length
 loop (a Mosaic compile constraint, ``max_iters <= 48``) and its 8/128
-alignment gate on the fused kernel are gone: kernel B1 serves every loop
-length and shape. Revisit tests are sorted-membership lookups
-(``torch.searchsorted``) instead of [B, K, H] broadcast compares; the
-answers are the same.
+alignment gate on the kernels are gone: both codec kernels serve every loop
+length and shape, and ``allow_fused`` — which the JAX package derives from
+``max_iters <= 48`` — is the caller's switch here. Revisit tests are
+sorted-membership lookups (``torch.searchsorted``) instead of [B, K, H]
+broadcast compares; the answers are the same.
 
 With the int8 codec, traversal scores follow the kernel's arithmetic (f32
 query against dequantized blocks), not the JAX CPU path's int8 x int8 dot
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from ..filter import filter_mask
-from .codec_scores import codec_scores
+from .codec_scores import codec_scores, codec_scores_gathered
 
 INF = float("inf")
 
@@ -138,18 +140,27 @@ def _first_occurrence_dups(nbr, valid):
     return torch.empty_like(ds).scatter_(1, order, ds)
 
 
-def scores_codec(codec, q, src_c, qsq, qnorm):
+def scores_codec(codec, q, src_c, qsq, qnorm, allow_fused: bool = True):
     """Approximate distances of each query to the E expanded nodes' full
     neighbourhoods through the blocked codec: [B,E] -> ([B,E*M0], ids or
     None). int8 codecs go through ``codec_scores`` (kernel B1/B3 on the card,
-    its plain version on the CPU); bf16 codecs through a plain gather."""
+    its plain version on the CPU), which reads the blocks where they lie; with
+    ``allow_fused=False`` the vector rows and their ``blocks_sq`` are gathered
+    with torch indexing first and scored by ``codec_scores_gathered`` (kernel
+    B4), which returns no ids. bf16 codecs take a plain gather."""
     m = codec.metric_name
     form = "l2" if m in ("L2", "DistL2") else "dot" if m in ("Dot", "DistDot") else "cosine"
     qsn = qsq if form == "l2" else qnorm
-    if codec.blocks.dtype == torch.int8:
-        return codec_scores(src_c, q, qsn, codec.scale, codec.blocks, codec.M0, form)
     B, E = src_c.shape
     K = E * codec.M0
+    if codec.blocks.dtype == torch.int8:
+        if allow_fused:
+            return codec_scores(src_c, q, qsn, codec.scale, codec.blocks, codec.M0, form)
+        rows = src_c.long()
+        blk = codec.blocks[rows, :codec.M0]  # [B, E, M0, d]: vector rows only
+        csq = codec.blocks_sq[rows].reshape(B, K)
+        return codec_scores_gathered(q, blk.reshape(B, K * codec.dim), csq, qsn,
+                                     codec.scale, form), None
     blk = codec.blocks[src_c.long()][:, :, :codec.M0].reshape(B, K, codec.dim)
     ip = _ip_f32(q, blk) * codec.scale
     if form == "l2":
@@ -174,7 +185,8 @@ def exact_rerank(metric_name, vectors, sqnorms, q, ids, k: int):
 def beam_search_layer(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
                       start_dists, *, ef: int, expand: int = 4,
                       mask=None, active=None, max_iters: Optional[int] = None,
-                      codec=None, term_slack: float = 1.0, pool: int = 0):
+                      codec=None, term_slack: float = 1.0, pool: int = 0,
+                      allow_fused: bool = True):
     """Beam search within one layer for a batch of queries.
 
     Args:
@@ -187,6 +199,9 @@ def beam_search_layer(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
         callers ``exact_rerank`` the returned beam.
       pool: if > 0, also keep every scored candidate in a top-``pool``
         reservoir (deduped at the end), returned as third/fourth outputs.
+      allow_fused: int8 codec only — True scores through the fused gather +
+        score kernel, False through a torch gather and the gathered-blocks
+        kernel (neighbour ids then come from ``tbl_ids``).
 
     Returns (beam_ids [B,ef], beam_dists [B,ef]) ascending (the filtered
     result beam under ``mask``), plus (pool_ids, pool_dists) when ``pool``.
@@ -234,8 +249,8 @@ def beam_search_layer(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
     qnorm = torch.sqrt(torch.clamp_min(qsq, 1e-20))
     # the kernel's id output replaces the table gather when the codec blocks
     # carry this table's rows
-    codec_ids = (codec is not None and codec.id_rows > 0 and codec.M0 == M
-                 and codec.blocks.dtype == torch.int8)
+    codec_ids = (allow_fused and codec is not None and codec.id_rows > 0
+                 and codec.M0 == M and codec.blocks.dtype == torch.int8)
 
     for it in range(int(max_iters)):
         # 1. the E nearest unexpanded beam entries (expanded == in the ring)
@@ -261,7 +276,7 @@ def beam_search_layer(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
         src_c = torch.clamp(src, 0, cap1 - 1)
         sc = None
         if codec is not None:
-            sc, nbr = scores_codec(codec, q, src_c, qsq, qnorm)
+            sc, nbr = scores_codec(codec, q, src_c, qsq, qnorm, allow_fused)
         if not codec_ids:
             nbr = tbl_ids[src_c.long()].reshape(B, K)
         valid = sel_ok.repeat_interleave(M, dim=1) & (nbr >= 0)
@@ -366,7 +381,7 @@ def _resolve_slack(term_slack, codec) -> float:
 def search_program(g, q, mask, *, ef: int, knbn: int, expand: int, use_mask: bool,
                    max_iters=None, codec=None, term_slack: float = 1.0,
                    rerank: Optional[int] = None, pool: Optional[int] = None,
-                   seeds: int = 1):
+                   seeds: int = 1, allow_fused: bool = True):
     """Full production search (reference ``search_filter``,
     ``src/hnsw.rs:1487-1599``): entry from one matmul over the pivot set (or
     the greedy descent on small graphs), the layer-0 beam (through the codec
@@ -403,7 +418,7 @@ def search_program(g, q, mask, *, ef: int, knbn: int, expand: int, use_mask: boo
         g.metric_name, g.vectors, g.sqnorms, tbl,
         q, pivot, d0, ef=ef_t, expand=expand, max_iters=max_iters,
         mask=mask if use_mask else None, codec=codec, term_slack=term_slack,
-        pool=P)
+        pool=P, allow_fused=allow_fused)
     if P:
         _, _, ids, dists = out
     else:
@@ -426,11 +441,13 @@ def device_search_stream(hnsw, queries: np.ndarray, knbn: int, ef: int,
                          batch: int = 4096, expand: int = 4, max_iters=None,
                          term_slack: float | None = None,
                          rerank: int | None = None, query_dtype=None,
-                         filter=None, pool: int | None = None, seeds: int = 4):
+                         filter=None, pool: int | None = None, seeds: int = 4,
+                         allow_fused: bool = True):
     """Pipelined serving over a host query stream: batch i+1 uploads and
     batch i-1 comes back while batch i is searched. Returns (ids, dists) over
     all queries (internal ids, -1 padded). ``query_dtype="f16"`` sends the
-    queries as float16 (all device math stays f32)."""
+    queries as float16 (all device math stays f32). ``allow_fused`` as in
+    ``beam_search_layer``."""
     from .stream import pipelined_stream, upload_batch, fetch_host
     from ..utils.profiling import PROFILER
 
@@ -462,7 +479,7 @@ def device_search_stream(hnsw, queries: np.ndarray, knbn: int, ef: int,
             g, staged.wait(), mask, ef=int(ef), knbn=int(knbn),
             expand=int(expand), use_mask=filter is not None,
             max_iters=max_iters, codec=codec, term_slack=slack, rerank=rerank,
-            pool=pool, seeds=seeds))
+            pool=pool, seeds=seeds, allow_fused=allow_fused))
 
     def _fetch(w, out):
         ws, we = w
@@ -481,7 +498,7 @@ def device_search_stream(hnsw, queries: np.ndarray, knbn: int, ef: int,
 def device_search_batch(hnsw, queries: np.ndarray, knbn: int, ef: int, filter=None,
                         expand: int = 4, max_iters=None,
                         term_slack: float | None = None, pool: int | None = None,
-                        seeds: int = 4):
+                        seeds: int = 4, allow_fused: bool = True):
     """Host wrapper: snapshot the graph (cached), build the filter mask, run
     the search, return numpy (internal ids [B,knbn] -1-padded, dists)."""
     if max_iters is None:
@@ -499,7 +516,8 @@ def device_search_batch(hnsw, queries: np.ndarray, knbn: int, ef: int, filter=No
         g, torch.as_tensor(q, device=g.vectors.device), mask, ef=int(ef),
         knbn=int(knbn), expand=int(expand), use_mask=filter is not None,
         max_iters=max_iters, codec=codec,
-        term_slack=_resolve_slack(term_slack, codec), pool=pool, seeds=seeds)
+        term_slack=_resolve_slack(term_slack, codec), pool=pool, seeds=seeds,
+        allow_fused=allow_fused)
     ids = ids.cpu().numpy().astype(np.int64)
     dists = dists.cpu().numpy()
     ids[~np.isfinite(dists)] = -1

@@ -1,22 +1,28 @@
-"""Fused codec gather + score for the beam loop — kernels B1 and B3.
+"""Codec scores for the beam loop — kernels B1, B3 and B4.
 
 Counterpart of ``hnsw_tpu/ops/pallas_scores.py``: ``codec_scores`` replaces
 ``pallas_fused_codec_scores_ids`` (B1, id-carrying blocks) and
 ``pallas_fused_codec_scores`` (B3, ``id_rows == 0``), which are one CUDA kernel
-here (``csrc/codec_scores.cu``) with the id copy switched by ``RID > 0``.
+here (``csrc/codec_scores.cu``) with the id copy switched by ``RID > 0``;
+``codec_scores_gathered`` replaces ``pallas_codec_scores`` (B4,
+``csrc/codec_scores_gathered.cu``), the scores over blocks the caller has
+already gathered.
 
-For each query and each of its E expanded nodes the node's int8 block
-``[M0 + RID, d]`` is read from the ``[cap1, M0 + RID, d]`` codec table,
-dequantized by ``scale`` and scored against the f32 query (L2 via the norm
-trick with |c|^2 recomputed from the block, Dot as ``1 - ip``, Cosine as
-``1 - ip / |q|`` over pre-normalized blocks). Id-carrying blocks also yield the
-nodes' neighbour ids, decoded to int32.
+Fused (B1/B3): for each query and each of its E expanded nodes the node's
+int8 block ``[M0 + RID, d]`` is read from the ``[cap1, M0 + RID, d]`` codec
+table, dequantized by ``scale`` and scored against the f32 query (L2 via the
+norm trick with |c|^2 recomputed from the block, Dot as ``1 - ip``, Cosine as
+``1 - ip / |q|`` over pre-normalized blocks). Id-carrying blocks also yield
+the nodes' neighbour ids, decoded to int32.
 
-Bound on the H100: bytes (B*E*M0 int8 rows of d bytes, and as many int32 ids
-when the blocks carry them, gathered per call). See the
-kernel source for what its design does about that. The pallas kernel's unfused
-sibling (``pallas_codec_scores``, B4) exists on the TPU only because its beam
-loop could not unroll past 48 iterations; here B1 serves every loop length.
+Gathered (B4): the same three forms over ``blk [B, K*d]`` int8 rows, with the
+rows' squared norms read from ``csq`` as given (the codec's ``blocks_sq``)
+instead of recomputed, so B4 and B1 agree to rounding, not bit for bit.
+``scores_codec(allow_fused=False)`` is its caller.
+
+Bound on the H100, all three: bytes (B*E*M0 int8 rows of d bytes, and as many
+int32 ids when the blocks carry them; B4 also reads csq). See the kernel
+sources for what their design does about that.
 """
 
 from __future__ import annotations
@@ -96,3 +102,56 @@ def codec_scores(src, q, qsn, scale, blocks, M0: int, form: str = "l2"):
     kernel_lib.LAUNCHES["codec_scores_ids" if RID > 0 else "codec_scores"] += 1
     kernel_lib.check(rc, "codec_scores")
     return out, ids
+
+
+def codec_scores_gathered_plain(q, blk, csq, qsn, scale, form: str = "l2"):
+    """Plain PyTorch version of the gathered-blocks kernel, same contract.
+
+    Args:
+      q: [B, d] f32 queries.
+      blk: [B, K*d] int8 — the gathered neighbourhood rows, flattened.
+      csq: [B, K] f32 — the rows' quantized squared norms (read for "l2" only).
+      qsn: [B, 1] f32 — |q|^2 for "l2", |q| for "cosine"; unused for "dot".
+      scale: 0-d f32 tensor, the dequantization multiplier.
+
+    Returns scores [B, K] f32.
+    """
+    B, d = q.shape
+    K = csq.shape[1]
+    b = blk.reshape(B, K, d).to(torch.float32)
+    ip = (b * q.to(torch.float32)[:, None, :]).sum(-1) * scale.to(torch.float32)
+    if form == "l2":
+        return torch.sqrt(torch.clamp_min(qsn - 2.0 * ip + csq, 0.0))
+    if form == "dot":
+        return 1.0 - ip
+    return 1.0 - ip / torch.clamp_min(qsn, 1e-20)
+
+
+def codec_scores_gathered(q, blk, csq, qsn, scale, form: str = "l2"):
+    """Scores [B, K] of pre-gathered int8 codec rows (any B, K, d). CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}")
+    if blk.device.type != "cuda":
+        return codec_scores_gathered_plain(q, blk, csq, qsn, scale, form)
+    B, d = q.shape
+    K = csq.shape[1]
+    if blk.dtype != torch.int8 or blk.numel() != B * K * d:
+        raise ValueError(f"codec_scores_gathered takes int8 rows [B, K*d]; got "
+                         f"{blk.dtype} {tuple(blk.shape)} for B={B} K={K} d={d}")
+    dev = blk.device
+    blk = blk.contiguous()
+    q = q.to(device=dev, dtype=torch.float32).contiguous()
+    csq = csq.to(device=dev, dtype=torch.float32).contiguous()
+    qsn = qsn.to(device=dev, dtype=torch.float32).reshape(B).contiguous()
+    scale = scale.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
+    out = torch.empty((B, K), dtype=torch.float32, device=dev)
+    lib = kernel_lib.load("codec_scores_gathered")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.codec_scores_gathered_launch(
+        q.data_ptr(), blk.data_ptr(), csq.data_ptr(), qsn.data_ptr(),
+        scale.data_ptr(), B, K, d, FORMS[form], out.data_ptr(), stream)
+    kernel_lib.LAUNCHES["codec_scores_gathered"] += 1
+    kernel_lib.check(rc, "codec_scores_gathered")
+    return out

@@ -1,14 +1,16 @@
 """Distance metrics — counterpart of ``hnsw_tpu/ops/distances.py``.
 
-This slice ports the three inner-product metrics the main path serves (L2,
-Dot, Cosine): the ``Metric`` record, the numpy oracles (``np_batch``,
-``brute_force``) and the torch score forms
+Ported: the three inner-product metrics the main paths serve (L2, Dot,
+Cosine), L1 (the dump format's integer-vector tests use it) and NoDist (the
+metric of a graph-only reload: host side only, every distance 0): the
+``Metric`` record, the numpy oracles (``np_batch``, ``brute_force``) and the
+torch score forms
 
   * ``scores(q, C)``        : ``[B,d] x [B,K,d] -> [B,K]`` (gathered candidates)
   * ``matmul_scores(q, X)`` : ``[B,d] x [N,d] -> [B,N]`` (one matmul)
 
-The other eight metrics (L1, Hamming, Jaccard, Hellinger, Jeffreys,
-JensenShannon, Levenshtein, NoDist) and ``UserMetric`` are still to be ported
+The other six metrics (Hamming, Jaccard, Hellinger, Jeffreys, JensenShannon,
+Levenshtein) and ``UserMetric`` are still to be ported
 (ROADMAP.md, queue A: "Other metrics and UserMetric"); ``get_metric`` names that
 queue when asked for one of them.
 """
@@ -28,6 +30,15 @@ _EPS = 1e-10
 
 def _np_f(x):
     return np.asarray(x, dtype=np.float64)
+
+
+def np_l1(q, X):
+    return np.abs(_np_f(q)[..., None, :] - _np_f(X)[None, ...]).sum(-1) if q.ndim == 2 else np.abs(_np_f(q) - _np_f(X)).sum(-1)
+
+
+def np_nodist(q, X):
+    q, X = np.asarray(q), np.asarray(X)
+    return np.zeros(X.shape[:-1] if q.ndim == 1 else (q.shape[0], X.shape[0]))
 
 
 def np_l2(q, X):
@@ -59,6 +70,10 @@ def _f32(x):
     return x if x.dtype == torch.float32 else x.to(torch.float32)
 
 
+def scores_l1(q, C):
+    return (_f32(q)[:, None, :] - _f32(C)).abs().sum(-1)
+
+
 def scores_l2(q, C):
     d = _f32(q)[:, None, :] - _f32(C)
     return torch.sqrt(torch.clamp_min((d * d).sum(-1), 0.0))
@@ -73,6 +88,10 @@ def scores_cosine(q, C):
     s = torch.einsum("bd,bkd->bk", qf, cf)
     denom = torch.linalg.norm(qf, dim=-1)[:, None] * torch.linalg.norm(cf, dim=-1)
     return 1.0 - torch.where(denom > 0, s / torch.clamp_min(denom, _EPS), 0.0)
+
+
+def matmul_scores_l1(q, X, x_sqnorms=None):
+    return (_f32(q)[:, None, :] - _f32(X)[None, :, :]).abs().sum(-1)
 
 
 def matmul_scores_l2(q, X, x_sqnorms=None):
@@ -120,6 +139,8 @@ class Metric:
 
 
 DISTANCES = {
+    "L1": Metric("L1", np_l1, scores_l1, matmul_scores_l1),
+    "NoDist": Metric("NoDist", np_nodist),
     "L2": Metric("L2", np_l2, scores_l2, matmul_scores_l2),
     "Cosine": Metric("Cosine", np_cosine, scores_cosine, matmul_scores_cosine),
     "Dot": Metric("Dot", np_dot, scores_dot, matmul_scores_dot, needs_normalized=True),
@@ -128,8 +149,8 @@ for _n in list(DISTANCES):
     DISTANCES["Dist" + _n] = DISTANCES[_n]
 
 # metrics of the JAX package that this port does not carry yet
-_PENDING = ("L1", "Hamming", "Jaccard", "Hellinger", "Jeffreys", "JensenShannon",
-            "Levenshtein", "NoDist")
+_PENDING = ("Hamming", "Jaccard", "Hellinger", "Jeffreys", "JensenShannon",
+            "Levenshtein")
 
 
 def get_metric(dist) -> Metric:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,11 +25,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hnsw_tpu_torch"
-SOURCES = ("codec_scores", "scan_topk")
+SOURCES = ("codec_scores", "codec_scores_gathered", "scan_topk",
+           "scan_topk_unpacked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"codec_scores_ids": 0, "codec_scores": 0, "scan_topk": 0}
+LAUNCHES = {"codec_scores_ids": 0, "codec_scores": 0,
+            "codec_scores_gathered": 0, "scan_topk": 0, "scan_topk_unpacked": 0}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -83,6 +86,27 @@ def build_all(names=SOURCES) -> dict:
     return {name: _lib_path(name) for name in names}
 
 
+def ptxas_report(names=SOURCES) -> dict:
+    """{source: [{"entry", "registers", "spill_stores", "spill_loads"}, ...]}
+    read from the ptxas report nvcc wrote beside each built library (``-Xptxas
+    -v``: one "Compiling entry function" block per kernel entry)."""
+    report = {}
+    for name in names:
+        log = _lib_path(name).with_suffix(".ptxas.txt")
+        entries = []
+        if log.exists():
+            for block in log.read_text().split("Compiling entry function")[1:]:
+                entry = re.search(r"'([^']+)'", block)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+                regs = re.search(r"Used (\d+) registers", block)
+                entries.append({"entry": entry.group(1) if entry else "",
+                                "registers": int(regs.group(1)) if regs else None,
+                                "spill_stores": int(spill.group(1)) if spill else None,
+                                "spill_loads": int(spill.group(2)) if spill else None})
+        report[name] = entries
+    return report
+
+
 def load(name: str):
     """The ctypes handle of kernel library ``name``, built on first use."""
     with _lock:
@@ -111,6 +135,16 @@ def _bind(name: str, lib):
         lib.scan_topk_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                          _I, _I, _P, _P]
         lib.scan_topk_launch.restype = _I
+    elif name == "codec_scores_gathered":
+        # (q, blk, csq, qsn, scale_ptr, B, K, d, form, out, stream)
+        lib.codec_scores_gathered_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
+                                                     _I, _I, _P, _P]
+        lib.codec_scores_gathered_launch.restype = _I
+    elif name == "scan_topk_unpacked":
+        # (q, X, xsq, B, Np, d, tn, group, acc, bf16, outd, outi, stream)
+        lib.scan_topk_unpacked_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
+                                                  _I, _I, _P, _P, _P]
+        lib.scan_topk_unpacked_launch.restype = _I
 
 
 def check(rc: int, what: str):

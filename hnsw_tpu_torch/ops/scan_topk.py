@@ -1,10 +1,11 @@
-"""Exact L2 top-k scan — kernel B2 and its host parts.
+"""Exact L2 top-k scan — kernels B2 and B5 and their host parts.
 
 Counterpart of ``hnsw_tpu/ops/pallas_topk.py``: ``scan_packed`` replaces the
 packed Pallas tile kernel (``_tile_kernel_packed``, reached through
-``pallas_l2_topk(packed=True)``), ``l2_topk`` replaces ``pallas_l2_topk`` (the
-decode, overfetch and f32 refine around the kernel), ``pad_corpus`` is the
-same permuted padding, and ``l2_topk_stream`` replaces
+``pallas_l2_topk(packed=True)``), ``scan_unpacked`` the unpacked one
+(``_tile_kernel``, ``packed=False``), ``l2_topk`` replaces ``pallas_l2_topk``
+(the decode, overfetch and f32 refine around either kernel), ``pad_corpus``
+is the same permuted padding, and ``l2_topk_stream`` replaces
 ``pallas_l2_topk_stream``.
 
 The scan keeps, per (span of ``acc`` tiles, query, lane group), the two
@@ -12,7 +13,10 @@ smallest packed distances: the candidate's local row offset rides in the low
 LB mantissa bits of the f32 distance, so int32 order is distance order and
 the identity travels with the value. The decode contract is the JAX
 package's, so the plain version takes the JAX parameters ``(tn, group, acc)``
-and agrees with ``pallas_l2_topk``.
+and agrees with ``pallas_l2_topk``. The unpacked scan (``packed=False``, for
+callers that cannot give mantissa bits to the index) keeps the same cells but
+full f32 values of ``|x|^2 - 2 q.x`` and the global row ids as a second
+output; ``|q|^2`` joins after the top-k.
 
 Card geometry (re-derived for the H100; the TPU's ``pick_tn`` VMEM sizing is
 gone): the CUDA kernel fixes G = 128 lane groups per tile (``tn = 128 *
@@ -54,6 +58,15 @@ def _geometry(N: int, tn: int, group: int, acc: int):
     return G, n_tiles, acc, n_blocks, LB
 
 
+def _check_card_geometry(G: int, tn: int, group: int, qs, Xs):
+    if G != 128:
+        raise ValueError(f"the CUDA scan runs 128 lane groups (tn = 128 * group); "
+                         f"got tn={tn} group={group}")
+    if Xs.dtype not in (torch.bfloat16, torch.float32) or qs.dtype != Xs.dtype:
+        raise ValueError("the CUDA scan takes bf16 or f32 queries and corpus "
+                         "of one type")
+
+
 def scan_packed_plain(qs, Xs, xsq, tn: int, group: int, acc: int):
     """Plain PyTorch version of the scan kernel: packed int32
     ``[n_blocks, B, 2G]`` (per lane group: smallest, then second smallest).
@@ -90,12 +103,7 @@ def scan_packed(qs, Xs, xsq, tn: int, group: int, acc: int):
     B, d = qs.shape
     N = Xs.shape[0]
     G, n_tiles, acc, n_blocks, LB = _geometry(N, tn, group, acc)
-    if G != 128:
-        raise ValueError(f"the CUDA scan runs 128 lane groups (tn = 128 * group); "
-                         f"got tn={tn} group={group}")
-    if Xs.dtype not in (torch.bfloat16, torch.float32) or qs.dtype != Xs.dtype:
-        raise ValueError("the CUDA scan takes bf16 or f32 queries and corpus "
-                         "of one type")
+    _check_card_geometry(G, tn, group, qs, Xs)
     dev = Xs.device
     qs = qs.to(dev).contiguous()
     Xs = Xs.contiguous()
@@ -110,6 +118,88 @@ def scan_packed(qs, Xs, xsq, tn: int, group: int, acc: int):
     kernel_lib.LAUNCHES["scan_topk"] += 1
     kernel_lib.check(rc, "scan_topk")
     return out
+
+
+def scan_unpacked_plain(qs, Xs, xsq, tn: int, group: int, acc: int):
+    """Plain PyTorch version of the unpacked scan kernel: ``(outd f32, outi
+    int32)``, each ``[n_blocks, B, 2G]`` (per lane group: smallest, then second
+    smallest of ``|x|^2 - 2 q.x`` — no ``|q|^2``, no clamp — and their global
+    row ids).
+
+    Ties follow the Pallas kernel exactly: inside a tile the lowest group
+    position wins either place; across the tiles of a span the earlier tile
+    keeps first place, and second place goes to the loser of the first-place
+    round over an equal second of the winner's side."""
+    B, d = qs.shape
+    N = Xs.shape[0]
+    G, n_tiles, acc, n_blocks, _ = _geometry(N, tn, group, acc)
+    dev = qs.device
+    g = qs.to(torch.float32) @ Xs.to(torch.float32).T  # [B, N]
+    a = (xsq.to(torch.float32)[None, :] - 2.0 * g).reshape(B, n_tiles, group, G)
+    idx = torch.arange(group, device=dev, dtype=torch.int32)[None, None, :, None]
+    m1 = a.min(2).values
+    am1 = torch.where(a == m1[:, :, None, :], idx, group).min(2).values
+    masked = torch.where(idx == am1[:, :, None, :], torch.inf, a)
+    m2 = masked.min(2).values
+    am2 = torch.where(masked == m2[:, :, None, :], idx, group).min(2).values
+    am2 = torch.clamp_max(am2, group - 1)  # all-inf group
+    col = torch.arange(G, device=dev, dtype=torch.int32)[None, None, :]
+    base = (torch.arange(n_tiles, device=dev, dtype=torch.int32) * tn)[None, :, None]
+    i1 = base + am1 * G + col
+    i2 = base + am2 * G + col
+    pad = n_blocks * acc - n_tiles
+    if pad:  # ragged last span: tiles that do not exist are never merged
+        m1, m2 = (torch.cat([x, x.new_full((B, pad, G), torch.inf)], 1) for x in (m1, m2))
+        i1, i2 = (torch.cat([x, x.new_zeros((B, pad, G))], 1) for x in (i1, i2))
+    m1, m2, i1, i2 = (x.reshape(B, n_blocks, acc, G) for x in (m1, m2, i1, i2))
+    a1, a2, ia1, ia2 = m1[:, :, 0], m2[:, :, 0], i1[:, :, 0], i2[:, :, 0]
+    blk0 = torch.arange(n_blocks, device=dev) * acc
+    for t in range(1, acc):
+        b1, b2, ib1, ib2 = m1[:, :, t], m2[:, :, t], i1[:, :, t], i2[:, :, t]
+        live = ((blk0 + t) < n_tiles)[None, :, None]
+        swap = b1 < a1
+        hi = torch.where(swap, a1, b1)      # the loser of the first-place round
+        lo2 = torch.where(swap, b2, a2)     # the winner side's second
+        n2 = torch.minimum(hi, lo2)
+        in2 = torch.where(hi <= lo2, torch.where(swap, ia1, ib1),
+                          torch.where(swap, ib2, ia2))
+        n1 = torch.where(swap, b1, a1)
+        in1 = torch.where(swap, ib1, ia1)
+        a1, ia1 = torch.where(live, n1, a1), torch.where(live, in1, ia1)
+        a2, ia2 = torch.where(live, n2, a2), torch.where(live, in2, ia2)
+    outd = torch.cat([a1, a2], -1).permute(1, 0, 2).contiguous()
+    outi = torch.cat([ia1, ia2], -1).permute(1, 0, 2).contiguous()
+    return outd, outi
+
+
+def scan_unpacked(qs, Xs, xsq, tn: int, group: int, acc: int):
+    """The unpacked scan kernel: CPU tensors take the plain version, CUDA
+    tensors launch the kernel (or raise). Same contract as
+    ``scan_unpacked_plain``; the kernel may pick the other id only where two
+    candidates of a cell tie."""
+    if Xs.device.type != "cuda":
+        return scan_unpacked_plain(qs, Xs, xsq, tn, group, acc)
+    B, d = qs.shape
+    N = Xs.shape[0]
+    G, n_tiles, acc, n_blocks, _ = _geometry(N, tn, group, acc)
+    _check_card_geometry(G, tn, group, qs, Xs)
+    if acc * group > 65536:
+        raise ValueError(f"the unpacked CUDA scan holds a span's row offsets in "
+                         f"16 bits (acc * group <= 65536); got acc={acc} group={group}")
+    dev = Xs.device
+    qs = qs.to(dev).contiguous()
+    Xs = Xs.contiguous()
+    xsq = xsq.to(device=dev, dtype=torch.float32).contiguous()
+    outd = torch.empty((n_blocks, B, 2 * G), dtype=torch.float32, device=dev)
+    outi = torch.empty((n_blocks, B, 2 * G), dtype=torch.int32, device=dev)
+    lib = kernel_lib.load("scan_topk_unpacked")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.scan_topk_unpacked_launch(
+        qs.data_ptr(), Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, group, acc,
+        int(Xs.dtype == torch.bfloat16), outd.data_ptr(), outi.data_ptr(), stream)
+    kernel_lib.LAUNCHES["scan_topk_unpacked"] += 1
+    kernel_lib.check(rc, "scan_topk_unpacked")
+    return outd, outi
 
 
 def _decode(vals, cols, tn: int, group: int, acc: int, LB: int, N: int):
@@ -127,33 +217,48 @@ def _decode(vals, cols, tn: int, group: int, acc: int, LB: int, N: int):
 
 def l2_topk(q, X, xsq, k: int, tn: int = SCAN_TN, group: int = SCAN_GROUP,
             refine: bool = True, Xscan=None, overfetch: int = 8,
-            acc: int = 8, plain: bool = False):
+            acc: int = 8, plain: bool = False, packed: bool = True):
     """Exact L2 top-k over a padded corpus: (dists [B,k] f32, ids [B,k] int64)
     ascending. ``X`` [Np, d] f32 padded by ``pad_corpus``; ``Xscan`` an
     optional reduced-precision copy (bf16) used only by the scan.
 
     With ``refine`` the scan keeps ``k + overfetch`` finalists and re-scores
     them in f32 with the direct |q - x|^2 form (the TPU's round-up of that
-    width to 32 was a ``lax.top_k`` speed cliff and is gone). ``plain=True``
-    runs the scan's plain version whatever the device (kernel comparisons)."""
+    width to 32 was a ``lax.top_k`` speed cliff and is gone). ``packed=False``
+    takes the unpacked scan (kernel B5): first-stage distances keep all their
+    mantissa bits, at twice the candidate bytes. ``plain=True`` runs the
+    scan's plain version whatever the device (kernel comparisons)."""
     B, d = q.shape
     N = X.shape[0]
     G, n_tiles, acc, n_blocks, LB = _geometry(N, tn, group, acc)
     qf = q.to(device=X.device, dtype=torch.float32)
     Xs = X if Xscan is None else Xscan
     qs = qf.to(Xs.dtype)
-    scan = scan_packed_plain if plain else scan_packed
-    packed = scan(qs, Xs, xsq, tn, group, acc)
-    cv = packed.permute(1, 0, 2).reshape(B, -1)
+    if packed:
+        scan = scan_packed_plain if plain else scan_packed
+        cv = scan(qs, Xs, xsq, tn, group, acc).permute(1, 0, 2).reshape(B, -1)
+    else:
+        scan = scan_unpacked_plain if plain else scan_unpacked
+        outd, outi = scan(qs, Xs, xsq, tn, group, acc)
+        cv = outd.permute(1, 0, 2).reshape(B, -1)
+        ci = outi.permute(1, 0, 2).reshape(B, -1)
     kk = k if not refine else min(k + overfetch, cv.shape[1])
     vals, pos = torch.topk(cv, kk, dim=1, largest=False, sorted=True)
-    dval, ids = _decode(vals, pos, tn, group, acc, LB, N)
+    if packed:
+        dval, ids = _decode(vals, pos, tn, group, acc, LB, N)
+        first = dval  # carries |q|^2
+    else:
+        ids = torch.gather(ci, 1, pos).to(torch.int64)
+        first = vals  # |x|^2 - 2 q.x: |q|^2 joins only now
+        dval = vals + (qf * qf).sum(-1, keepdim=True)
     if not refine:
         return torch.sqrt(torch.clamp_min(dval, 0.0)), ids
     xv = X[ids].to(torch.float32)  # [B, kk, d] — finalists only
     diff = xv - qf[:, None, :]
     d2 = (diff * diff).sum(-1)
-    d2 = torch.where(dval >= 1e37, torch.inf, d2)  # padding rows
+    # padding rows are zero vectors with a faked 3e38 sqnorm: re-mask them by
+    # their first-stage score
+    d2 = torch.where(first >= 1e37, torch.inf, d2)
     d2s, pos2 = torch.sort(d2, dim=1, stable=True)
     out_ids = torch.gather(ids, 1, pos2[:, :k])
     return torch.sqrt(torch.clamp_min(d2s[:, :k], 0.0)), out_ids
@@ -191,11 +296,12 @@ def pad_corpus(X: np.ndarray, tn: int = SCAN_TN, shuffle: bool | None = None,
 
 def l2_topk_stream(queries: np.ndarray, X, xsq, k: int, *, tn: int = SCAN_TN,
                    group: int = SCAN_GROUP, Xscan=None, overfetch: int = 8,
-                   acc: int = 8, batch: int = 2048, query_dtype=None):
+                   acc: int = 8, batch: int = 2048, query_dtype=None,
+                   packed: bool = True):
     """Pipelined exact-scan serving over a host query stream (upload of batch
     i+1 and fetch of batch i-1 overlap the scan of batch i; see
-    ``ops/stream.py``). Returns (dists [nq, k] f32, ids [nq, k] int64 — scan
-    row indices)."""
+    ``ops/stream.py``). ``packed`` as in ``l2_topk``. Returns (dists [nq, k]
+    f32, ids [nq, k] int64 — scan row indices)."""
     from .stream import pipelined_stream, upload_batch, fetch_host
 
     q = np.asarray(queries, np.float32)
@@ -220,7 +326,7 @@ def l2_topk_stream(queries: np.ndarray, X, xsq, k: int, *, tn: int = SCAN_TN,
 
     def _dispatch(w, staged):
         dd, ii = l2_topk(staged.wait(), X, xsq, k, tn=tn, group=group,
-                         Xscan=Xscan, overfetch=overfetch, acc=acc)
+                         Xscan=Xscan, overfetch=overfetch, acc=acc, packed=packed)
         return fetch_host((dd, ii))
 
     def _fetch(w, out):

@@ -1,5 +1,6 @@
-"""Kernels B1/B3 (codec gather + score) and B2 (exact scan) of the PyTorch
-port against the JAX package's Pallas kernels run in interpret mode.
+"""Kernels B1/B3 (codec gather + score), B4 (scores over gathered blocks), B2
+(packed exact scan) and B5 (unpacked exact scan) of the PyTorch port against
+the JAX package's Pallas kernels run in interpret mode.
 
 On the CPU each wrapper runs its plain PyTorch version; the CUDA kernels
 themselves are held against those plain versions in the ``cuda``-marked test
@@ -11,10 +12,16 @@ import torch
 
 torch.set_num_threads(2)
 
+import jax
 import jax.lax as lax
 import jax.numpy as jnp
 
-from hnsw_tpu.ops.pallas_scores import (pallas_fused_codec_scores,
+from functools import partial
+
+from jax.experimental import pallas as pl
+
+from hnsw_tpu.ops.pallas_scores import (pallas_codec_scores,
+                                        pallas_fused_codec_scores,
                                         pallas_fused_codec_scores_ids)
 from hnsw_tpu.ops import pallas_topk as jtopk
 from hnsw_tpu_torch.ops import codec_scores as cs
@@ -74,6 +81,46 @@ def test_b3_plain_matches_pallas(rng, form):
     np.testing.assert_allclose(sc_t.numpy(), np.array(ref), rtol=SC_RTOL, atol=SC_ATOL)
 
 
+def _gathered_case(rng, B=16, K=24, d=32):
+    """The inputs of the JAX package's own test of ``pallas_codec_scores``."""
+    q = rng.standard_normal((B, d)).astype(np.float32)
+    blk = rng.integers(-127, 128, (B, K * d)).astype(np.int8)
+    bf = blk.reshape(B, K, d).astype(np.float32) * 0.017
+    csq = (bf ** 2).sum(-1).astype(np.float32)
+    return q, blk, bf, csq
+
+
+@pytest.mark.parametrize("form", ["l2", "dot", "cosine"])
+def test_b4_plain_matches_pallas(rng, form):
+    q, blk, _, csq = _gathered_case(rng)
+    csq = csq if form == "l2" else csq * 0
+    qsn = _qsn(q, form)
+    ref = pallas_codec_scores(jnp.asarray(q), jnp.asarray(blk), jnp.asarray(csq),
+                              jnp.asarray(qsn), jnp.float32(0.017), form=form,
+                              qt=8, interpret=True)
+    out = cs.codec_scores_gathered(
+        torch.from_numpy(q), torch.from_numpy(blk), torch.from_numpy(csq),
+        torch.from_numpy(qsn), torch.tensor(0.017, dtype=torch.float32), form)
+    np.testing.assert_allclose(out.numpy(), np.array(ref), rtol=SC_RTOL, atol=SC_ATOL)
+
+
+def test_b4_takes_any_shape(rng):
+    """No ``B % qt`` and no ``d % 128`` / ``B % 8`` gate: B=5, K=7, d=40 against
+    the f32 oracle (same summation-order tolerance)."""
+    q, blk, bf, csq = _gathered_case(rng, B=5, K=7, d=40)
+    qsq = (q * q).sum(-1, keepdims=True)
+    out = cs.codec_scores_gathered(
+        torch.from_numpy(q), torch.from_numpy(blk), torch.from_numpy(csq),
+        torch.from_numpy(qsq), torch.tensor(0.017, dtype=torch.float32), "l2")
+    ip = np.einsum("bd,bkd->bk", q, bf)
+    np.testing.assert_allclose(out.numpy(), np.sqrt(np.maximum(qsq - 2 * ip + csq, 0)),
+                               rtol=SC_RTOL, atol=SC_ATOL)
+    with pytest.raises(ValueError, match="form"):
+        cs.codec_scores_gathered(torch.from_numpy(q), torch.from_numpy(blk),
+                                 torch.from_numpy(csq), torch.from_numpy(qsq),
+                                 torch.tensor(0.017), "l1")
+
+
 def test_cpu_wrappers_take_the_plain_version(rng):
     """A CPU tensor never reaches the kernel library (no nvcc here)."""
     kernel_lib.reset_launch_counts()
@@ -85,6 +132,12 @@ def test_cpu_wrappers_take_the_plain_version(rng):
     Xp, xsq, _ = st.pad_corpus(X, tn=256)
     st.scan_packed(torch.from_numpy(q[:, :16]), torch.from_numpy(Xp),
                    torch.from_numpy(xsq), 256, 8, 1)
+    st.scan_unpacked(torch.from_numpy(q[:, :16]), torch.from_numpy(Xp),
+                     torch.from_numpy(xsq), 256, 8, 1)
+    gq, gblk, _, gcsq = _gathered_case(rng)
+    cs.codec_scores_gathered(torch.from_numpy(gq), torch.from_numpy(gblk),
+                             torch.from_numpy(gcsq), torch.from_numpy(_qsn(gq, "l2")),
+                             torch.tensor(0.017), "l2")
     assert all(v == 0 for v in kernel_lib.LAUNCHES.values())
 
 
@@ -109,6 +162,106 @@ def test_b2_plain_matches_pallas(rng, acc):
     truth = ((Q[:, None, :].astype(np.float64) - X[None]) ** 2).sum(-1)
     for b in range(B):
         assert set(perm[it[b]].tolist()) == set(np.argsort(truth[b])[:k].tolist())
+
+
+def _pallas_unpacked_outputs(Q, Xp, xsq, tn, group, acc):
+    """The raw (outd, outi) of the JAX package's unpacked tile kernel: its
+    ``pallas_call`` as ``pallas_l2_topk(packed=False)`` issues it, interpreted."""
+    B, d = Q.shape
+    N = Xp.shape[0]
+    G, n_tiles = tn // group, N // tn
+    acc = max(1, min(acc, n_tiles))
+    n_blocks = -(-n_tiles // acc)
+    out_spec = pl.BlockSpec((1, B, 2 * G), lambda i: (i // acc, 0, 0))
+    outd, outi = pl.pallas_call(
+        partial(jtopk._tile_kernel, G=G, TN=tn, A=acc),
+        grid=(n_tiles,),
+        in_specs=[pl.BlockSpec((B, d), lambda i: (0, 0)),
+                  pl.BlockSpec((1, 1, tn), lambda i: (i, 0, 0)),
+                  pl.BlockSpec((tn, d), lambda i: (i, 0))],
+        out_specs=[out_spec, out_spec],
+        out_shape=[jax.ShapeDtypeStruct((n_blocks, B, 2 * G), jnp.float32),
+                   jax.ShapeDtypeStruct((n_blocks, B, 2 * G), jnp.int32)],
+        interpret=True,
+    )(jnp.asarray(Q), jnp.asarray(xsq).reshape(n_tiles, 1, tn), jnp.asarray(Xp))
+    return np.array(outd), np.array(outi)
+
+
+@pytest.mark.parametrize("acc", [1, 3])
+@pytest.mark.parametrize("ties", [False, True], ids=["gauss", "ties"])
+def test_b5_plain_matches_pallas_kernel_outputs(rng, acc, ties):
+    """``scan_unpacked_plain`` against the unpacked Pallas tile kernel's own
+    outputs, cell for cell: ids equal, values to f32 summation order. The
+    "ties" corpus holds small integers, so the inner products are exact in
+    f32, many candidates of a cell tie exactly, and every tie rule is
+    exercised (lowest position in a tile, earlier tile for first place, the
+    first round's loser for second place): values and ids are then equal bit
+    for bit."""
+    n, d, B = 1700, 32, 8
+    if ties:
+        X = rng.integers(-2, 3, (n, d)).astype(np.float32)
+        Q = rng.integers(-2, 3, (B, d)).astype(np.float32)
+    else:
+        X = rng.standard_normal((n, d)).astype(np.float32)
+        Q = rng.standard_normal((B, d)).astype(np.float32)
+    Xp, xsq, _ = jtopk.pad_corpus(X, tn=256)
+    dj, ij = _pallas_unpacked_outputs(Q, Xp, xsq, 256, 8, acc)
+    dt, it = st.scan_unpacked(torch.from_numpy(Q), torch.from_numpy(Xp),
+                              torch.from_numpy(xsq), 256, 8, acc)
+    assert dt.dtype == torch.float32 and it.dtype == torch.int32
+    if ties:
+        np.testing.assert_array_equal(dt.numpy(), dj)
+        np.testing.assert_array_equal(it.numpy(), ij)
+    else:
+        np.testing.assert_allclose(dt.numpy(), dj, rtol=1e-5, atol=1e-4)
+        assert (it.numpy() == ij).mean() >= 0.999  # a near-tie may swap a pick
+
+
+@pytest.mark.parametrize("acc", [1, 3])
+def test_b5_l2_topk_matches_pallas(rng, acc):
+    """``l2_topk(packed=False)`` (scan, top-k, + |q|^2, refine) against
+    ``pallas_l2_topk(packed=False)`` on an uneven tail: ids equal, distances
+    rtol 1e-5 (the same direct f32 form over the same finalists); and the
+    port's unpacked ids equal its packed ids."""
+    n, d, B, k = 1700, 32, 8, 10
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    Q = rng.standard_normal((B, d)).astype(np.float32)
+    Xp, xsq, perm = jtopk.pad_corpus(X, tn=256)
+    dj, ij = jtopk.pallas_l2_topk(jnp.asarray(Q), jnp.asarray(Xp), jnp.asarray(xsq),
+                                  k, tn=256, group=8, interpret=True, acc=acc,
+                                  packed=False)
+    targs = (torch.from_numpy(Q), torch.from_numpy(Xp), torch.from_numpy(xsq), k)
+    du, iu = st.l2_topk(*targs, tn=256, group=8, acc=acc, packed=False)
+    dp, ip_ = st.l2_topk(*targs, tn=256, group=8, acc=acc, packed=True)
+    np.testing.assert_array_equal(iu.numpy(), np.array(ij))
+    np.testing.assert_allclose(du.numpy(), np.array(dj), rtol=1e-5)
+    np.testing.assert_array_equal(iu.numpy(), ip_.numpy())
+    np.testing.assert_allclose(du.numpy(), dp.numpy(), rtol=1e-5)
+    # unrefined: |q|^2 joins after the top-k; no mantissa bit is cleared
+    dn, i_n = st.l2_topk(*targs, tn=256, group=8, acc=acc, packed=False, refine=False)
+    djn, ijn = jtopk.pallas_l2_topk(jnp.asarray(Q), jnp.asarray(Xp), jnp.asarray(xsq),
+                                    k, tn=256, group=8, interpret=True, acc=acc,
+                                    packed=False, refine=False)
+    np.testing.assert_array_equal(i_n.numpy(), np.array(ijn))
+    np.testing.assert_allclose(dn.numpy(), np.array(djn), rtol=1e-4, atol=1e-4)
+
+
+def test_b5_stream_unpacked(rng):
+    """``l2_topk_stream(packed=False)``: several batches with an odd tail
+    return what ``packed=True`` returns and the brute-force neighbours."""
+    n, d, k = 1200, 32, 10
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    Q = rng.standard_normal((50, d)).astype(np.float32)
+    Xp, xsq, perm = st.pad_corpus(X, tn=256)
+    args = (Q, torch.from_numpy(Xp), torch.from_numpy(xsq), k)
+    kw = dict(tn=256, group=8, acc=2, batch=16)
+    du, iu = st.l2_topk_stream(*args, packed=False, **kw)
+    dp, ip_ = st.l2_topk_stream(*args, packed=True, **kw)
+    np.testing.assert_array_equal(iu, ip_)
+    np.testing.assert_allclose(du, dp, rtol=1e-5)
+    truth = ((Q[:, None, :].astype(np.float64) - X[None]) ** 2).sum(-1)
+    for b in range(len(Q)):
+        assert set(perm[iu[b]].tolist()) == set(np.argsort(truth[b])[:k].tolist())
 
 
 def test_b2_bf16_scan_refine(rng):
@@ -137,6 +290,29 @@ def test_pad_corpus_byte_equal(rng, n, tn):
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
 
 
+def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
+    """``kernel_lib.ptxas_report`` reads each entry's registers and spilled
+    bytes from the report nvcc leaves beside a library; a source that was
+    never built here reports no entry."""
+    monkeypatch.setattr(kernel_lib, "BUILD_DIR", tmp_path)
+    kernel_lib._lib_path("scan_topk").with_suffix(".ptxas.txt").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z4scanIfEvPKv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z4scanIfEvPKv\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z4scanIbEvPKv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z4scanIbEvPKv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, 400 bytes cmem[0]\n")
+    rep = kernel_lib.ptxas_report()
+    assert set(rep) == set(kernel_lib.SOURCES)
+    assert rep["scan_topk"] == [
+        {"entry": "_Z4scanIfEvPKv", "registers": 128, "spill_stores": 12, "spill_loads": 8},
+        {"entry": "_Z4scanIbEvPKv", "registers": 96, "spill_stores": 0, "spill_loads": 0}]
+    assert rep["scan_topk_unpacked"] == []
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(rng):
     """The CUDA kernels against their plain versions (needs a card)."""
@@ -156,6 +332,17 @@ def test_kernels_match_plain_on_card(rng):
                 sp, ip_ = cs.codec_scores_plain(*args)
                 torch.testing.assert_close(sk, sp, rtol=SC_RTOL, atol=SC_ATOL)
                 assert (ik is None and ip_ is None) or torch.equal(ik, ip_)
+    # B4: d=128 takes 16-byte loads, d=40 scalar rows; any B and K
+    for B, K, d in ((64, 224, 128), (5, 7, 40)):
+        q, blk, _, csq = _gathered_case(rng, B=B, K=K, d=d)
+        for form in ("l2", "dot", "cosine"):
+            args = (torch.from_numpy(q).to(dev), torch.from_numpy(blk).to(dev),
+                    torch.from_numpy(csq).to(dev),
+                    torch.from_numpy(_qsn(q, form)).to(dev),
+                    torch.tensor(0.017, device=dev), form)
+            torch.testing.assert_close(cs.codec_scores_gathered(*args),
+                                       cs.codec_scores_gathered_plain(*args),
+                                       rtol=SC_RTOL, atol=SC_ATOL)
     X = rng.standard_normal((9000, 128)).astype(np.float32)
     Xp, xsq, _ = st.pad_corpus(X)
     Xd, xd = torch.from_numpy(Xp).to(dev), torch.from_numpy(xsq).to(dev)
@@ -174,3 +361,12 @@ def test_kernels_match_plain_on_card(rng):
     dp, ipl = st.l2_topk(Q, Xd, xd, 10, Xscan=Xd.to(torch.bfloat16), acc=2, plain=True)
     assert torch.equal(torch.sort(ik, 1).values, torch.sort(ipl, 1).values)
     torch.testing.assert_close(dk, dp, rtol=1e-5, atol=0)
+    # B5: full f32 values (near 0 the form cancels: atol), ids equal but for
+    # near-ties, and the refined answers equal the packed route's
+    uk, jk = st.scan_unpacked(qs, Xs, xd, st.SCAN_TN, st.SCAN_GROUP, 2)
+    up, jp = st.scan_unpacked_plain(qs, Xs, xd, st.SCAN_TN, st.SCAN_GROUP, 2)
+    torch.testing.assert_close(uk, up, rtol=1e-5, atol=1e-4)
+    assert float((jk == jp).float().mean()) >= 0.999
+    du, iu = st.l2_topk(Q, Xd, xd, 10, Xscan=Xd.to(torch.bfloat16), acc=2, packed=False)
+    assert torch.equal(torch.sort(iu, 1).values, torch.sort(ik, 1).values)
+    torch.testing.assert_close(du, dk, rtol=1e-5, atol=0)

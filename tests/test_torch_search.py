@@ -103,3 +103,66 @@ def test_int8_codec_recall_close(pair):
         hj.set_traversal_codec(None)
     assert abs(r_t - r_j) <= 0.01, (r_t, r_j)
     assert r_t >= 0.8, r_t
+
+
+def test_allow_fused_false_recall_close(pair):
+    """``allow_fused=False`` (torch gather + the gathered-blocks scores, with
+    ``blocks_sq`` as stored) against ``allow_fused=True`` (fused gather +
+    score, |c|^2 recomputed): the scores differ in low bits only, so recall
+    stays within 0.01 of the fused route's and of the JAX search's. The
+    unfused route launches no fused scoring and takes its ids from the table."""
+    from hnsw_tpu_torch.ops import beam_search as tbs
+    ht, hj, X, Q = pair
+    ht.set_traversal_codec("i8")
+    hj.set_traversal_codec("i8")
+    calls = {"fused": 0, "gathered": 0}
+    fused, gathered = tbs.codec_scores, tbs.codec_scores_gathered
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    tbs.codec_scores = count("fused", fused)
+    tbs.codec_scores_gathered = count("gathered", gathered)
+    try:
+        ids_f, d_f = t_search(ht, Q, K, 48, allow_fused=True)
+        assert calls["fused"] > 0 and calls["gathered"] == 0
+        calls["fused"] = 0
+        ids_u, d_u = t_search(ht, Q, K, 48, allow_fused=False)
+        assert calls["gathered"] > 0 and calls["fused"] == 0
+        r_j = _recall(hj, np.array(j_search(hj, Q, K, 48)[0]), X, Q)
+    finally:
+        tbs.codec_scores, tbs.codec_scores_gathered = fused, gathered
+        ht.set_traversal_codec(None)
+        hj.set_traversal_codec(None)
+    r_f, r_u = _recall(ht, ids_f, X, Q), _recall(ht, ids_u, X, Q)
+    assert abs(r_u - r_f) <= 0.01 and abs(r_u - r_j) <= 0.01, (r_u, r_f, r_j)
+    assert r_u >= 0.8, r_u
+    # both routes end in the same exact f32 rerank: shared ids carry equal distances
+    for b in range(len(Q)):
+        both = np.intersect1d(ids_f[b], ids_u[b])
+        assert len(both) >= K - 2
+        np.testing.assert_array_equal(d_f[b][np.isin(ids_f[b], both)],
+                                      d_u[b][np.isin(ids_u[b], both)])
+
+
+@pytest.mark.parametrize("call", ["parallel_insert", "parallel_search"])
+def test_device_mode_without_batched_metric_raises(call):
+    """A metric with no batched form (NoDist) serves ``mode="auto"`` and
+    ``"serial"`` from the host; an explicit ``mode="device"`` raises instead
+    of giving the caller the host path unasked."""
+    rng = np.random.default_rng(5)
+    V = rng.random((6, 4)).astype(np.float32)
+    h = Hnsw(max_nb_connection=4, max_elements=16, ef_construction=8, dist="NoDist",
+             device="cpu")
+    h.parallel_insert(V, mode="auto")
+    assert h.get_nb_point() == 6
+    with pytest.raises(ValueError, match="no batched form"):
+        if call == "parallel_insert":
+            h.parallel_insert(V, mode="device")
+        else:
+            h.parallel_search(V, 2, 8, mode="device")
+    assert h.get_nb_point() == 6
+    assert len(h.parallel_search(V, 2, 8, mode="auto")) == 6
