@@ -8,9 +8,11 @@ Phases, each printing one JSON line. Path 1 (build and serve):
   env      card name and power limit (nvidia-smi), torch/CUDA versions, the
            kernel build time (nvcc, one process per source, in parallel) and
            ptxas's registers and spilled bytes of every kernel entry
-  kernels  B2 and B5 against their plain versions at 200k x 128 with B=2048:
-           the scan outputs themselves (B2: loc bits, decoded distances; B5:
-           f32 values, row ids), then the ids and distances after the refine
+  kernels  B2 and B5 against their plain versions: the scan outputs themselves
+           (B2: loc bits, decoded distances; B5: f32 values, row ids) through
+           the tensor-core entry at 200k x 128 with B=2048 and at a ragged
+           shape, through the f32-FMA entry on a small f32 case; then the ids
+           and distances after the refine
   build    Hnsw(M=24, efC=400, L2) with level scale 0.5 and kept pruned
            links, ``parallel_insert(mode="device", batch_size=16384,
            build_max_iters=96)`` on the 200k x 128 gauss corpus of bench.py
@@ -40,14 +42,20 @@ Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
 
 Each kernels line carries median CUDA-event times of the kernel, its plain
 version and a one-call PyTorch yardstick, and the bound the card allows for
-the same work. ``--profile`` then traces one served batch per operating point
+the same work; the two scans also the bound of their epilogue (CUDA-core
+instruction rate), the achieved TFLOP/s, the kernel entry that ran, and their time
+when 20 launches are queued back to back (``ms`` is timed in turns with the
+yardstick, whose 1.6 GB product evicts the corpus from L2 in between).
+``--profile`` then traces one served batch per operating point, one
+2048-query batch of the exact engine (packed k=10, unpacked k=100)
 and a second build with torch.profiler (device time by kernel, the device's
 idle share of the window); a window whose kernel time exceeds its wall time
 fails the run.
 
 The launch counters are set to 0 just before each path and read just after
-it: B1 and B2 must have run on path 1, B4, B5 (and B1, B2) on path 2, and the
-comparison launches fall outside both windows. The kernels line
+it: B1 and B2 must have run on path 1, B4, B5 (and B1, B2) on path 2, the two
+scans through their tensor-core entry, and the comparison launches fall
+outside both windows. The kernels line
 (``{"kernels": [...]}``, all five kernels; ``launches`` is the count on the
 first path that runs the kernel, ``launches_by_path`` both) and the card line
 come before the last line, which is ``{"ok": true, "device": {...}}`` when
@@ -73,6 +81,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+# CUDA-core instruction rate, thread instructions a second: the f32 peak
+# counts one FMA (2 flops) per lane and clock.
+CUDA_CORE_INSTR_PER_S = F32_FLOPS / 2
+# keep-2 update per (query, row) in the tensor-core scans' epilogues. B2: add
+# (|x|^2 + |q|^2), fma (- 2 q.x), max (clamp at 0), and-or (clear the low bits,
+# put loc), max, min, min. B5: fma, two compares, select, byte permute, max,
+# min, min, and the id word's shared-memory load and predicated store.
+B2_EPILOGUE_INSTR = 7
+B5_EPILOGUE_INSTR = 10
 
 B1_RTOL, B1_ATOL = 1e-5, 1e-4  # f32 summation order differs from the plain sum
 B2_SET_EQUAL = 0.999
@@ -85,9 +102,14 @@ B2_SCAN_RTOL, B2_SCAN_ATOL = 1e-4, 1e-4
 # a cell whose two best candidates tie within the summation-order error may
 # keep either one: loc bits must agree on all but such cells
 B2_LOC_EQUAL = 0.999
-# unpacked scan: full f32 values of |x|^2 - 2 q.x; near 0 the form cancels
-# and nothing clamps it (atol); a near-tie may swap a cell's pick
-B5_RTOL, B5_ATOL = 1e-5, 1e-4
+# unpacked scan: full f32 values of v = |x|^2 - 2 q.x. Both sides sum the same
+# exact f32 products of bf16 inputs, the tensor cores in another order than a
+# chain of FMAs, so they differ by a few f32 roundings (2^-24 relative each) at
+# the magnitude of the partial sums, which is that of the terms |x|^2 and 2
+# |q.x| (about 128 each on this corpus) and not that of v, which cancels to
+# near 0: the error is held against |x|^2 + 2 |q.x|. A near-tie may swap a
+# cell's pick.
+B5_TERM_RTOL = 1e-6
 B5_ID_EQUAL = 0.999
 RECALL_EF96 = 0.97
 RECALL_EXACT = 0.999
@@ -123,21 +145,30 @@ def make_dataset(kind, rng, n, nq, d, intrinsic):
     return X, Q
 
 
+def cuda_ms_turns(torch, fns, rounds=5, warmup=1):
+    """Median milliseconds of each of ``fns`` over ``rounds`` CUDA-event timed
+    calls, taken in turns (a, b, a, b, ...) so that all see the same card
+    state."""
+    for _ in range(warmup):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            t.append(s.elapsed_time(e))
+    return [float(np.median(t)) for t in times]
+
+
 def cuda_ms(torch, fn, warmup=2, iters=7):
     """Median milliseconds of ``fn`` over ``iters`` CUDA-event timed calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
+    return cuda_ms_turns(torch, [fn], rounds=iters, warmup=warmup)[0]
 
 
 def bound_ms(nbytes, flops, peak_flops):
@@ -302,11 +333,77 @@ def gathered_rows(torch, Q, seed, codec, n):
     return [row], failures
 
 
+def cuda_ms_queued(torch, fn, n=20):
+    """Milliseconds per call of ``n`` calls queued back to back between two
+    CUDA events: the card never waits for the host, and the inputs stay in L2
+    as far as they fit."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def compare_scans(torch, st, kernel_lib, qs, Xs, xsq, acc, label, want_entry, failures):
+    """Both scans' raw outputs against their plain versions on one input:
+    B2's loc bits and decoded distances, B5's values (against the magnitude of
+    the terms, ``B5_TERM_RTOL``) and row ids, and which kernel entry ran."""
+    tn, grp = st.SCAN_TN, st.SCAN_GROUP
+    before = dict(kernel_lib.LAUNCHES)
+    pk = st.scan_packed(qs, Xs, xsq, tn, grp, acc)
+    uk, jk = st.scan_unpacked(qs, Xs, xsq, tn, grp, acc)
+    torch.cuda.synchronize()
+    ran = sorted(k for k, v in kernel_lib.LAUNCHES.items() if "." in k and v > before[k])
+    if ran != [f"scan_topk.{want_entry}", f"scan_topk_unpacked.{want_entry}"]:
+        failures.append(f"{label}: entries {ran}, expected {want_entry} for both scans")
+    pp = st.scan_packed_plain(qs, Xs, xsq, tn, grp, acc)
+    LB = st._geometry(Xs.shape[0], tn, grp, acc)[4]
+    mask = (1 << LB) - 1
+    loc_equal = float(((pk & mask) == (pp & mask)).float().mean())
+    # padding rows (|x|^2 = 3e38) must stay finite and sort last on both sides
+    pad = (pp & ~mask).view(torch.float32) >= 1e37
+    if not torch.equal(pk[pad], pp[pad]):
+        failures.append(f"{label}: B2 padding or empty cells differ")
+    dvk = (pk & ~mask).view(torch.float32)[~pad]
+    dvp = (pp & ~mask).view(torch.float32)[~pad]
+    scan_err = float((dvk - dvp).abs().max()) if dvk.numel() else 0.0
+    if not close(dvk, dvp, B2_SCAN_RTOL, B2_SCAN_ATOL):
+        failures.append(f"{label}: B2 decoded distances beyond tolerance")
+    if loc_equal < B2_LOC_EQUAL:
+        failures.append(f"{label}: B2 loc bits equal on {loc_equal:.6f} of cells")
+    del pk, pp, dvk, dvp, pad
+    up, jp = st.scan_unpacked_plain(qs, Xs, xsq, tn, grp, acc)
+    # v = |x|^2 - 2 q.x: the error's scale is that of the two terms, read off
+    # the plain side's pick (2 q.x = |x|^2 - v)
+    xs_pick = xsq[jp.long()]
+    terms = xs_pick + (xs_pick - up).abs()
+    err = (uk - up).abs()
+    u_err = float(err.max())
+    u_ratio = float((err / terms).max())
+    if u_ratio > B5_TERM_RTOL:
+        failures.append(f"{label}: B5 values off by {u_ratio:.3g} of their terms "
+                        f"(> {B5_TERM_RTOL})")
+    id_equal = float((jk == jp).float().mean())
+    if id_equal < B5_ID_EQUAL:
+        failures.append(f"{label}: B5 ids equal on {id_equal:.6f} of cells")
+    return {"shape": label, "entry": want_entry, "b2_loc_equal_frac": loc_equal,
+            "b2_max_abs_err": scan_err, "b5_max_abs_err": u_err,
+            "b5_max_err_over_terms": u_ratio, "b5_id_equal_frac": id_equal}
+
+
 def scan_rows(torch, X, Q):
-    """B2 and B5 against their plain versions on the card at 200k x 128,
-    B=2048: the scan outputs directly (B2: loc bits, decoded distances; B5:
-    f32 values and row ids), then the ids and distances after the overfetch
-    and f32 refine."""
+    """B2 and B5 against their plain versions on the card. The tensor-core
+    entries at the path's shape (200k x 128, B=2048, bf16) and at a ragged one
+    (B=2000, a 30000-row corpus whose last span is one tile short, d=64); the
+    f32-FMA entry on a small f32 case with d=40. At the path's shape also the
+    ids and distances after the overfetch and f32 refine, and the times, each
+    kernel in turns with its one-call PyTorch yardstick."""
+    from hnsw_tpu_torch.ops import kernel_lib
     from hnsw_tpu_torch.ops import scan_topk as st
 
     dev = torch.device("cuda")
@@ -321,24 +418,27 @@ def scan_rows(torch, X, Q):
     qb = torch.as_tensor(Q[:Bq], device=dev)
     qs = qb.to(torch.bfloat16)
     tn, grp = st.SCAN_TN, st.SCAN_GROUP
-    # the packed scan itself: both sides sum the same f32 products of bf16
-    # inputs in different orders, so a near-tie may swap a cell's pick
-    pk = st.scan_packed(qs, Xs, xsq, tn, grp, acc)
-    pp = st.scan_packed_plain(qs, Xs, xsq, tn, grp, acc)
-    LB = st._geometry(Xp.shape[0], tn, grp, acc)[4]
-    mask = (1 << LB) - 1
-    loc_equal = float(((pk & mask) == (pp & mask)).float().mean())
-    empty = (pk == st._INT_MAX) | (pp == st._INT_MAX)
-    if not torch.equal(pk[empty], pp[empty]):
-        failures.append("B2 packed scan: empty cells differ")
-    dvk = (pk & ~mask).view(torch.float32)[~empty]
-    dvp = (pp & ~mask).view(torch.float32)[~empty]
-    scan_err = float((dvk - dvp).abs().max()) if dvk.numel() else 0.0
-    if not close(dvk, dvp, B2_SCAN_RTOL, B2_SCAN_ATOL):
-        failures.append("B2 packed scan: decoded distances beyond tolerance")
-    if loc_equal < B2_LOC_EQUAL:
-        failures.append(f"B2 packed scan: loc bits equal on {loc_equal:.6f} of cells")
-    del pk, pp, dvk, dvp, empty
+    Np = Xp.shape[0]
+    n_blocks = -(-(Np // tn) // acc)
+    checks = [compare_scans(torch, st, kernel_lib, qs, Xs, xsq, acc,
+                            f"path B={Bq} N={Np} d={d} bf16 acc={acc}", "wgmma", failures)]
+    # ragged: B not a multiple of 128, 15 tiles in spans of 4 (the last holds
+    # 3), d one TMA box, 720 padding rows
+    rng = np.random.default_rng(7)
+    Xr, xr, _ = st.pad_corpus(rng.standard_normal((30000, 64)).astype(np.float32))
+    Qr = torch.as_tensor(rng.standard_normal((2000, 64)).astype(np.float32), device=dev)
+    checks.append(compare_scans(
+        torch, st, kernel_lib, Qr.to(torch.bfloat16),
+        torch.as_tensor(Xr, device=dev).to(torch.bfloat16), torch.as_tensor(xr, device=dev),
+        4, "ragged B=2000 N=30720 d=64 bf16 acc=4", "wgmma", failures))
+    # f32 (full-precision contract) and a d the tensor path does not take
+    Xf, xf, _ = st.pad_corpus(rng.standard_normal((9000, 40)).astype(np.float32))
+    Qf = torch.as_tensor(rng.standard_normal((100, 40)).astype(np.float32), device=dev)
+    checks.append(compare_scans(
+        torch, st, kernel_lib, Qf, torch.as_tensor(Xf, device=dev),
+        torch.as_tensor(xf, device=dev), 2, "f32 B=100 N=10240 d=40 acc=2", "simt", failures))
+    del Xr, xr, Qr, Xf, xf, Qf
+    at_path = checks[0]
     # after decode, overfetch and refine, as the exact engine serves
     dk, ik = st.l2_topk(qb, Xd, xsq, k, Xscan=Xs, acc=acc)
     dp, ipl = st.l2_topk(qb, Xd, xsq, k, Xscan=Xs, acc=acc, plain=True)
@@ -349,39 +449,34 @@ def scan_rows(torch, X, Q):
         failures.append(f"B2 ids set-equal on {frac:.4f} of queries")
     if not close(dk, dp, B2_RTOL, 0.0):
         failures.append("B2 distances beyond tolerance")
-    ms = cuda_ms(torch, lambda: st.scan_packed(qs, Xs, xsq, tn, grp, acc))
-    plain_ms = cuda_ms(torch, lambda: st.scan_packed_plain(qs, Xs, xsq, tn, grp, acc))
 
     def library():
         gq = torch.matmul(qs, Xs.T)
         return torch.topk(xsq[None, :] - 2.0 * gq.float(), k + 8, dim=1,
                           largest=False)
-    lib_ms = cuda_ms(torch, library)
-    Np = Xp.shape[0]
-    n_blocks = -(-(Np // tn) // acc)
+    ms, lib_ms = cuda_ms_turns(
+        torch, [lambda: st.scan_packed(qs, Xs, xsq, tn, grp, acc), library])
+    plain_ms = cuda_ms(torch, lambda: st.scan_packed_plain(qs, Xs, xsq, tn, grp, acc))
+    flops = 2 * Bq * Np * d
     nbytes = Np * d * 2 + Np * 4 + Bq * d * 2 + n_blocks * Bq * 256 * 4
-    bms, by = bound_ms(nbytes, 2 * Bq * Np * d, BF16_FLOPS)
+    bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    if ms > lib_ms:
+        failures.append(f"B2 {ms:.3f} ms is slower than its library call {lib_ms:.3f} ms")
     row = {"name": "B2", "route": "cuda",
            "source": "hnsw_tpu_torch/csrc/scan_topk.cu",
            "replaces": "hnsw_tpu/ops/pallas_topk.py:106",
-           "counter": "scan_topk",
-           "max_abs_err": scan_err, "ms": ms,
+           "counter": "scan_topk", "entry": at_path["entry"],
+           "max_abs_err": at_path["b2_max_abs_err"], "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-           "library_ms": lib_ms, "loc_equal_frac": loc_equal,
+           "epilogue_bound_ms": Bq * Np * B2_EPILOGUE_INSTR / CUDA_CORE_INSTR_PER_S * 1e3,
+           "tflops": flops / ms / 1e9,
+           "ms_back_to_back": cuda_ms_queued(
+               torch, lambda: st.scan_packed(qs, Xs, xsq, tn, grp, acc)),
+           "library_ms": lib_ms, "loc_equal_frac": at_path["b2_loc_equal_frac"],
            "refined_max_abs_err": float((dk - dp).abs().max()),
-           "set_equal_frac": frac}
+           "set_equal_frac": frac, "shapes_checked": checks}
     rows = [row]
     # ---- B5: the unpacked scan on the same inputs
-    uk, jk = st.scan_unpacked(qs, Xs, xsq, tn, grp, acc)
-    up, jp = st.scan_unpacked_plain(qs, Xs, xsq, tn, grp, acc)
-    torch.cuda.synchronize()
-    u_err = float((uk - up).abs().max())
-    if not close(uk, up, B5_RTOL, B5_ATOL):
-        failures.append("B5 unpacked scan: values beyond tolerance")
-    id_equal = float((jk == jp).float().mean())
-    if id_equal < B5_ID_EQUAL:
-        failures.append(f"B5 unpacked scan: ids equal on {id_equal:.6f} of cells")
-    del uk, jk, up, jp
     du, iu = st.l2_topk(qb, Xd, xsq, k, Xscan=Xs, acc=acc, packed=False)
     dup, iup = st.l2_topk(qb, Xd, xsq, k, Xscan=Xs, acc=acc, packed=False, plain=True)
     torch.cuda.synchronize()
@@ -393,18 +488,27 @@ def scan_rows(torch, X, Q):
         failures.append("B5 distances beyond tolerance")
     vs_packed = float((torch.sort(iu, 1).values == torch.sort(ik, 1).values).all(1)
                       .float().mean())
-    u_ms = cuda_ms(torch, lambda: st.scan_unpacked(qs, Xs, xsq, tn, grp, acc))
+    u_ms, u_lib_ms = cuda_ms_turns(
+        torch, [lambda: st.scan_unpacked(qs, Xs, xsq, tn, grp, acc), library])
     u_plain_ms = cuda_ms(torch, lambda: st.scan_unpacked_plain(qs, Xs, xsq, tn, grp, acc),
                          warmup=1, iters=3)
     u_bytes = Np * d * 2 + Np * 4 + Bq * d * 2 + 2 * n_blocks * Bq * 256 * 4
-    u_bms, u_by = bound_ms(u_bytes, 2 * Bq * Np * d, BF16_FLOPS)
+    u_bms, u_by = bound_ms(u_bytes, flops, BF16_FLOPS)
+    if u_ms > u_lib_ms:
+        failures.append(f"B5 {u_ms:.3f} ms is slower than its library call {u_lib_ms:.3f} ms")
     rows.append({"name": "B5", "route": "cuda",
                  "source": "hnsw_tpu_torch/csrc/scan_topk_unpacked.cu",
                  "replaces": "hnsw_tpu/ops/pallas_topk.py:38",
-                 "counter": "scan_topk_unpacked",
-                 "max_abs_err": u_err, "ms": u_ms, "plain_ms": u_plain_ms,
+                 "counter": "scan_topk_unpacked", "entry": at_path["entry"],
+                 "max_abs_err": at_path["b5_max_abs_err"],
+                 "max_err_over_terms": at_path["b5_max_err_over_terms"],
+                 "ms": u_ms, "plain_ms": u_plain_ms,
                  "bound_ms": u_bms, "bound_by": u_by,
-                 "library_ms": cuda_ms(torch, library), "id_equal_frac": id_equal,
+                 "epilogue_bound_ms": Bq * Np * B5_EPILOGUE_INSTR / CUDA_CORE_INSTR_PER_S * 1e3,
+                 "tflops": flops / u_ms / 1e9,
+                 "ms_back_to_back": cuda_ms_queued(
+                     torch, lambda: st.scan_unpacked(qs, Xs, xsq, tn, grp, acc)),
+                 "library_ms": u_lib_ms, "id_equal_frac": at_path["b5_id_equal_frac"],
                  "refined_max_abs_err": float((du - dup).abs().max()),
                  "set_equal_frac": u_frac, "set_equal_packed_frac": vs_packed})
     emit({"phase": "kernels", "rows": rows, "failures": failures})
@@ -775,6 +879,16 @@ def main():
         windows.append(("serve k=100 ef=192 expand=8 pool=256 batch=16384",
                         lambda: device_search_stream(h, Q, 100, 192, batch=16384,
                                                      expand=8, pool=256)))
+        if bf is not None:
+            from hnsw_tpu_torch.ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk_stream
+            Xd, xsq, Xscan, _, acc = bf._scan_device()
+            windows.append(("exact k=10 packed, one 2048-query batch",
+                            lambda: bf.search_batch(Q[:2048], 10)))
+            windows.append(("exact k=100 unpacked, one 2048-query batch",
+                            lambda: l2_topk_stream(
+                                Q[:2048], Xd, xsq, 100, tn=SCAN_TN, group=SCAN_GROUP,
+                                Xscan=Xscan, acc=acc, overfetch=bf.SCAN_OVERFETCH,
+                                batch=2048, packed=False)))
         windows.append(("build (a second, traced build of the same index)",
                         lambda: phase_build(torch, X)))
         for label, fn in windows:
@@ -794,6 +908,14 @@ def main():
         ran, counts = needed.get(r["name"], (False, None))
         if ran and counts[c] == 0:
             failures.append(f"kernel {r['name']} never launched on its path")
+        if "entry" in r:  # the scans: every launch of the paths by that entry
+            e = f"{c}.{r['entry']}"
+            r["launches_by_entry"] = {
+                "path1": {k.split(".")[1]: v for k, v in path1.items() if k.startswith(c + ".")},
+                "path2": {k.split(".")[1]: v for k, v in path2.items() if k.startswith(c + ".")}}
+            if ran and (counts[e] == 0 or counts[e] != counts[c]):
+                failures.append(f"kernel {r['name']} did not run its path through the "
+                                f"{r['entry']} entry ({counts[e]} of {counts[c]} launches)")
     if ran2 and (path2["codec_scores_ids"] == 0 or path2["scan_topk"] == 0):
         failures.append("path 2 did not run B1 and B2")
     print(card, flush=True)

@@ -10,22 +10,36 @@
 // the low LB mantissa bits (index-in-mantissa packing: int32 order equals
 // float order for d2 >= 0, so a plain int min carries the identity along).
 // Output: packed int32 [spans, B, 2G] (min1 lanes, then min2 lanes), decoded by
-// the caller exactly as the JAX package decodes its kernel's output.
+// the caller exactly as the JAX package decodes its kernel's output. Two
+// candidates of a cell never pack to the same int (their loc differ), so no
+// tie rule is needed.
 //
 // Bound on the H100: operations. 2*B*N*d flops (105 GFLOP at B=2048,
 // N=200704, d=128) against 51 MB of bf16 corpus: ~0.11 ms at the bf16
-// tensor-core peak. This first version computes the distance tile with f32
-// FMAs on bf16 (or f32) inputs in a classic register-tiled layout: a block
-// owns 64 queries x one span; each of its 256 threads holds a 4-query x
-// 8-lane accumulator tile and the keep-2 state of those 32 (query, lane)
-// cells in registers, so no candidate leaves the SM until the span is done.
-// The queries sit transposed in shared memory for the whole span; corpus rows
-// stream through a [32 x 129] f32 staging tile (padded against bank
-// conflicts). Tensor-core (mma/wgmma) tiles are the next step.
+// tensor-core peak; the keep-2 update (7 CUDA-core instructions per element:
+// add, fma, max, and-or, max, min, min) is bounded by the instruction rate at about
+// the same time.
+//
+// Two entries, chosen by the wrapper from dtype and d (never as a fallback):
+//
+//  * entry 1, "wgmma": bf16 inputs with d a multiple of 16. The tile product
+//    of scan_tile.cuh (TMA ring, wgmma m64n128k16, two warpgroups in
+//    turns) with the epilogue below: a thread keeps the packed pair (m1, m2)
+//    of its 64 cells in 128 registers and updates them without a branch,
+//    m2 = min(m2, max(m1, p)); m1 = min(m1, p). Sums are f32 sums of exact
+//    bf16 products in the tensor core's order, not a chain of FMAs.
+//  * entry 0, "simt": f32 inputs (the scan's full-precision contract: TF32
+//    would keep 10 mantissa bits) and any other d. f32 FMAs in a classic
+//    register-tiled layout: a block owns 64 queries x one span; each of its
+//    256 threads holds a 4-query x 8-lane accumulator tile and the keep-2
+//    state of those 32 cells in registers; the queries sit transposed in
+//    shared memory, corpus rows stream through a [32 x 129] f32 staging tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "scan_tile.cuh"
 
 namespace {
 
@@ -151,16 +165,89 @@ int launch(const void* q, const void* X, const void* xsq, int B, int Np, int d,
       n_tiles, LB, (int32_t*)out);
   return (int)cudaGetLastError();
 }
-
 }  // namespace
+
+// Epilogue of the tensor-core entry: packed keep-2 in registers. (A named
+// type: it instantiates a __global__ template.)
+struct PackedEpilogue {
+  static constexpr int kExtraSmem = 0;
+  struct Params {
+    int32_t* out;
+    int32_t hi_mask;
+  };
+  int32_t m1[64], m2[64];
+  float qs0, qs1;
+  int32_t hi_mask;
+
+  __device__ __forceinline__ void init(const Params& p, uint8_t*, int) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) { m1[i] = 0x7FFFFFFF; m2[i] = 0x7FFFFFFF; }
+    hi_mask = p.hi_mask;
+  }
+
+  // |q|^2 of this thread's two query rows, from the bf16 values the product
+  // reads
+  __device__ __forceinline__ void row_setup(const __nv_bfloat16* __restrict__ q, int d, int B,
+                                            int row0) {
+    const int row1 = row0 + 8;
+    qs0 = 0.f;
+    qs1 = 0.f;
+    for (int k = 0; k < d; ++k) {
+      const float u = row0 < B ? __bfloat162float(q[(size_t)row0 * d + k]) : 0.f;
+      const float v = row1 < B ? __bfloat162float(q[(size_t)row1 * d + k]) : 0.f;
+      qs0 += u * u;
+      qs1 += v * v;
+    }
+  }
+
+  __device__ __forceinline__ void update(const float (&a)[64], const float* xs,
+                                         int32_t loc) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 x = *reinterpret_cast<const float2*>(xs + 8 * j);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float s = (e ? x.y : x.x) + (h ? qs1 : qs0);
+          const float v = fmaxf(fmaf(-2.0f, a[i], s), 0.0f);
+          const int32_t p = (__float_as_int(v) & hi_mask) | loc;
+          m2[i] = min(m2[i], max(m1[i], p));
+          m1[i] = min(m1[i], p);
+        }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Params& p, int span, int B, int row0, int l4,
+                                        size_t) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qg = row0 + 8 * h;
+      if (qg >= B) continue;
+      int32_t* o = p.out + ((size_t)span * B + qg) * (2 * LANES);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int i = 4 * j + 2 * h, c = 8 * j + 2 * l4;
+        *reinterpret_cast<int2*>(o + c) = make_int2(m1[i], m1[i + 1]);
+        *reinterpret_cast<int2*>(o + LANES + c) = make_int2(m2[i], m2[i + 1]);
+      }
+    }
+  }
+};
 
 extern "C" int scan_topk_launch(const void* q, const void* X, const void* xsq,
                                 int B, int Np, int d, int tn, int group,
-                                int acc, int LB, int bf16, void* out,
+                                int acc, int LB, int bf16, int entry, void* out,
                                 void* stream) {
   if (B == 0) return 0;
   if (tn != group * LANES || Np % tn != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (entry == 1) {
+    if (!bf16) return (int)cudaErrorInvalidValue;
+    PackedEpilogue::Params p{(int32_t*)out, ~((1 << LB) - 1)};
+    return scan_tile::launch<PackedEpilogue>(q, X, xsq, B, Np, d, tn, group, acc, p, s);
+  }
   if (bf16) return launch<__nv_bfloat16>(q, X, xsq, B, Np, d, tn, group, acc, LB, out, s);
   return launch<float>(q, X, xsq, B, Np, d, tn, group, acc, LB, out, s);
 }

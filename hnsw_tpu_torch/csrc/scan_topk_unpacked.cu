@@ -22,27 +22,48 @@
 //
 // Bound on the H100: operations. 2*B*N*d flops (105 GFLOP at B=2048,
 // N=200704, d=128) against 51 MB of bf16 corpus plus two [spans, B, 256]
-// outputs: ~0.11 ms at the bf16 tensor-core peak. Like scan_topk.cu this
-// version computes the tile with f32 FMAs in a register-tiled layout: a block
-// owns 64 queries x one span, each of its 256 threads a 4-query x 8-lane
-// accumulator tile and the keep-2 state of those 32 cells. Registers are the
-// scarce resource: a value and an id for two places would take 128 registers
-// a thread on top of the 32 accumulators, and a first version that kept 96
-// (two values and one packed id word per cell) compiled to 180 registers, one
-// block per SM, and ran at half the packed scan's rate. So only the two
-// values stay in registers (every candidate is compared with them); a cell's
-// two candidates are remembered as their local offsets loc = tile_in_span *
-// group + s, 16 bits each in one word (the wrapper checks acc * group <=
-// 65536), and those words live in shared memory, [cell][thread] so that no
-// two threads of a warp share a bank: they are touched only when a candidate
-// enters a cell, which becomes rare as the span goes on. Global row ids are
-// formed when the span is done. __launch_bounds__(256, 2) holds the kernel to
-// the 128 registers that let two blocks share an SM.
+// outputs: ~0.11 ms at the bf16 tensor-core peak; the keep-2 update (10
+// instructions per element in the tensor-core entry: fma, two compares,
+// select, byte permute, max, min, min, a shared-memory load and a predicated
+// store) is bounded by the instruction rate at about the same time.
+//
+// Registers are the scarce resource in both entries: a value and an id for
+// two places would take four words a cell. Only the two values stay in
+// registers (every candidate is compared with them); a cell's two candidates
+// are remembered as their local offsets loc = tile_in_span * group + s, 16
+// bits each in one word (the wrapper checks acc * group <= 65536), and those
+// words live in shared memory, [cell][thread] so that no two threads of a
+// warp share a bank. Global row ids are formed when the span is done.
+//
+// Two entries, chosen by the wrapper from dtype and d (never as a fallback):
+//
+//  * entry 1, "wgmma": bf16 inputs with d a multiple of 16. The tile product
+//    of scan_tile.cuh with the epilogue below: the values of a thread's 64
+//    cells in 128 registers, updated without a branch (m2 = min(m2, max(m1,
+//    v)); m1 = min(m1, v)); the id word is read for every candidate, the new
+//    word formed by one byte permute, and written back under the predicate
+//    `v < m2`: with read and write inside `if (v < m2)` some lane of a warp
+//    takes the branch at almost every candidate (112 rows a cell), and each
+//    divergent branch then waits for its own load. The 64 KB
+//    of id words leave room for three stages of the ring at d=128 (the packed
+//    scan has four). Sums are f32 sums of exact bf16 products in the tensor
+//    core's order, so values agree with a chain of FMAs to f32 rounding of
+//    the terms |x|^2 and 2 q.x, not bit for bit.
+//  * entry 0, "simt": f32 inputs (full-precision contract) and any other d.
+//    f32 FMAs in a register-tiled layout: a block owns 64 queries x one span,
+//    each of its 256 threads a 4-query x 8-lane accumulator tile and the
+//    keep-2 state of those 32 cells. A first version that kept 96 words of
+//    state in registers compiled to 180 registers, one block per SM, and ran
+//    at half the packed scan's rate; with the id words in shared memory
+//    __launch_bounds__(256, 2) holds it to the 128 registers that let two
+//    blocks share an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "scan_tile.cuh"
 
 namespace {
 
@@ -181,14 +202,94 @@ int launch(const void* q, const void* X, const void* xsq, int B, int Np, int d,
 
 }  // namespace
 
+// Epilogue of the tensor-core entry: keep-2 values in registers, the two
+// candidates' local offsets in one shared-memory word per cell. (A named
+// type: it instantiates a __global__ template.)
+struct UnpackedEpilogue {
+  static constexpr int kExtraSmem = 64 * 256 * 4;  // [64 cells][256 threads]
+  struct Params {
+    float* outd;
+    int32_t* outi;
+  };
+  float m1[64], m2[64];
+  uint32_t* Ls;  // this thread's column of id words
+
+  __device__ __forceinline__ void init(const Params&, uint8_t* extra, int ctid) {
+    Ls = reinterpret_cast<uint32_t*>(extra) + ctid;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      m1[i] = CUDART_INF_F;
+      m2[i] = CUDART_INF_F;
+      Ls[i * 256] = 0u;
+    }
+  }
+
+  __device__ __forceinline__ void row_setup(const __nv_bfloat16*, int, int, int) {}
+
+  __device__ __forceinline__ void update(const float (&a)[64], const float* xs,
+                                         uint32_t loc) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 x = *reinterpret_cast<const float2*>(xs + 8 * j);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float v = fmaf(-2.0f, a[i], e ? x.y : x.x);
+          // strict comparisons: the lower row keeps a tied place. No branch:
+          // the word is read for every candidate and written back under a
+          // predicate, so the 64 cells' reads overlap instead of each waiting
+          // inside its own divergent branch.
+          const bool in2 = v < m2[i];
+          const uint32_t L = Ls[i * 256];
+          // first place: (old first -> second, loc -> first); second: loc -> second
+          const uint32_t Ln = __byte_perm(L, loc, v < m1[i] ? 0x1054u : 0x5410u);
+          if (in2) Ls[i * 256] = Ln;
+          m2[i] = fminf(m2[i], fmaxf(m1[i], v));
+          m1[i] = fminf(m1[i], v);
+        }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Params& p, int span, int B, int row0, int l4,
+                                        size_t row_base) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qg = row0 + 8 * h;
+      if (qg >= B) continue;
+      const size_t o = ((size_t)span * B + qg) * (2 * LANES);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int i = 4 * j + 2 * h, c = 8 * j + 2 * l4;
+        const uint32_t La = Ls[i * 256], Lb = Ls[(i + 1) * 256];
+        // tn = group * 128, so a local offset l is row l * 128 + lane of the span
+        const int32_t r = (int32_t)row_base + c;
+        *reinterpret_cast<float2*>(p.outd + o + c) = make_float2(m1[i], m1[i + 1]);
+        *reinterpret_cast<float2*>(p.outd + o + LANES + c) = make_float2(m2[i], m2[i + 1]);
+        *reinterpret_cast<int2*>(p.outi + o + c) =
+            make_int2(r + (int32_t)(La & 0xFFFFu) * LANES, r + 1 + (int32_t)(Lb & 0xFFFFu) * LANES);
+        *reinterpret_cast<int2*>(p.outi + o + LANES + c) =
+            make_int2(r + (int32_t)(La >> 16) * LANES, r + 1 + (int32_t)(Lb >> 16) * LANES);
+      }
+    }
+  }
+};
+
 extern "C" int scan_topk_unpacked_launch(const void* q, const void* X,
                                          const void* xsq, int B, int Np, int d,
                                          int tn, int group, int acc, int bf16,
-                                         void* outd, void* outi, void* stream) {
+                                         int entry, void* outd, void* outi,
+                                         void* stream) {
   if (B == 0) return 0;
   if (tn != group * LANES || Np % tn != 0 || (long long)acc * group > 65536)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (entry == 1) {
+    if (!bf16) return (int)cudaErrorInvalidValue;
+    UnpackedEpilogue::Params p{(float*)outd, (int32_t*)outi};
+    return scan_tile::launch<UnpackedEpilogue>(q, X, xsq, B, Np, d, tn, group, acc, p, s);
+  }
   if (bf16)
     return launch<__nv_bfloat16>(q, X, xsq, B, Np, d, tn, group, acc, outd, outi, s);
   return launch<float>(q, X, xsq, B, Np, d, tn, group, acc, outd, outi, s);

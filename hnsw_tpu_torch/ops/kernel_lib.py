@@ -3,13 +3,16 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library with
 a plain C interface (no PyTorch headers: seconds to build instead of minutes),
 loaded with ``ctypes``. Libraries land in ``build/hnsw_tpu_torch/`` at the repo
-root, named by a hash of their source, so an edited source rebuilds and an
-unchanged one is reused. Nothing here runs at import time: the CPU tests import
+root, named by a hash of their source and of the ``csrc/*.cuh`` headers it
+includes, so an edited source or header rebuilds and an unchanged one is
+reused. Nothing here runs at import time: the CPU tests import
 every module of the package on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per wrapper. A wrapper bumps its count
 exactly where it launches its kernel, so a caller can reset the counts, drive a
-path, and read which kernels that path went through.
+path, and read which kernels that path went through. The two scans have two
+kernel entries each (``scan_topk.scan_entry``): beside the wrapper's own count
+``<name>.wgmma`` and ``<name>.simt`` say which entry each launch took.
 """
 
 from __future__ import annotations
@@ -30,8 +33,11 @@ SOURCES = ("codec_scores", "codec_scores_gathered", "scan_topk",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+SCAN_ENTRIES = ("simt", "wgmma")  # the launch functions' ``entry`` argument
 LAUNCHES = {"codec_scores_ids": 0, "codec_scores": 0,
-            "codec_scores_gathered": 0, "scan_topk": 0, "scan_topk_unpacked": 0}
+            "codec_scores_gathered": 0, "scan_topk": 0, "scan_topk_unpacked": 0,
+            **{f"{name}.{entry}": 0 for name in ("scan_topk", "scan_topk_unpacked")
+               for entry in SCAN_ENTRIES}}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -51,8 +57,25 @@ def _nvcc() -> str:
                        "with the CUDA toolkit (set NVCC to its path)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def _source_bytes(path: Path, seen=None) -> bytes:
+    """A source's bytes followed by those of every ``csrc`` header it
+    includes (``#include "x.cuh"``), headers of headers too, each once."""
+    seen = set() if seen is None else seen
+    seen.add(path.name)
+    src = path.read_bytes()
+    out = [src]
+    for inc in _INCLUDE.findall(src):
+        header = CSRC / inc.decode()
+        if header.name not in seen and header.exists():
+            out.append(_source_bytes(header, seen))
+    return b"".join(out)
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC / f"{name}.cu")
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
@@ -131,9 +154,9 @@ def _bind(name: str, lib):
                                             _I, _I, _P, _P, _P]
         lib.codec_scores_launch.restype = _I
     elif name == "scan_topk":
-        # (q, X, xsq, B, Np, d, tn, group, acc, LB, bf16, out, stream)
+        # (q, X, xsq, B, Np, d, tn, group, acc, LB, bf16, entry, out, stream)
         lib.scan_topk_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                         _I, _I, _P, _P]
+                                         _I, _I, _I, _P, _P]
         lib.scan_topk_launch.restype = _I
     elif name == "codec_scores_gathered":
         # (q, blk, csq, qsn, scale_ptr, B, K, d, form, out, stream)
@@ -141,9 +164,9 @@ def _bind(name: str, lib):
                                                      _I, _I, _P, _P]
         lib.codec_scores_gathered_launch.restype = _I
     elif name == "scan_topk_unpacked":
-        # (q, X, xsq, B, Np, d, tn, group, acc, bf16, outd, outi, stream)
+        # (q, X, xsq, B, Np, d, tn, group, acc, bf16, entry, outd, outi, stream)
         lib.scan_topk_unpacked_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
-                                                  _I, _I, _P, _P, _P]
+                                                  _I, _I, _I, _P, _P, _P]
         lib.scan_topk_unpacked_launch.restype = _I
 
 

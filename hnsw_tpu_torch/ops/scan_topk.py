@@ -19,11 +19,20 @@ full f32 values of ``|x|^2 - 2 q.x`` and the global row ids as a second
 output; ``|q|^2`` joins after the top-k.
 
 Card geometry (re-derived for the H100; the TPU's ``pick_tn`` VMEM sizing is
-gone): the CUDA kernel fixes G = 128 lane groups per tile (``tn = 128 *
-group``) and ``SCAN_SPANS`` spans per corpus, so the grid holds ``B/64 x
-SCAN_SPANS`` blocks (512 at B = 2048) and the candidate buffer stays at
-``SCAN_SPANS * 2 * 128`` ints per query. Bound on the H100: operations (see
-``csrc/scan_topk.cu``).
+gone): the CUDA kernels fix G = 128 lane groups per tile (``tn = 128 *
+group``) and about ``SCAN_SPANS`` spans per corpus, so the candidate buffer
+stays at ``spans * 2 * 128`` words per query. Bound on the H100: operations
+(see ``csrc/scan_topk.cu``).
+
+Each kernel has two entries, chosen here from dtype and ``d`` alone
+(``scan_entry``), never after a failed build or launch: ``"wgmma"``, the
+tensor-core tile product of ``csrc/scan_tile.cuh`` (bf16 queries and corpus,
+``d`` a multiple of 16 that fits its shared-memory ring), whose grid is
+``B/128 x spans`` blocks (224 at B = 2048 over the 200k corpus); and
+``"simt"``, the register-tiled f32-FMA kernel (``B/64 x spans`` blocks), for
+f32 inputs (whose contract is full f32: TF32 would keep 10 mantissa bits) and
+every other ``d``. ``kernel_lib.LAUNCHES["scan_topk.wgmma"]`` etc. count the
+launches of each entry.
 """
 
 from __future__ import annotations
@@ -58,13 +67,36 @@ def _geometry(N: int, tn: int, group: int, acc: int):
     return G, n_tiles, acc, n_blocks, LB
 
 
-def _check_card_geometry(G: int, tn: int, group: int, qs, Xs):
+# Largest d the tensor-core entry takes: the query tile, two stages of the
+# ring and the epilogue's own bytes must fit in 227 KB of shared memory
+# (``scan_tile::pick_stages``). The unpacked epilogue keeps 64 KB of id words.
+WGMMA_MAX_D = {True: 256, False: 192}  # keyed by ``packed``
+
+
+def scan_entry(dtype, d: int, packed: bool = True) -> str:
+    """Which kernel entry a CUDA scan of this dtype and depth takes:
+    ``"wgmma"`` for bf16 with ``d`` a multiple of 16 up to
+    ``WGMMA_MAX_D[packed]``, else ``"simt"``. A choice by shape: the entry it
+    names either launches or raises."""
+    if dtype == torch.bfloat16 and d % 16 == 0 and 0 < d <= WGMMA_MAX_D[bool(packed)]:
+        return "wgmma"
+    return "simt"
+
+
+def _check_card_geometry(G: int, tn: int, group: int, qs, Xs, packed: bool) -> str:
+    """Raises on what the CUDA scan does not take; returns the entry."""
     if G != 128:
         raise ValueError(f"the CUDA scan runs 128 lane groups (tn = 128 * group); "
                          f"got tn={tn} group={group}")
     if Xs.dtype not in (torch.bfloat16, torch.float32) or qs.dtype != Xs.dtype:
         raise ValueError("the CUDA scan takes bf16 or f32 queries and corpus "
                          "of one type")
+    return scan_entry(Xs.dtype, qs.shape[1], packed)
+
+
+def _count_launch(name: str, entry: str):
+    kernel_lib.LAUNCHES[name] += 1
+    kernel_lib.LAUNCHES[f"{name}.{entry}"] += 1
 
 
 def scan_packed_plain(qs, Xs, xsq, tn: int, group: int, acc: int):
@@ -103,7 +135,7 @@ def scan_packed(qs, Xs, xsq, tn: int, group: int, acc: int):
     B, d = qs.shape
     N = Xs.shape[0]
     G, n_tiles, acc, n_blocks, LB = _geometry(N, tn, group, acc)
-    _check_card_geometry(G, tn, group, qs, Xs)
+    entry = _check_card_geometry(G, tn, group, qs, Xs, packed=True)
     dev = Xs.device
     qs = qs.to(dev).contiguous()
     Xs = Xs.contiguous()
@@ -113,9 +145,10 @@ def scan_packed(qs, Xs, xsq, tn: int, group: int, acc: int):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.scan_topk_launch(qs.data_ptr(), Xs.data_ptr(), xsq.data_ptr(), B,
                               N, d, tn, group, acc, LB,
-                              int(Xs.dtype == torch.bfloat16), out.data_ptr(),
-                              stream)
-    kernel_lib.LAUNCHES["scan_topk"] += 1
+                              int(Xs.dtype == torch.bfloat16),
+                              kernel_lib.SCAN_ENTRIES.index(entry),
+                              out.data_ptr(), stream)
+    _count_launch("scan_topk", entry)
     kernel_lib.check(rc, "scan_topk")
     return out
 
@@ -182,7 +215,7 @@ def scan_unpacked(qs, Xs, xsq, tn: int, group: int, acc: int):
     B, d = qs.shape
     N = Xs.shape[0]
     G, n_tiles, acc, n_blocks, _ = _geometry(N, tn, group, acc)
-    _check_card_geometry(G, tn, group, qs, Xs)
+    entry = _check_card_geometry(G, tn, group, qs, Xs, packed=False)
     if acc * group > 65536:
         raise ValueError(f"the unpacked CUDA scan holds a span's row offsets in "
                          f"16 bits (acc * group <= 65536); got acc={acc} group={group}")
@@ -196,8 +229,9 @@ def scan_unpacked(qs, Xs, xsq, tn: int, group: int, acc: int):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.scan_topk_unpacked_launch(
         qs.data_ptr(), Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, group, acc,
-        int(Xs.dtype == torch.bfloat16), outd.data_ptr(), outi.data_ptr(), stream)
-    kernel_lib.LAUNCHES["scan_topk_unpacked"] += 1
+        int(Xs.dtype == torch.bfloat16), kernel_lib.SCAN_ENTRIES.index(entry),
+        outd.data_ptr(), outi.data_ptr(), stream)
+    _count_launch("scan_topk_unpacked", entry)
     kernel_lib.check(rc, "scan_topk_unpacked")
     return outd, outi
 

@@ -313,6 +313,118 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
     assert rep["scan_topk_unpacked"] == []
 
 
+@pytest.mark.parametrize("dtype,d,packed,entry", [
+    (torch.bfloat16, 128, True, "wgmma"), (torch.bfloat16, 128, False, "wgmma"),
+    (torch.bfloat16, 16, True, "wgmma"), (torch.bfloat16, 48, False, "wgmma"),
+    (torch.bfloat16, 256, True, "wgmma"), (torch.bfloat16, 192, False, "wgmma"),
+    (torch.bfloat16, 256, False, "simt"),   # 64 KB of id words: no room for two stages
+    (torch.bfloat16, 272, True, "simt"),    # the ring does not fit
+    (torch.bfloat16, 40, True, "simt"), (torch.bfloat16, 100, False, "simt"),  # d % 16
+    (torch.float32, 128, True, "simt"), (torch.float32, 128, False, "simt"),  # full f32
+    (torch.float32, 40, True, "simt"),
+])
+def test_scan_entry_is_chosen_by_dtype_and_depth(dtype, d, packed, entry):
+    """The wrapper picks the kernel entry from dtype and ``d`` alone: bf16
+    with ``d`` a multiple of 16 that fits the shared-memory ring takes the
+    tensor-core entry, f32 (whose contract is full f32) and every other ``d``
+    the f32-FMA entry. Both names index the launch functions' ``entry``
+    argument and have a launch counter."""
+    assert st.scan_entry(dtype, d, packed) == entry
+    q = torch.zeros((4, d), dtype=dtype)
+    X = torch.zeros((256, d), dtype=dtype)
+    assert st._check_card_geometry(128, 256, 2, q, X, packed) == entry
+    assert kernel_lib.SCAN_ENTRIES.index(entry) == (1 if entry == "wgmma" else 0)
+    name = "scan_topk" if packed else "scan_topk_unpacked"
+    assert f"{name}.{entry}" in kernel_lib.LAUNCHES
+
+
+def test_card_geometry_raises_on_what_the_kernels_do_not_take():
+    q = torch.zeros((4, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="128 lane groups"):
+        st._check_card_geometry(32, 256, 8, q, q, True)
+    with pytest.raises(ValueError, match="one type"):
+        st._check_card_geometry(128, 256, 2, q, q.to(torch.float32), True)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        st._check_card_geometry(128, 256, 2, q.to(torch.float16), q.to(torch.float16), False)
+
+
+def test_scan_launch_counters_per_entry():
+    """Each scan launch counts once for its wrapper and once for the entry it
+    took; ``reset_launch_counts`` zeroes both."""
+    kernel_lib.reset_launch_counts()
+    st._count_launch("scan_topk", "wgmma")
+    st._count_launch("scan_topk", "wgmma")
+    st._count_launch("scan_topk", "simt")
+    st._count_launch("scan_topk_unpacked", "simt")
+    L = kernel_lib.LAUNCHES
+    assert (L["scan_topk"], L["scan_topk.wgmma"], L["scan_topk.simt"]) == (3, 2, 1)
+    assert (L["scan_topk_unpacked"], L["scan_topk_unpacked.wgmma"],
+            L["scan_topk_unpacked.simt"]) == (1, 0, 1)
+    kernel_lib.reset_launch_counts()
+    assert all(v == 0 for v in L.values())
+
+
+def test_lib_name_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """A library is named by a hash of its ``.cu`` and of every ``csrc``
+    header it includes, directly or through another header: editing one
+    renames (rebuilds) it, editing a header it does not include does not."""
+    monkeypatch.setattr(kernel_lib, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include <cuda.h>\n#include "tile.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    (tmp_path / "tile.cuh").write_text('#pragma once\n  #  include "ptx.cuh"\n')
+    (tmp_path / "ptx.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    a0, b0 = kernel_lib._lib_path("a"), kernel_lib._lib_path("b")
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    assert (kernel_lib._lib_path("a"), kernel_lib._lib_path("b")) == (a0, b0)
+    (tmp_path / "ptx.cuh").write_text("// v2\n")       # a header of a header
+    a1 = kernel_lib._lib_path("a")
+    assert a1 != a0 and kernel_lib._lib_path("b") == b0
+    (tmp_path / "tile.cuh").write_text('#pragma once\n#include "ptx.cuh"\n// edited\n')
+    assert kernel_lib._lib_path("a") not in (a0, a1)
+    # the package's own scans include the shared tile header
+    monkeypatch.undo()
+    for name in ("scan_topk", "scan_topk_unpacked"):
+        assert b"scan_tile.cuh" in kernel_lib._source_bytes(kernel_lib.CSRC / f"{name}.cu")
+        assert (kernel_lib.CSRC / "scan_tile.cuh").read_bytes() in \
+            kernel_lib._source_bytes(kernel_lib.CSRC / f"{name}.cu")
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_plain_scans_match_pallas_at_ragged_card_geometry(rng, packed):
+    """The card's geometry (G = 128 lane groups: tn=256, group=2) at its
+    ragged edges: B = 136 is not a multiple of the kernels' 128-query tile,
+    the 7 tiles split into spans of 3 + 3 + 1, and the last tile is mostly
+    padding rows. The plain versions against the interpreted Pallas kernels:
+    the packed scan through decode and refine, the unpacked scan's raw
+    outputs cell for cell."""
+    n, d, B, k, tn, group, acc = 1700, 32, 136, 10, 256, 2, 3
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    Q = rng.standard_normal((B, d)).astype(np.float32)
+    Xp, xsq, perm = jtopk.pad_corpus(X, tn=tn)
+    targs = (torch.from_numpy(Q), torch.from_numpy(Xp), torch.from_numpy(xsq))
+    assert st._geometry(Xp.shape[0], tn, group, acc)[:4] == (128, 7, 3, 3)
+    if packed:
+        dj, ij = jtopk.pallas_l2_topk(jnp.asarray(Q), jnp.asarray(Xp), jnp.asarray(xsq),
+                                      k, tn=tn, group=group, interpret=True, acc=acc,
+                                      packed=True)
+        dt, it = st.l2_topk(*targs, k, tn=tn, group=group, acc=acc)
+        np.testing.assert_array_equal(np.sort(it.numpy(), 1), np.sort(np.array(ij), 1))
+        np.testing.assert_allclose(dt.numpy(), np.array(dj), rtol=1e-5)
+        out = st.scan_packed(*targs, tn, group, acc)
+        assert out.shape == (3, B, 256) and out.dtype == torch.int32
+        # padding rows stay finite (3e38 packs below INT_MAX) and sort last
+        LB = st._geometry(Xp.shape[0], tn, group, acc)[4]
+        vals = (out & ~((1 << LB) - 1)).view(torch.float32)
+        assert bool(torch.isfinite(vals).all()) and int(out.max()) < st._INT_MAX
+    else:
+        dj, ij = _pallas_unpacked_outputs(Q, Xp, xsq, tn, group, acc)
+        dt, it = st.scan_unpacked(*targs, tn, group, acc)
+        assert dt.shape == (3, B, 256)
+        np.testing.assert_allclose(dt.numpy(), dj, rtol=1e-5, atol=1e-4)
+        assert (it.numpy() == ij).mean() >= 0.999  # a near-tie may swap a pick
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(rng):
     """The CUDA kernels against their plain versions (needs a card)."""
@@ -343,30 +455,46 @@ def test_kernels_match_plain_on_card(rng):
             torch.testing.assert_close(cs.codec_scores_gathered(*args),
                                        cs.codec_scores_gathered_plain(*args),
                                        rtol=SC_RTOL, atol=SC_ATOL)
-    X = rng.standard_normal((9000, 128)).astype(np.float32)
-    Xp, xsq, _ = st.pad_corpus(X)
-    Xd, xd = torch.from_numpy(Xp).to(dev), torch.from_numpy(xsq).to(dev)
-    Q = torch.from_numpy(rng.standard_normal((100, 128)).astype(np.float32)).to(dev)
-    # the packed output itself: the decoded value drops LB mantissa bits and
-    # the two sides sum in different orders (rtol 1e-4); a near-tie may swap
-    # a cell's pick, so loc bits agree on all but a few cells
-    qs, Xs = Q.to(torch.bfloat16), Xd.to(torch.bfloat16)
-    pk = st.scan_packed(qs, Xs, xd, st.SCAN_TN, st.SCAN_GROUP, 2)
-    pp = st.scan_packed_plain(qs, Xs, xd, st.SCAN_TN, st.SCAN_GROUP, 2)
-    mask = (1 << st._geometry(Xp.shape[0], st.SCAN_TN, st.SCAN_GROUP, 2)[4]) - 1
-    assert float(((pk & mask) == (pp & mask)).float().mean()) >= 0.999
-    torch.testing.assert_close((pk & ~mask).view(torch.float32),
-                               (pp & ~mask).view(torch.float32), rtol=1e-4, atol=1e-4)
-    dk, ik = st.l2_topk(Q, Xd, xd, 10, Xscan=Xd.to(torch.bfloat16), acc=2)
-    dp, ipl = st.l2_topk(Q, Xd, xd, 10, Xscan=Xd.to(torch.bfloat16), acc=2, plain=True)
-    assert torch.equal(torch.sort(ik, 1).values, torch.sort(ipl, 1).values)
-    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=0)
-    # B5: full f32 values (near 0 the form cancels: atol), ids equal but for
-    # near-ties, and the refined answers equal the packed route's
-    uk, jk = st.scan_unpacked(qs, Xs, xd, st.SCAN_TN, st.SCAN_GROUP, 2)
-    up, jp = st.scan_unpacked_plain(qs, Xs, xd, st.SCAN_TN, st.SCAN_GROUP, 2)
-    torch.testing.assert_close(uk, up, rtol=1e-5, atol=1e-4)
-    assert float((jk == jp).float().mean()) >= 0.999
-    du, iu = st.l2_topk(Q, Xd, xd, 10, Xscan=Xd.to(torch.bfloat16), acc=2, packed=False)
-    assert torch.equal(torch.sort(iu, 1).values, torch.sort(ik, 1).values)
-    torch.testing.assert_close(du, dk, rtol=1e-5, atol=0)
+    # B2 and B5. bf16 at d=128 and at d=48 (one partly filled 64-column box)
+    # takes the tensor-core entry: B=100 is not a multiple of its 128-query
+    # tile, the 5 tiles split into spans of 2 + 2 + 1, the last tile holds
+    # 1240 padding rows. f32 (full-precision contract) and d=40 take the
+    # f32-FMA entry.
+    tn, grp, acc = st.SCAN_TN, st.SCAN_GROUP, 2
+    for d, dtype, entry in ((128, torch.bfloat16, "wgmma"), (48, torch.bfloat16, "wgmma"),
+                            (128, torch.float32, "simt"), (40, torch.float32, "simt")):
+        X = rng.standard_normal((9000, d)).astype(np.float32)
+        Xp, xsq, _ = st.pad_corpus(X)
+        Xd, xd = torch.from_numpy(Xp).to(dev), torch.from_numpy(xsq).to(dev)
+        Q = torch.from_numpy(rng.standard_normal((100, d)).astype(np.float32)).to(dev)
+        qs, Xs = Q.to(dtype), Xd.to(dtype)
+        kernel_lib.reset_launch_counts()
+        # the packed output itself: the decoded value drops LB mantissa bits and
+        # the two sides sum in different orders (rtol 1e-4); a near-tie may swap
+        # a cell's pick, so loc bits agree on all but a few cells
+        pk = st.scan_packed(qs, Xs, xd, tn, grp, acc)
+        pp = st.scan_packed_plain(qs, Xs, xd, tn, grp, acc)
+        mask = (1 << st._geometry(Xp.shape[0], tn, grp, acc)[4]) - 1
+        assert float(((pk & mask) == (pp & mask)).float().mean()) >= 0.999
+        torch.testing.assert_close((pk & ~mask).view(torch.float32),
+                                   (pp & ~mask).view(torch.float32), rtol=1e-4, atol=1e-4)
+        # B5: full f32 values of |x|^2 - 2 q.x, which cancels to near 0 while
+        # its terms do not: the two summation orders differ by a few f32
+        # roundings at the terms' magnitude |x|^2 + 2 |q.x| (1e-6 of it); ids
+        # equal but for near-ties
+        uk, jk = st.scan_unpacked(qs, Xs, xd, tn, grp, acc)
+        up, jp = st.scan_unpacked_plain(qs, Xs, xd, tn, grp, acc)
+        pick = xd[jp.long()]
+        assert bool(((uk - up).abs() <= 1e-6 * (pick + (pick - up).abs())).all())
+        assert float((jk == jp).float().mean()) >= 0.999
+        assert kernel_lib.LAUNCHES[f"scan_topk.{entry}"] == 1
+        assert kernel_lib.LAUNCHES[f"scan_topk_unpacked.{entry}"] == 1
+        # after the refine both routes and the plain version agree
+        Xscan = Xs if dtype == torch.bfloat16 else None
+        dk, ik = st.l2_topk(Q, Xd, xd, 10, Xscan=Xscan, acc=acc)
+        dp, ipl = st.l2_topk(Q, Xd, xd, 10, Xscan=Xscan, acc=acc, plain=True)
+        assert torch.equal(torch.sort(ik, 1).values, torch.sort(ipl, 1).values)
+        torch.testing.assert_close(dk, dp, rtol=1e-5, atol=0)
+        du, iu = st.l2_topk(Q, Xd, xd, 10, Xscan=Xscan, acc=acc, packed=False)
+        assert torch.equal(torch.sort(iu, 1).values, torch.sort(ik, 1).values)
+        torch.testing.assert_close(du, dk, rtol=1e-5, atol=0)
