@@ -38,7 +38,12 @@ Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
 
   kernels  B1, B3 and B4 against their plain versions on the codec the serve
            phases read (its M0 and id rows), B=16384, L2/Dot/Cosine: B1 and
-           B3 at E=4 and at E=8 (the k=100 run's width), B4 at E=4
+           B3 at E=4 and at E=8 (the k=100 run's width), B4 at E=4, each
+           through the entry the paths take ("bulk", "stream") and through
+           the "rows" entry, timed in turns (``ms`` and ``was_ms``); then a
+           ragged group (d = 48, 40, 16, 128, 256, 1024; M0 = 5 to 100; one
+           to four id rows or none; E = 1 to 3; B = 5; the table's last block
+           among the nodes) through every entry that takes the shape
 
 Each kernels line carries median CUDA-event times of the kernel, its plain
 version and a one-call PyTorch yardstick, and the bound the card allows for
@@ -54,8 +59,9 @@ fails the run.
 
 The launch counters are set to 0 just before each path and read just after
 it: B1 and B2 must have run on path 1, B4, B5 (and B1, B2) on path 2, the two
-scans through their tensor-core entry, and the comparison launches fall
-outside both windows. The kernels line
+scans through their tensor-core entry, B1 through "bulk" and B4 through
+"stream" on every launch, and the comparison launches fall outside both
+windows. The kernels line
 (``{"kernels": [...]}``, all five kernels; ``launches`` is the count on the
 first path that runs the kernel, ``launches_by_path`` both) and the card line
 come before the last line, which is ``{"ok": true, "device": {...}}`` when
@@ -226,28 +232,36 @@ def codec_rows(torch, Q, seed, codec=None, n=None):
 
     def at_width(name, blk, E):
         """One kernel at one beam width: the three forms against the plain
-        version, then the L2 times and the bound of this shape."""
+        version through the entry the paths take and through "rows", then the
+        L2 times of both (in turns) and the bound of this shape."""
         src = torch.randint(0, n, (B, E), generator=g, device=dev, dtype=torch.int32)
+        rid = blk.shape[1] - M0
+        entry = cs.codec_entry(d, M0, rid)
         err = 0.0
         for form in ("l2", "dot", "cosine"):
             qsn = qsq if form == "l2" else torch.sqrt(qsq)
-            sk, ik = cs.codec_scores(src, q, qsn, scale, blk, M0, form)
             sp, ip_ = cs.codec_scores_plain(src, q, qsn, scale, blk, M0, form)
-            torch.cuda.synchronize()
-            err = max(err, float((sk - sp).abs().max()))
-            if not close(sk, sp, B1_RTOL, B1_ATOL):
-                failures.append(f"{name} E={E} {form} scores beyond tolerance")
-            if (ik is None) != (ip_ is None) or (ik is not None and not torch.equal(ik, ip_)):
-                failures.append(f"{name} E={E} {form} ids differ")
-            del sk, ik, sp, ip_
-        ms = cuda_ms(torch, lambda: cs.codec_scores(src, q, qsq, scale, blk, M0, "l2"))
+            for ent in dict.fromkeys((entry, "rows")):
+                sk, ik = cs.codec_scores(src, q, qsn, scale, blk, M0, form, entry=ent)
+                torch.cuda.synchronize()
+                if ent == entry:
+                    err = max(err, float((sk - sp).abs().max()))
+                if not close(sk, sp, B1_RTOL, B1_ATOL):
+                    failures.append(f"{name} E={E} {form} {ent}: scores beyond tolerance")
+                if (ik is None) != (ip_ is None) or (ik is not None and not torch.equal(ik, ip_)):
+                    failures.append(f"{name} E={E} {form} {ent}: ids differ")
+                del sk, ik
+            del sp, ip_
+        ms, was_ms = cuda_ms_turns(
+            torch, [lambda: cs.codec_scores(src, q, qsq, scale, blk, M0, "l2"),
+                    lambda: cs.codec_scores(src, q, qsq, scale, blk, M0, "l2", entry="rows")],
+            rounds=7, warmup=2)
         plain_ms = cuda_ms(torch, lambda: cs.codec_scores_plain(src, q, qsq, scale, blk, M0, "l2"))
 
         def library():
             cv = blk[src.long()][:, :, :M0].reshape(B, E * M0, d).to(torch.float32)
             return torch.einsum("bd,bkd->bk", q, cv) * scale
         lib_ms = cuda_ms(torch, library)
-        rid = blk.shape[1] - M0
         # gathered: M0 int8 vector rows per node, and M0 int32 ids when the
         # block carries them (the kernel reads no other id byte)
         gathered = B * E * (M0 * d + (4 * M0 if rid else 0))
@@ -255,8 +269,9 @@ def codec_rows(torch, Q, seed, codec=None, n=None):
                   + B * E * M0 * 4 * (2 if rid else 1))
         flops = 4 * B * E * M0 * d  # ip and |c|^2 FMAs, f32 outside tensor cores
         bms, by = bound_ms(nbytes, flops, F32_FLOPS)
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+        return {"entry": entry, "max_abs_err": err, "ms": ms, "was_ms": was_ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": lib_ms}
 
     for name in ("B1", "B3"):
         blk = blocks if name == "B1" else blocks[:, :M0].contiguous()
@@ -276,9 +291,78 @@ def codec_rows(torch, Q, seed, codec=None, n=None):
                      "shapes_checked": {"E": list(CODEC_EXPANDS)},
                      **{f"E{E}": by_E[E] for E in CODEC_EXPANDS[1:]}})
         del blk
+    rows[0]["ragged_checked"] = codec_ragged(torch, cs, failures)
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "rows": rows, "failures": failures})
     return rows, failures
+
+
+# (d, M0, id rows, E): d=48 is three 16-byte words (two lanes per row, two words
+# in one of them), d=1024 two words in each of 32 lanes, d=16 one lane per
+# row, d=40 no whole word ("rows" only); M0=12 and 5 need 48 and 20 id bytes
+# (a multiple of 16 and not), M0=10 needs 40, rounded up to the 48 the id row
+# holds; M0=100 at d=128 takes two passes of the block's warps, the second
+# partly idle; 0 id rows is B3.
+RAGGED_CODECS = ((48, 12, 1, 1), (48, 10, 1, 3), (48, 12, 0, 3), (40, 12, 2, 1),
+                 (40, 12, 0, 3), (16, 12, 3, 3), (1024, 5, 1, 1), (1024, 5, 0, 3),
+                 (128, 100, 4, 2), (256, 20, 1, 2))
+RAGGED_GATHERED = ((48, 7), (40, 7), (16, 33), (1024, 37))  # (d, K)
+
+
+def codec_ragged(torch, cs, failures):
+    """B1, B3 and B4 at ragged shapes (B=5 queries, a 37-block table whose last
+    block is among the nodes) against their plain versions, the three forms,
+    through every entry that takes the shape; an entry named for a shape it
+    does not take must raise. Returns the cases checked."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    B, cap1, checked = 5, 37, []
+    scale = torch.tensor(0.05, dtype=torch.float32, device=dev)
+
+    def forms(q):
+        qsq = (q * q).sum(1, keepdim=True)
+        return (("l2", qsq), ("dot", qsq), ("cosine", torch.sqrt(qsq)))
+
+    for d, M0, rid, E in RAGGED_CODECS:
+        blocks = torch.as_tensor(rng.integers(-127, 128, (cap1, M0 + rid, d)).astype(np.int8),
+                                 device=dev)
+        q = torch.as_tensor(rng.standard_normal((B, d)).astype(np.float32), device=dev)
+        src_np = rng.integers(0, cap1, (B, E)).astype(np.int32)
+        src_np[0, 0] = cap1 - 1
+        src = torch.as_tensor(src_np, device=dev)
+        label = f"d={d} M0={M0} id_rows={rid} E={E}"
+        entries = list(dict.fromkeys((cs.codec_entry(d, M0, rid), "rows")))
+        for form, qsn in forms(q):
+            sp, ip_ = cs.codec_scores_plain(src, q, qsn, scale, blocks, M0, form)
+            for ent in entries:
+                sk, ik = cs.codec_scores(src, q, qsn, scale, blocks, M0, form, entry=ent)
+                torch.cuda.synchronize()
+                if not close(sk, sp, B1_RTOL, B1_ATOL):
+                    failures.append(f"ragged {label} {form} {ent}: scores beyond tolerance")
+                if (ik is None) != (ip_ is None) or (ik is not None and not torch.equal(ik, ip_)):
+                    failures.append(f"ragged {label} {form} {ent}: ids differ")
+        if "bulk" not in entries:
+            try:
+                cs.codec_scores(src, q, forms(q)[0][1], scale, blocks, M0, "l2", entry="bulk")
+                failures.append(f"ragged {label}: the bulk entry took a shape it cannot")
+            except RuntimeError:
+                pass
+        checked.append({"kernel": "B1" if rid else "B3", "d": d, "M0": M0, "id_rows": rid,
+                        "E": E, "B": B, "entries": entries})
+    for d, K in RAGGED_GATHERED:
+        q = torch.as_tensor(rng.standard_normal((B, d)).astype(np.float32), device=dev)
+        blk = torch.as_tensor(rng.integers(-127, 128, (B, K * d)).astype(np.int8), device=dev)
+        csq = (blk.reshape(B, K, d).float() ** 2).sum(-1) * (scale * scale)
+        entries = list(dict.fromkeys((cs.gathered_entry(d), "rows")))
+        for form, qsn in forms(q):
+            sp = cs.codec_scores_gathered_plain(q, blk, csq, qsn, scale, form)
+            for ent in entries:
+                sk = cs.codec_scores_gathered(q, blk, csq, qsn, scale, form, entry=ent)
+                torch.cuda.synchronize()
+                if not close(sk, sp, B1_RTOL, B1_ATOL):
+                    failures.append(f"ragged B4 d={d} K={K} {form} {ent}: scores beyond tolerance")
+        checked.append({"kernel": "B4", "d": d, "K": K, "B": B, "entries": entries})
+    return checked
 
 
 def gathered_rows(torch, Q, seed, codec, n):
@@ -300,16 +384,22 @@ def gathered_rows(torch, Q, seed, codec, n):
         return (codec.blocks[src, :M0].reshape(B, K * d),
                 codec.blocks_sq[src].reshape(B, K))
     blk, csq = gather()
+    entry = cs.gathered_entry(d)
     err = 0.0
     for form in ("l2", "dot", "cosine"):
         qsn = qsq if form == "l2" else torch.sqrt(qsq)
-        sk = cs.codec_scores_gathered(q, blk, csq, qsn, codec.scale, form)
         sp = cs.codec_scores_gathered_plain(q, blk, csq, qsn, codec.scale, form)
-        torch.cuda.synchronize()
-        err = max(err, float((sk - sp).abs().max()))
-        if not close(sk, sp, B1_RTOL, B1_ATOL):
-            failures.append(f"B4 {form} scores beyond tolerance")
-    ms = cuda_ms(torch, lambda: cs.codec_scores_gathered(q, blk, csq, qsq, codec.scale, "l2"))
+        for ent in dict.fromkeys((entry, "rows")):
+            sk = cs.codec_scores_gathered(q, blk, csq, qsn, codec.scale, form, entry=ent)
+            torch.cuda.synchronize()
+            if ent == entry:
+                err = max(err, float((sk - sp).abs().max()))
+            if not close(sk, sp, B1_RTOL, B1_ATOL):
+                failures.append(f"B4 {form} {ent}: scores beyond tolerance")
+    ms, was_ms = cuda_ms_turns(
+        torch, [lambda: cs.codec_scores_gathered(q, blk, csq, qsq, codec.scale, "l2"),
+                lambda: cs.codec_scores_gathered(q, blk, csq, qsq, codec.scale, "l2",
+                                                 entry="rows")], rounds=7, warmup=2)
     plain_ms = cuda_ms(torch, lambda: cs.codec_scores_gathered_plain(
         q, blk, csq, qsq, codec.scale, "l2"))
 
@@ -323,8 +413,9 @@ def gathered_rows(torch, Q, seed, codec, n):
     row = {"name": "B4", "route": "cuda",
            "source": "hnsw_tpu_torch/csrc/codec_scores_gathered.cu",
            "replaces": "hnsw_tpu/ops/pallas_scores.py:28",
-           "counter": "codec_scores_gathered",
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+           "counter": "codec_scores_gathered", "entry": entry,
+           "max_abs_err": err, "ms": ms, "was_ms": was_ms, "plain_ms": plain_ms,
+           "bound_ms": bms,
            "bound_by": by, "library_ms": lib_ms, "torch_gather_ms": gather_ms,
            "shape": {"B": B, "K": K, "d": d, "table": "built index"}}
     del blk, csq
@@ -899,21 +990,25 @@ def main():
     # path 1 (and again on path 2), B4 and B5 on path 2; B3 is on neither
     ran1 = all(p in phases for p in ("build", "gt", "serve"))
     ran2 = ran1 and all(p in phases for p in ("persist", "serve2"))
-    needed = {"B1": (ran1, path1), "B2": (ran1, path1),
-              "B4": (ran2, path2), "B5": (ran2, path2)}
+    needed = {"B1": [(ran1, path1), (ran2, path2)], "B2": [(ran1, path1)],
+              "B4": [(ran2, path2)], "B5": [(ran2, path2)]}
     for r in rows:
         c = r.pop("counter")
         r["launches_by_path"] = {"path1": path1[c], "path2": path2[c]}
         r["launches"] = path1[c] or path2[c]
-        ran, counts = needed.get(r["name"], (False, None))
-        if ran and counts[c] == 0:
-            failures.append(f"kernel {r['name']} never launched on its path")
-        if "entry" in r:  # the scans: every launch of the paths by that entry
-            e = f"{c}.{r['entry']}"
-            r["launches_by_entry"] = {
-                "path1": {k.split(".")[1]: v for k, v in path1.items() if k.startswith(c + ".")},
-                "path2": {k.split(".")[1]: v for k, v in path2.items() if k.startswith(c + ".")}}
-            if ran and (counts[e] == 0 or counts[e] != counts[c]):
+        # every launch of the paths by the entry the comparison went through:
+        # wgmma for the scans, bulk for B1, stream for B4
+        e = f"{c}.{r['entry']}"
+        r["launches_by_entry"] = {
+            "path1": {k.split(".")[1]: v for k, v in path1.items() if k.startswith(c + ".")},
+            "path2": {k.split(".")[1]: v for k, v in path2.items() if k.startswith(c + ".")}}
+        for which, (ran, counts) in enumerate(needed.get(r["name"], [])):
+            if not ran:
+                continue
+            if counts[c] == 0:
+                if which == 0:
+                    failures.append(f"kernel {r['name']} never launched on its path")
+            elif counts[e] != counts[c]:
                 failures.append(f"kernel {r['name']} did not run its path through the "
                                 f"{r['entry']} entry ({counts[e]} of {counts[c]} launches)")
     if ran2 and (path2["codec_scores_ids"] == 0 or path2["scan_topk"] == 0):

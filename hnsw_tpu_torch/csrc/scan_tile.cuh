@@ -68,7 +68,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
+
 namespace scan_tile {
+
+using namespace hopper;  // barriers and the bulk copy
 
 constexpr int QT = 128;       // queries per block (two warpgroups of 64)
 constexpr int LANES = 128;    // G: lane groups = corpus rows per sub-tile
@@ -81,61 +85,12 @@ constexpr int SMEM_LIMIT = 232448;  // bytes a block may use on sm_90
 
 // ---------------------------------------------------------------- PTX helpers
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spin until the barrier's phase differs from `parity`. A pipeline fault must
-// not hang the card: after about two seconds of waiting the kernel traps and
-// the launch reports an error instead.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok = 0, spins = 0;
-  long long t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (ok) return;
-    if ((++spins & 0xFFFu) == 0) {
-      const long long now = clock64();
-      if (t0 == 0) t0 = now;
-      else if (now - t0 > 4000000000ll) __trap();
-    }
-  }
-}
-
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -258,7 +213,7 @@ scan_tile_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_init(empty_bar + 8 * s, 8);  // one arrival per warp
     }
     mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

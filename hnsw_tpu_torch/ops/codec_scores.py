@@ -21,8 +21,21 @@ instead of recomputed, so B4 and B1 agree to rounding, not bit for bit.
 ``scores_codec(allow_fused=False)`` is its caller.
 
 Bound on the H100, all three: bytes (B*E*M0 int8 rows of d bytes, and as many
-int32 ids when the blocks carry them; B4 also reads csq). See the kernel
-sources for what their design does about that.
+int32 ids when the blocks carry them; B4 also reads csq). The three kernels
+share one row product, ``csrc/codec_row.cuh`` (the query in registers, |c|^2 by
+``__dp4a``, the three forms' epilogue). Each wrapper has two kernel entries,
+chosen here from the shapes alone, never after a failed build or launch:
+
+- ``codec_entry``: ``"bulk"`` (``d`` a multiple of 16 up to ``BULK_MAX_D`` whose
+  gather ring fits in shared memory): persistent blocks, one bulk asynchronous
+  copy per expanded node into a ring of stages; else ``"rows"``, one block per
+  query reading its rows itself (any ``d``).
+- ``gathered_entry``: ``"stream"`` (same ``d``): register query, a
+  software-pipelined loop of 16-byte streaming loads; else ``"rows"``.
+
+A base address that is not 16-byte aligned also takes ``"rows"``.
+``kernel_lib.LAUNCHES["codec_scores_ids.bulk"]`` etc. count the launches of
+each entry. See the kernel sources for the designs.
 """
 
 from __future__ import annotations
@@ -32,6 +45,46 @@ import torch
 from . import kernel_lib
 
 FORMS = {"l2": 0, "dot": 1, "cosine": 2}
+
+# The register-query row product holds at most two 16-byte words of a row per
+# lane (``codec_row::MAX_NCH``): 32 lanes x 2 x 16 bytes.
+BULK_MAX_D = 1024
+SMEM_LIMIT = 232448     # bytes of shared memory a block may use on sm_90
+_STAGE_ALIGN = 128      # the ring's stages start on 128-byte boundaries
+
+
+def codec_stage_bytes(d: int, M0: int, rid: int) -> int:
+    """Bytes one bulk copy moves for one expanded node: the ``M0`` vector rows
+    and, for id-carrying blocks, the ``4 * M0`` id bytes behind them rounded
+    up to the copy's 16-byte unit. The rounded copy stays inside the node's
+    block, whose id rows hold ``rid * d >= 4 * M0`` bytes."""
+    return M0 * d + (-(-4 * M0 // 16) * 16 if rid else 0)
+
+
+def codec_entry(d: int, M0: int, rid: int) -> str:
+    """Which kernel entry ``codec_scores`` takes on the card for this codec
+    geometry: ``"bulk"`` when rows are whole 16-byte words (``d % 16 == 0``,
+    ``d <= BULK_MAX_D``), the copy stays inside the block and a ring of two
+    stages fits in shared memory, else ``"rows"``. A choice by shape: the
+    entry it names either launches or raises."""
+    if d <= 0 or d % 16 or d > BULK_MAX_D or M0 <= 0:
+        return "rows"
+    stage = codec_stage_bytes(d, M0, rid)
+    stride = -(-stage // _STAGE_ALIGN) * _STAGE_ALIGN
+    if stage > (M0 + rid) * d or 2 * (stride + 16) > SMEM_LIMIT:
+        return "rows"
+    return "bulk"
+
+
+def gathered_entry(d: int) -> str:
+    """Which kernel entry ``codec_scores_gathered`` takes on the card:
+    ``"stream"`` when rows are whole 16-byte words (``d % 16 == 0``, ``d <=
+    BULK_MAX_D``), else ``"rows"``."""
+    return "stream" if d > 0 and d % 16 == 0 and d <= BULK_MAX_D else "rows"
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def codec_scores_plain(src, q, qsn, scale, blocks, M0: int, form: str = "l2"):
@@ -68,10 +121,13 @@ def codec_scores_plain(src, q, qsn, scale, blocks, M0: int, form: str = "l2"):
     return out, ids
 
 
-def codec_scores(src, q, qsn, scale, blocks, M0: int, form: str = "l2"):
+def codec_scores(src, q, qsn, scale, blocks, M0: int, form: str = "l2", *,
+                 entry: str | None = None):
     """Scores (and, for id-carrying blocks, neighbour ids) of the expanded
     nodes' neighbourhoods. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (or raise)."""
+    launch the kernel (or raise). ``entry`` names the kernel entry instead of
+    ``codec_entry`` (kernel comparisons); one that does not take the shape
+    raises."""
     if blocks.device.type != "cuda":
         return codec_scores_plain(src, q, qsn, scale, blocks, M0, form)
     B, E = src.shape
@@ -93,14 +149,17 @@ def codec_scores(src, q, qsn, scale, blocks, M0: int, form: str = "l2"):
     out = torch.empty((B, E * M0), dtype=torch.float32, device=dev)
     ids = (torch.empty((B, E * M0), dtype=torch.int32, device=dev)
            if RID > 0 else None)
+    if entry is None:
+        entry = codec_entry(d, M0, RID) if _aligned16(q, blocks) else "rows"
     lib = kernel_lib.load("codec_scores")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.codec_scores_launch(
+    kernel_lib.launch(
+        "codec_scores_ids" if RID > 0 else "codec_scores", entry,
+        lib.codec_scores_launch,
         src.data_ptr(), q.data_ptr(), qsn.data_ptr(), scale.data_ptr(),
-        blocks.data_ptr(), B, E, M0, RID, d, FORMS[form], out.data_ptr(),
+        blocks.data_ptr(), B, E, M0, RID, d, FORMS[form],
+        kernel_lib.CODEC_ENTRIES.index(entry), out.data_ptr(),
         ids.data_ptr() if ids is not None else None, stream)
-    kernel_lib.LAUNCHES["codec_scores_ids" if RID > 0 else "codec_scores"] += 1
-    kernel_lib.check(rc, "codec_scores")
     return out, ids
 
 
@@ -127,10 +186,12 @@ def codec_scores_gathered_plain(q, blk, csq, qsn, scale, form: str = "l2"):
     return 1.0 - ip / torch.clamp_min(qsn, 1e-20)
 
 
-def codec_scores_gathered(q, blk, csq, qsn, scale, form: str = "l2"):
+def codec_scores_gathered(q, blk, csq, qsn, scale, form: str = "l2", *,
+                          entry: str | None = None):
     """Scores [B, K] of pre-gathered int8 codec rows (any B, K, d). CPU
     tensors take the plain version; CUDA tensors launch the kernel (or
-    raise)."""
+    raise). ``entry`` names the kernel entry instead of ``gathered_entry``
+    (kernel comparisons); one that does not take the shape raises."""
     if form not in FORMS:
         raise ValueError(f"unknown form {form!r}")
     if blk.device.type != "cuda":
@@ -147,11 +208,13 @@ def codec_scores_gathered(q, blk, csq, qsn, scale, form: str = "l2"):
     qsn = qsn.to(device=dev, dtype=torch.float32).reshape(B).contiguous()
     scale = scale.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
     out = torch.empty((B, K), dtype=torch.float32, device=dev)
+    if entry is None:
+        entry = gathered_entry(d) if _aligned16(q, blk) else "rows"
     lib = kernel_lib.load("codec_scores_gathered")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.codec_scores_gathered_launch(
+    kernel_lib.launch(
+        "codec_scores_gathered", entry, lib.codec_scores_gathered_launch,
         q.data_ptr(), blk.data_ptr(), csq.data_ptr(), qsn.data_ptr(),
-        scale.data_ptr(), B, K, d, FORMS[form], out.data_ptr(), stream)
-    kernel_lib.LAUNCHES["codec_scores_gathered"] += 1
-    kernel_lib.check(rc, "codec_scores_gathered")
+        scale.data_ptr(), B, K, d, FORMS[form],
+        kernel_lib.GATHERED_ENTRIES.index(entry), out.data_ptr(), stream)
     return out

@@ -8,11 +8,15 @@ includes, so an edited source or header rebuilds and an unchanged one is
 reused. Nothing here runs at import time: the CPU tests import
 every module of the package on a machine without ``nvcc``.
 
-``LAUNCHES`` counts kernel launches per wrapper. A wrapper bumps its count
-exactly where it launches its kernel, so a caller can reset the counts, drive a
-path, and read which kernels that path went through. The two scans have two
-kernel entries each (``scan_topk.scan_entry``): beside the wrapper's own count
-``<name>.wgmma`` and ``<name>.simt`` say which entry each launch took.
+``LAUNCHES`` counts kernel launches per wrapper. A wrapper launches through
+``launch``, which counts exactly the launches that CUDA accepted, so a
+caller can reset the counts, drive a path, and read which kernels that path
+went through. Every kernel has two entries, named by its wrapper from the
+shapes alone (``scan_topk.scan_entry``, ``codec_scores.codec_entry`` and
+``gathered_entry``): beside the wrapper's own count, ``<name>.<entry>`` says
+which entry each launch took (``wgmma``/``simt`` for the scans, ``bulk``/
+``rows`` for the fused codec scores, ``stream``/``rows`` for the gathered
+ones).
 """
 
 from __future__ import annotations
@@ -33,11 +37,16 @@ SOURCES = ("codec_scores", "codec_scores_gathered", "scan_topk",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-SCAN_ENTRIES = ("simt", "wgmma")  # the launch functions' ``entry`` argument
-LAUNCHES = {"codec_scores_ids": 0, "codec_scores": 0,
-            "codec_scores_gathered": 0, "scan_topk": 0, "scan_topk_unpacked": 0,
-            **{f"{name}.{entry}": 0 for name in ("scan_topk", "scan_topk_unpacked")
-               for entry in SCAN_ENTRIES}}
+# the launch functions' ``entry`` argument is the index into these
+SCAN_ENTRIES = ("simt", "wgmma")
+CODEC_ENTRIES = ("rows", "bulk")
+GATHERED_ENTRIES = ("rows", "stream")
+ENTRIES = {"codec_scores_ids": CODEC_ENTRIES, "codec_scores": CODEC_ENTRIES,
+           "codec_scores_gathered": GATHERED_ENTRIES, "scan_topk": SCAN_ENTRIES,
+           "scan_topk_unpacked": SCAN_ENTRIES}
+LAUNCHES = {**{name: 0 for name in ENTRIES},
+            **{f"{name}.{entry}": 0 for name, entries in ENTRIES.items()
+               for entry in entries}}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -148,10 +157,10 @@ _I = ctypes.c_int
 
 def _bind(name: str, lib):
     if name == "codec_scores":
-        # (src, q, qsn, scale_ptr, blocks, B, E, M0, RID, d, form, out,
-        #  out_ids, stream)
+        # (src, q, qsn, scale_ptr, blocks, B, E, M0, RID, d, form, entry,
+        #  out, out_ids, stream)
         lib.codec_scores_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                            _I, _I, _P, _P, _P]
+                                            _I, _I, _I, _P, _P, _P]
         lib.codec_scores_launch.restype = _I
     elif name == "scan_topk":
         # (q, X, xsq, B, Np, d, tn, group, acc, LB, bf16, entry, out, stream)
@@ -159,9 +168,9 @@ def _bind(name: str, lib):
                                          _I, _I, _I, _P, _P]
         lib.scan_topk_launch.restype = _I
     elif name == "codec_scores_gathered":
-        # (q, blk, csq, qsn, scale_ptr, B, K, d, form, out, stream)
+        # (q, blk, csq, qsn, scale_ptr, B, K, d, form, entry, out, stream)
         lib.codec_scores_gathered_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
-                                                     _I, _I, _P, _P]
+                                                     _I, _I, _I, _P, _P]
         lib.codec_scores_gathered_launch.restype = _I
     elif name == "scan_topk_unpacked":
         # (q, X, xsq, B, Np, d, tn, group, acc, bf16, entry, outd, outi, stream)
@@ -175,3 +184,12 @@ def check(rc: int, what: str):
         import torch
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def launch(name: str, entry: str, fn, *args):
+    """Call a library's launch function and count the launch, for the wrapper
+    ``name`` and for the ``entry`` it took. A launch that CUDA refused
+    (non-zero return) raises and is not counted."""
+    check(fn(*args), f"{name}.{entry}")
+    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}.{entry}"] += 1

@@ -94,11 +94,6 @@ def _check_card_geometry(G: int, tn: int, group: int, qs, Xs, packed: bool) -> s
     return scan_entry(Xs.dtype, qs.shape[1], packed)
 
 
-def _count_launch(name: str, entry: str):
-    kernel_lib.LAUNCHES[name] += 1
-    kernel_lib.LAUNCHES[f"{name}.{entry}"] += 1
-
-
 def scan_packed_plain(qs, Xs, xsq, tn: int, group: int, acc: int):
     """Plain PyTorch version of the scan kernel: packed int32
     ``[n_blocks, B, 2G]`` (per lane group: smallest, then second smallest).
@@ -143,13 +138,10 @@ def scan_packed(qs, Xs, xsq, tn: int, group: int, acc: int):
     out = torch.empty((n_blocks, B, 2 * G), dtype=torch.int32, device=dev)
     lib = kernel_lib.load("scan_topk")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.scan_topk_launch(qs.data_ptr(), Xs.data_ptr(), xsq.data_ptr(), B,
-                              N, d, tn, group, acc, LB,
-                              int(Xs.dtype == torch.bfloat16),
-                              kernel_lib.SCAN_ENTRIES.index(entry),
-                              out.data_ptr(), stream)
-    _count_launch("scan_topk", entry)
-    kernel_lib.check(rc, "scan_topk")
+    kernel_lib.launch("scan_topk", entry, lib.scan_topk_launch, qs.data_ptr(),
+                      Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, group, acc, LB,
+                      int(Xs.dtype == torch.bfloat16),
+                      kernel_lib.SCAN_ENTRIES.index(entry), out.data_ptr(), stream)
     return out
 
 
@@ -227,12 +219,11 @@ def scan_unpacked(qs, Xs, xsq, tn: int, group: int, acc: int):
     outi = torch.empty((n_blocks, B, 2 * G), dtype=torch.int32, device=dev)
     lib = kernel_lib.load("scan_topk_unpacked")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.scan_topk_unpacked_launch(
+    kernel_lib.launch(
+        "scan_topk_unpacked", entry, lib.scan_topk_unpacked_launch,
         qs.data_ptr(), Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, group, acc,
         int(Xs.dtype == torch.bfloat16), kernel_lib.SCAN_ENTRIES.index(entry),
         outd.data_ptr(), outi.data_ptr(), stream)
-    _count_launch("scan_topk_unpacked", entry)
-    kernel_lib.check(rc, "scan_topk_unpacked")
     return outd, outi
 
 

@@ -32,11 +32,11 @@ from hnsw_tpu_torch.ops import scan_topk as st
 SC_RTOL, SC_ATOL = 1e-5, 1e-4
 
 
-def _codec_case(rng, B=16, E=2, M0=8, d=128, N=64):
+def _codec_case(rng, B=16, E=2, M0=8, d=128, N=64, r_id=None):
     blocks = rng.integers(-5, 6, (N, M0, d)).astype(np.int8)
     tbl = rng.integers(-1, N, (N, M0)).astype(np.int32)
-    # id rows exactly as BeamCodec._build lays them out
-    r_id = -(-(M0 + max(1, -(-(M0 * 4) // d))) // 8) * 8 - M0
+    if r_id is None:  # id rows exactly as BeamCodec._build lays them out
+        r_id = -(-(M0 + max(1, -(-(M0 * 4) // d))) // 8) * 8 - M0
     idp = np.full((N, r_id * d // 4), -1, np.int32)
     idp[:, :M0] = tbl
     blocks_ext = np.concatenate([blocks, idp.view(np.int8).reshape(N, r_id, d)], 1)
@@ -81,6 +81,35 @@ def test_b3_plain_matches_pallas(rng, form):
     np.testing.assert_allclose(sc_t.numpy(), np.array(ref), rtol=SC_RTOL, atol=SC_ATOL)
 
 
+@pytest.mark.parametrize("form", ["l2", "dot", "cosine"])
+def test_b1_b3_plain_match_pallas_at_ragged_geometry(rng, form):
+    """M0=12 with ONE id row at d=48 (the 48 id bytes fill it exactly; three
+    16-byte words a row) and B=8, E=3, the table's last block among the nodes:
+    the plain versions against the interpreted Pallas kernels, ids bit-equal."""
+    blocks, blocks_ext, tbl, q, src = _codec_case(rng, B=8, E=3, M0=12, d=48, N=37, r_id=1)
+    src[0, 0] = 36
+    E, M0 = src.shape[1], blocks.shape[1]
+    assert blocks_ext.shape == (37, 13, 48)
+    qsn = _qsn(q, form)
+    targs = (torch.from_numpy(src), torch.from_numpy(q), torch.from_numpy(qsn),
+             torch.tensor(0.1, dtype=torch.float32))
+    sc_j, nbr_j = pallas_fused_codec_scores_ids(
+        jnp.asarray(src), jnp.asarray(q), jnp.asarray(qsn), jnp.float32(0.1),
+        jnp.asarray(blocks_ext), E, M0, form=form, qt=4, interpret=True)
+    sc_t, nbr_t = cs.codec_scores(*targs, torch.from_numpy(blocks_ext), M0, form)
+    np.testing.assert_allclose(sc_t.numpy(), np.array(sc_j), rtol=SC_RTOL, atol=SC_ATOL)
+    np.testing.assert_array_equal(nbr_t.numpy(), np.array(nbr_j))
+    np.testing.assert_array_equal(nbr_t.numpy(), tbl[src].reshape(len(q), E * M0))
+    ref = pallas_fused_codec_scores(
+        jnp.asarray(src), jnp.asarray(q), jnp.asarray(qsn), jnp.float32(0.1),
+        jnp.asarray(blocks), E, form=form, qt=4, interpret=True)
+    sc_3, ids = cs.codec_scores(*targs, torch.from_numpy(blocks), M0, form)
+    assert ids is None
+    np.testing.assert_allclose(sc_3.numpy(), np.array(ref), rtol=SC_RTOL, atol=SC_ATOL)
+    # both kernels recompute |c|^2 from the rows: B1 and B3 agree bit for bit
+    np.testing.assert_array_equal(sc_3.numpy(), sc_t.numpy())
+
+
 def _gathered_case(rng, B=16, K=24, d=32):
     """The inputs of the JAX package's own test of ``pallas_codec_scores``."""
     q = rng.standard_normal((B, d)).astype(np.float32)
@@ -93,6 +122,22 @@ def _gathered_case(rng, B=16, K=24, d=32):
 @pytest.mark.parametrize("form", ["l2", "dot", "cosine"])
 def test_b4_plain_matches_pallas(rng, form):
     q, blk, _, csq = _gathered_case(rng)
+    csq = csq if form == "l2" else csq * 0
+    qsn = _qsn(q, form)
+    ref = pallas_codec_scores(jnp.asarray(q), jnp.asarray(blk), jnp.asarray(csq),
+                              jnp.asarray(qsn), jnp.float32(0.017), form=form,
+                              qt=8, interpret=True)
+    out = cs.codec_scores_gathered(
+        torch.from_numpy(q), torch.from_numpy(blk), torch.from_numpy(csq),
+        torch.from_numpy(qsn), torch.tensor(0.017, dtype=torch.float32), form)
+    np.testing.assert_allclose(out.numpy(), np.array(ref), rtol=SC_RTOL, atol=SC_ATOL)
+
+
+@pytest.mark.parametrize("form", ["l2", "dot", "cosine"])
+def test_b4_plain_matches_pallas_at_ragged_geometry(rng, form):
+    """K=36 rows of d=48 (M0=12 x E=3) for B=8 queries against the interpreted
+    Pallas kernel."""
+    q, blk, _, csq = _gathered_case(rng, B=8, K=36, d=48)
     csq = csq if form == "l2" else csq * 0
     qsn = _qsn(q, form)
     ref = pallas_codec_scores(jnp.asarray(q), jnp.asarray(blk), jnp.asarray(csq),
@@ -139,6 +184,82 @@ def test_cpu_wrappers_take_the_plain_version(rng):
                              torch.from_numpy(gcsq), torch.from_numpy(_qsn(gq, "l2")),
                              torch.tensor(0.017), "l2")
     assert all(v == 0 for v in kernel_lib.LAUNCHES.values())
+    # every wrapper has its own counter and one per kernel entry
+    assert set(kernel_lib.LAUNCHES) == {
+        "codec_scores_ids", "codec_scores_ids.bulk", "codec_scores_ids.rows",
+        "codec_scores", "codec_scores.bulk", "codec_scores.rows",
+        "codec_scores_gathered", "codec_scores_gathered.stream",
+        "codec_scores_gathered.rows", "scan_topk", "scan_topk.wgmma", "scan_topk.simt",
+        "scan_topk_unpacked", "scan_topk_unpacked.wgmma", "scan_topk_unpacked.simt"}
+
+
+@pytest.mark.parametrize("d,M0,rid,entry", [
+    (128, 56, 8, "bulk"), (128, 56, 0, "bulk"),   # the 200k index's codec; B3
+    (48, 12, 1, "bulk"), (48, 10, 1, "bulk"),     # three words a row; 40 id bytes -> 48
+    (16, 12, 3, "bulk"), (1024, 5, 1, "bulk"), (1024, 56, 8, "bulk"),
+    (40, 12, 2, "rows"), (100, 8, 1, "rows"),     # d % 16
+    (1040, 8, 1, "rows"), (2048, 8, 0, "rows"),   # more than two words per lane
+    (1024, 120, 8, "rows"),                       # two stages do not fit
+])
+def test_codec_entry_is_chosen_by_shape(d, M0, rid, entry):
+    """The fused wrapper picks its kernel entry from ``d``, ``M0`` and the id
+    rows alone: whole 16-byte words up to ``BULK_MAX_D`` whose two-stage ring
+    fits in shared memory take the bulk-copy ring, everything else the
+    row-by-row kernel. Both names index the launch function's ``entry``
+    argument and have a launch counter; B4 chooses by ``d``."""
+    assert cs.codec_entry(d, M0, rid) == entry
+    assert kernel_lib.CODEC_ENTRIES.index(entry) == (1 if entry == "bulk" else 0)
+    name = "codec_scores_ids" if rid else "codec_scores"
+    assert kernel_lib.LAUNCHES[f"{name}.{entry}"] == 0
+    want = "stream" if d % 16 == 0 and d <= cs.BULK_MAX_D else "rows"
+    assert cs.gathered_entry(d) == want
+    assert kernel_lib.GATHERED_ENTRIES.index(want) == (1 if want == "stream" else 0)
+    assert f"codec_scores_gathered.{want}" in kernel_lib.LAUNCHES
+
+
+@pytest.mark.parametrize("d,M0,rid", [(128, 56, 8), (48, 12, 1), (48, 10, 1), (16, 12, 3),
+                                      (1024, 5, 1), (128, 56, 0), (48, 12, 0)])
+def test_codec_stage_bytes_rounds_ids_up_and_stays_in_the_block(d, M0, rid):
+    """One bulk copy moves the vector rows and the id bytes behind them rounded
+    up to 16: a multiple of 16 that holds every id and never leaves the node's
+    block (so the table's last block is safe)."""
+    stage = cs.codec_stage_bytes(d, M0, rid)
+    assert stage % 16 == 0
+    assert stage >= M0 * d + (4 * M0 if rid else 0)
+    assert stage - (M0 * d + (4 * M0 if rid else 0)) < 16
+    assert stage <= (M0 + rid) * d
+    if rid == 0:
+        assert stage == M0 * d
+
+
+@pytest.mark.parametrize("name,entry", [
+    ("codec_scores_ids", "bulk"), ("codec_scores", "rows"),
+    ("codec_scores_gathered", "stream"), ("scan_topk", "wgmma"),
+    ("scan_topk_unpacked", "simt")])
+def test_failed_launch_raises_and_is_not_counted(monkeypatch, name, entry):
+    """``kernel_lib.launch`` counts a launch only after the library's launch
+    function returned 0: a refused launch raises and leaves the counts."""
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "no card")
+    kernel_lib.reset_launch_counts()
+    seen = []
+    with pytest.raises(RuntimeError, match=f"{name}.{entry}: CUDA launch failed with error 1"):
+        kernel_lib.launch(name, entry, lambda *a: seen.append(a) or 1, 7, 8)
+    assert seen == [(7, 8)]
+    assert all(v == 0 for v in kernel_lib.LAUNCHES.values())
+    kernel_lib.launch(name, entry, lambda *a: 0, 7, 8)
+    assert kernel_lib.LAUNCHES[name] == 1 and kernel_lib.LAUNCHES[f"{name}.{entry}"] == 1
+    assert sum(kernel_lib.LAUNCHES.values()) == 2
+    kernel_lib.reset_launch_counts()
+
+
+def test_codec_wrappers_launch_through_the_counted_helper():
+    """The four wrappers hand their library call to ``kernel_lib.launch`` and
+    count nowhere else."""
+    import inspect
+    for mod in (cs, st):
+        src = inspect.getsource(mod)
+        assert "LAUNCHES[" not in src.split('"""', 2)[2]
+        assert src.count("kernel_lib.launch(") == 2
 
 
 @pytest.mark.parametrize("acc", [1, 3])
@@ -352,10 +473,11 @@ def test_scan_launch_counters_per_entry():
     """Each scan launch counts once for its wrapper and once for the entry it
     took; ``reset_launch_counts`` zeroes both."""
     kernel_lib.reset_launch_counts()
-    st._count_launch("scan_topk", "wgmma")
-    st._count_launch("scan_topk", "wgmma")
-    st._count_launch("scan_topk", "simt")
-    st._count_launch("scan_topk_unpacked", "simt")
+    ok = lambda *a: 0
+    kernel_lib.launch("scan_topk", "wgmma", ok)
+    kernel_lib.launch("scan_topk", "wgmma", ok)
+    kernel_lib.launch("scan_topk", "simt", ok)
+    kernel_lib.launch("scan_topk_unpacked", "simt", ok)
     L = kernel_lib.LAUNCHES
     assert (L["scan_topk"], L["scan_topk.wgmma"], L["scan_topk.simt"]) == (3, 2, 1)
     assert (L["scan_topk_unpacked"], L["scan_topk_unpacked.wgmma"],
@@ -455,6 +577,47 @@ def test_kernels_match_plain_on_card(rng):
             torch.testing.assert_close(cs.codec_scores_gathered(*args),
                                        cs.codec_scores_gathered_plain(*args),
                                        rtol=SC_RTOL, atol=SC_ATOL)
+    # the ragged group, through every entry that takes the shape: three words a
+    # row (d=48), one lane a row (d=16), two words in each of 32 lanes
+    # (d=1024), no whole word (d=40), two passes of the warps over M0=100 rows;
+    # 48, 40 and 20 id bytes; E=1 to 3; B=5; the table's last block among the
+    # nodes
+    for d, M0, rid, E in ((48, 12, 1, 1), (48, 10, 1, 3), (48, 12, 0, 3), (40, 12, 2, 1),
+                          (16, 12, 3, 3), (1024, 5, 1, 1), (1024, 5, 0, 3),
+                          (128, 100, 4, 2), (256, 20, 1, 2)):
+        blocks, blocks_ext, _, q, src = _codec_case(rng, B=5, E=E, M0=M0, d=d, N=37,
+                                                    r_id=max(rid, 1))
+        src[0, 0] = 36
+        blk = torch.from_numpy(blocks_ext if rid else blocks).to(dev)
+        entries = dict.fromkeys((cs.codec_entry(d, M0, rid), "rows"))
+        name = "codec_scores_ids" if rid else "codec_scores"
+        for form in ("l2", "dot", "cosine"):
+            args = (torch.from_numpy(src).to(dev), torch.from_numpy(q).to(dev),
+                    torch.from_numpy(_qsn(q, form)).to(dev),
+                    torch.tensor(0.1, device=dev), blk, M0, form)
+            sp, ip_ = cs.codec_scores_plain(*args)
+            for ent in entries:
+                kernel_lib.reset_launch_counts()
+                sk, ik = cs.codec_scores(*args, entry=ent)
+                torch.testing.assert_close(sk, sp, rtol=SC_RTOL, atol=SC_ATOL)
+                assert (ik is None and ip_ is None) or torch.equal(ik, ip_)
+                assert kernel_lib.LAUNCHES[f"{name}.{ent}"] == 1
+        if "bulk" not in entries:  # named for a shape it does not take: raises, uncounted
+            kernel_lib.reset_launch_counts()
+            with pytest.raises(RuntimeError, match="launch failed"):
+                cs.codec_scores(*args, entry="bulk")
+            assert all(v == 0 for v in kernel_lib.LAUNCHES.values())
+    for B, K, d in ((5, 7, 48), (5, 33, 16), (5, 37, 1024)):
+        q, blk, _, csq = _gathered_case(rng, B=B, K=K, d=d)
+        for form in ("l2", "dot", "cosine"):
+            args = (torch.from_numpy(q).to(dev), torch.from_numpy(blk).to(dev),
+                    torch.from_numpy(csq).to(dev),
+                    torch.from_numpy(_qsn(q, form)).to(dev),
+                    torch.tensor(0.017, device=dev), form)
+            for ent in ("stream", "rows"):
+                torch.testing.assert_close(cs.codec_scores_gathered(*args, entry=ent),
+                                           cs.codec_scores_gathered_plain(*args),
+                                           rtol=SC_RTOL, atol=SC_ATOL)
     # B2 and B5. bf16 at d=128 and at d=48 (one partly filled 64-column box)
     # takes the tensor-core entry: B=100 is not a multiple of its 128-query
     # tile, the 5 tiles split into spans of 2 + 2 + 1, the last tile holds
