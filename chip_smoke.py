@@ -45,6 +45,35 @@ Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
            to four id rows or none; E = 1 to 3; B = 5; the table's last block
            among the nodes) through every entry that takes the shape
 
+Path 3 (``metrics``; every other metric, built and served on the card):
+
+  (a) Hamming on 200k 256-bit codes (the sign bits of a fixed random 128 ->
+      256 projection of the path-1 corpus: ann-benchmarks' sift-256-hamming
+      construction), built as path 1 (M=24, efC=400, batch 16384), served by
+      ``device_search_stream`` at ef 64 and 128 on 4096 query codes; recall@10
+      against exact counts from XOR + popcount of the packed codes on the card
+  (b) Jaccard, Hellinger, Jeffreys, JensenShannon and L1 on 20k x 64 softmax
+      rows, Levenshtein on 20k misspellings (one or two edits) of 2k random
+      zero-padded words of 3-12 letters, and a
+      ``UserMetric`` (weighted L2, both torch forms) on 20k x 16; each built
+      with M=16, efC=100, batch 4096, searched at ef 64 over 1024 queries;
+      recall@10 against a top-64 pool of the metric's torch scores refined by
+      its fp64 numpy oracle; the torch scores against the oracle on 64 x 256
+
+Path 4 (``ivf``; bench.py's 1M x 128 clustered corpus): ground truth from a
+chunked f32 matmul on the card refined in fp64 (no engine under test);
+``BruteForceIndex`` (kernel B2) scored against it; ``IvfFlatIndex("L2")`` at its
+defaults (build seconds, lists, cap, padding share; recall@10 and QPS at
+nprobe 16/32/64; ``search_stream`` with f16 ingest at nprobe 32, whose ids
+must equal ``search_batch``'s on the same f16-rounded queries);
+``AutoIndex("L2")`` must choose the scan, launch B2 (every launch of its
+search through the tensor-core entry) and answer as ``BruteForceIndex``;
+``AutoIndex("Cosine")`` must choose IVF (recall@10 at nprobe 32 against exact
+cosine). After path 4's counts are read, B2 against its plain version at the
+exact engine's shape there (the shuffled 1M corpus in bf16, B=2048) and where
+the exact scan's misses come from: the engine's recall through the kernel,
+the plain version, an f32 scan and a wider overfetch.
+
 Each kernels line carries median CUDA-event times of the kernel, its plain
 version and a one-call PyTorch yardstick, and the bound the card allows for
 the same work; the two scans also the bound of their epilogue (CUDA-core
@@ -58,12 +87,13 @@ idle share of the window); a window whose kernel time exceeds its wall time
 fails the run.
 
 The launch counters are set to 0 just before each path and read just after
-it: B1 and B2 must have run on path 1, B4, B5 (and B1, B2) on path 2, the two
+it: B1 and B2 must have run on path 1, B4, B5 (and B1, B2) on path 2, B2 on
+path 4 (path 3 runs no kernel of the repo's: its metrics have no TPU kernel), the two
 scans through their tensor-core entry, B1 through "bulk" and B4 through
 "stream" on every launch, and the comparison launches fall outside both
 windows. The kernels line
 (``{"kernels": [...]}``, all five kernels; ``launches`` is the count on the
-first path that runs the kernel, ``launches_by_path`` both) and the card line
+first path that runs the kernel, ``launches_by_path`` all four) and the card line
 come before the last line, which is ``{"ok": true, "device": {...}}`` when
 every phase passed. Without CUDA, or without the package beside it, the
 script exits non-zero and prints no result.
@@ -100,11 +130,16 @@ B5_EPILOGUE_INSTR = 10
 B1_RTOL, B1_ATOL = 1e-5, 1e-4  # f32 summation order differs from the plain sum
 B2_SET_EQUAL = 0.999
 B2_RTOL = 1e-5
-# packed scan, decoded: the value drops its low LB mantissa bits (2^LB ulp,
-# 1.5e-5 relative at LB=7) and the two sides sum the f32 products of bf16
-# inputs in different orders; the atol covers d2 near 0, where |x|^2 + |q|^2
-# - 2 q.x cancels. A bf16 accumulation misses this by two orders.
-B2_SCAN_RTOL, B2_SCAN_ATOL = 1e-4, 1e-4
+# packed scan, decoded: the value keeps all but its low LB mantissa bits, so
+# it moves in steps of one quantum (2^LB ulp of the value), and the two sides
+# sum the f32 products of bf16 inputs in different orders, which differ on the
+# scale of the terms |q|^2 + |x|^2 + 2 |q.x| (as B5's below), not on that of
+# d2, which cancels to near 0 in a tight cluster at large norms (the 1M
+# clustered corpus: terms near 1e4, d2 near 1). A cell's first and second
+# values are order statistics of the truncated row values, so each side's is
+# within one quantum plus that summation error of the other's, whichever row
+# either side kept. A bf16 accumulation misses this by two orders.
+B2_TERM_RTOL = 1e-6
 # a cell whose two best candidates tie within the summation-order error may
 # keep either one: loc bits must agree on all but such cells
 B2_LOC_EQUAL = 0.999
@@ -131,17 +166,43 @@ def emit(obj):
 
 
 def make_dataset(kind, rng, n, nq, d, intrinsic):
-    """bench.py's ``make_dataset`` ("gauss" corpus): a low-intrinsic-dimension
-    gaussian through a fixed random linear map, corpus and queries on forked
-    streams so X depends on (seed, n, d, intrinsic) only."""
+    """bench.py's ``make_dataset``: a low-intrinsic-dimension corpus through a
+    fixed random linear map, corpus and queries on forked streams so X depends
+    on (seed, n, d, intrinsic) only. "gauss": gaussian codes. "clustered":
+    max(64, n // 4000) clusters with lognormal weights and scales, Student-t
+    offsets, rows in cluster order, a tenth of the queries from the
+    background."""
     xrng = np.random.default_rng(rng.integers(2**63))
     qrng = np.random.default_rng(rng.integers(2**63))
     A = (rng.standard_normal((intrinsic, d)).astype(np.float32)
          / np.float32(np.sqrt(intrinsic)))  # f32 under NumPy 1 and 2 alike
-    if kind != "gauss":
+    if kind == "gauss":
+        Z = xrng.standard_normal((n, intrinsic), dtype=np.float32)
+        Zq = qrng.standard_normal((nq, intrinsic), dtype=np.float32)
+    elif kind == "clustered":
+        C = max(64, n // 4000)
+        w = rng.lognormal(0.0, 1.2, C)
+        w /= w.sum()
+        centers = 4.0 * rng.standard_normal((C, intrinsic))
+        sig = rng.lognormal(-0.4, 0.6, C)
+
+        def draw(g, m, counts):
+            Z = np.empty((m, intrinsic), np.float32)
+            ofs = 0
+            for c in range(C):
+                k = int(counts[c])
+                Z[ofs:ofs + k] = centers[c] + sig[c] * g.standard_t(4, (k, intrinsic))
+                ofs += k
+            return Z
+
+        Z = draw(xrng, n, xrng.multinomial(n, w))  # cluster-ordered on purpose
+        nq_bg = nq // 10
+        Zq = np.concatenate([draw(qrng, nq - nq_bg, qrng.multinomial(nq - nq_bg, w)),
+                             4.0 * qrng.standard_normal((nq_bg, intrinsic))
+                             .astype(np.float32)])
+        Zq = Zq[qrng.permutation(nq)]
+    else:
         raise ValueError(f"unknown dataset {kind!r}")
-    Z = xrng.standard_normal((n, intrinsic), dtype=np.float32)
-    Zq = qrng.standard_normal((nq, intrinsic), dtype=np.float32)
     X = np.matmul(Z.astype(np.float32), A)
     for s in range(0, n, 65536):
         e = min(s + 65536, n)
@@ -442,8 +503,10 @@ def cuda_ms_queued(torch, fn, n=20):
 
 def compare_scans(torch, st, kernel_lib, qs, Xs, xsq, acc, label, want_entry, failures):
     """Both scans' raw outputs against their plain versions on one input:
-    B2's loc bits and decoded distances, B5's values (against the magnitude of
-    the terms, ``B5_TERM_RTOL``) and row ids, and which kernel entry ran."""
+    B2's loc bits and decoded distances (against one quantum of the packed
+    value plus the magnitude of the terms, ``B2_TERM_RTOL``), B5's values
+    (against the terms, ``B5_TERM_RTOL``) and row ids, and which kernel entry
+    ran."""
     tn, grp = st.SCAN_TN, st.SCAN_GROUP
     before = dict(kernel_lib.LAUNCHES)
     pk = st.scan_packed(qs, Xs, xsq, tn, grp, acc)
@@ -460,14 +523,30 @@ def compare_scans(torch, st, kernel_lib, qs, Xs, xsq, acc, label, want_entry, fa
     pad = (pp & ~mask).view(torch.float32) >= 1e37
     if not torch.equal(pk[pad], pp[pad]):
         failures.append(f"{label}: B2 padding or empty cells differ")
-    dvk = (pk & ~mask).view(torch.float32)[~pad]
-    dvp = (pp & ~mask).view(torch.float32)[~pad]
-    scan_err = float((dvk - dvp).abs().max()) if dvk.numel() else 0.0
-    if not close(dvk, dvp, B2_SCAN_RTOL, B2_SCAN_ATOL):
-        failures.append(f"{label}: B2 decoded distances beyond tolerance")
+    dvk = (pk & ~mask).view(torch.float32)
+    dvp = (pp & ~mask).view(torch.float32)
+    # the terms of the plain side's pick: its row from the cell and loc bits
+    G, acc_eff = tn // grp, st._geometry(Xs.shape[0], tn, grp, acc)[2]
+    loc = (pp & mask).to(torch.int64)
+    blk = torch.arange(pp.shape[0], device=pp.device)[:, None, None]
+    lane = (torch.arange(2 * G, device=pp.device) % G)[None, None, :]
+    row = ((blk * acc_eff + loc // grp) * tn + (loc % grp) * G + lane).clamp_max(Xs.shape[0] - 1)
+    qq = (qs.float() ** 2).sum(1)[None, :, None]
+    xs_row = xsq[row]
+    terms = qq + xs_row + (qq + xs_row - dvp).abs()
+    # one quantum at the larger value: 2^(exponent - 150 + LB) for an f32
+    e = (torch.maximum(dvk, dvp).view(torch.int32) >> 23) & 0xFF
+    quantum = torch.pow(2.0, (e - 150 + LB).to(torch.float32))
+    err = (dvk - dvp).abs()
+    bound = quantum + B2_TERM_RTOL * terms
+    scan_err = float(err[~pad].max()) if err.numel() else 0.0
+    over = float((err / bound)[~pad].max()) if err.numel() else 0.0
+    if over > 1.0:
+        failures.append(f"{label}: B2 decoded distances off by {over:.3g} of one quantum "
+                        f"plus {B2_TERM_RTOL} of their terms")
     if loc_equal < B2_LOC_EQUAL:
         failures.append(f"{label}: B2 loc bits equal on {loc_equal:.6f} of cells")
-    del pk, pp, dvk, dvp, pad
+    del pk, pp, dvk, dvp, pad, loc, row, xs_row, terms, e, quantum, err, bound
     up, jp = st.scan_unpacked_plain(qs, Xs, xsq, tn, grp, acc)
     # v = |x|^2 - 2 q.x: the error's scale is that of the two terms, read off
     # the plain side's pick (2 q.x = |x|^2 - v)
@@ -483,7 +562,8 @@ def compare_scans(torch, st, kernel_lib, qs, Xs, xsq, acc, label, want_entry, fa
     if id_equal < B5_ID_EQUAL:
         failures.append(f"{label}: B5 ids equal on {id_equal:.6f} of cells")
     return {"shape": label, "entry": want_entry, "b2_loc_equal_frac": loc_equal,
-            "b2_max_abs_err": scan_err, "b5_max_abs_err": u_err,
+            "b2_max_abs_err": scan_err, "b2_max_err_over_bound": over,
+            "b5_max_abs_err": u_err,
             "b5_max_err_over_terms": u_ratio, "b5_id_equal_frac": id_equal}
 
 
@@ -867,6 +947,446 @@ def phase_serve2(torch, h, h2, bf, X, Q, kth10):
     return out, failures
 
 
+# ------------------------------------------------------------------ path 3 ----
+
+RECALL_HAMMING_EF128 = 0.90  # 200k x 256-bit codes, recall@10 at ef=128
+RECALL_SMALL_EF64 = 0.95     # each 20k metric, recall@10 at ef=64
+SCORES_RTOL = 1e-3           # f32 torch scores against the fp64 oracle (64 x 256)
+HAMMING_BITS = 256
+PROJ_SEED = 0x5EED           # the fixed 128 -> 256 sign projection
+
+
+def hamming_codes(X, Q):
+    """ann-benchmarks' sift-256-hamming construction: the sign bits of a fixed
+    random projection of the corpus to 256 dimensions, as 0/1 uint8 codes."""
+    P = np.random.default_rng(PROJ_SEED).standard_normal(
+        (X.shape[1], HAMMING_BITS)).astype(np.float32)
+    return (X @ P > 0).astype(np.uint8), (Q @ P > 0).astype(np.uint8)
+
+
+def packed_words(codes):
+    """0/1 codes -> int64 words holding 32 bits each (nonnegative, so the
+    shifts of ``popcount_words`` never see a sign bit)."""
+    return np.packbits(codes, axis=1).view(np.uint32).astype(np.int64)
+
+
+def popcount_words(x):
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
+
+
+def hamming_truth(torch, xw, qw, ids, k=10, chunk=64):
+    """Exact bit counts by XOR + popcount of the packed codes on the card
+    (independent of ``scores_hamming``): each query's k-th count over the
+    whole corpus, and the counts of the returned ids (-1: no answer)."""
+    X = torch.as_tensor(xw, device="cuda")
+    Qw = torch.as_tensor(qw, device="cuda")
+    kth = []
+    for s in range(0, len(qw), chunk):
+        cnt = popcount_words(torch.bitwise_xor(Qw[s:s + chunk, None, :], X[None])).sum(-1)
+        kth.append(torch.kthvalue(cnt, k, dim=1).values)
+    kth = torch.cat(kth)
+    it = torch.as_tensor(np.clip(ids, 0, len(xw) - 1), device="cuda")
+    got = popcount_words(torch.bitwise_xor(Qw[:, None, :], X[it])).sum(-1)
+    return kth.cpu().numpy(), got.cpu().numpy()
+
+
+def stream_timed(torch, h, Q, k, ef, batch, **kw):
+    """(ids as origin ids, QPS of a second identical call)."""
+    from hnsw_tpu_torch.ops.beam_search import device_search_stream
+
+    ids, _ = device_search_stream(h, Q, k, ef, batch=batch, **kw)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    device_search_stream(h, Q, k, ef, batch=batch, **kw)
+    qps = len(Q) / (time.time() - t0)
+    return np.where(ids >= 0, h._origin[np.clip(ids, 0, h._nb_point - 1)], -1), qps
+
+
+def phase_hamming(torch, X, Q, failures, nq=4096, k=10):
+    """Hamming at full size: 200k 256-bit codes, built and served on the card."""
+    from hnsw_tpu_torch import Hnsw, get_metric
+
+    codes, qcodes = hamming_codes(X, Q[:nq])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    h = Hnsw(max_nb_connection=24, max_elements=len(codes), ef_construction=400,
+             dist="Hamming", dtype=np.uint8, device="cuda")
+    h.set_keeping_pruned(True)
+    h.modify_level_scale(0.5)
+    h.parallel_insert(codes, mode="device", batch_size=16384, build_max_iters=96)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    if h.device.type != "cuda" or h.device_codec() is not None:
+        failures.append("hamming: the index must serve on the card without the codec")
+    xw, qw = packed_words(codes), packed_words(qcodes)
+    by_ef = {}
+    for ef in (64, 128):
+        oid, qps = stream_timed(torch, h, qcodes, k, ef, batch=nq)
+        kth, got = hamming_truth(torch, xw, qw, oid, k)
+        recall = float(((oid >= 0) & (got <= kth[:, None])).sum() / (nq * k))
+        by_ef[ef] = {"recall_at_10": recall, "qps": qps}
+    if by_ef[128]["recall_at_10"] < RECALL_HAMMING_EF128:
+        failures.append(f"hamming recall@10 at ef=128 {by_ef[128]['recall_at_10']:.4f} "
+                        f"< {RECALL_HAMMING_EF128}")
+    m = get_metric("Hamming")
+    got = m.scores(torch.as_tensor(qcodes[:64].astype(np.float32), device="cuda"),
+                   torch.as_tensor(codes[:256].astype(np.float32),
+                                   device="cuda")[None].expand(64, 256, -1))
+    exact = bool(np.array_equal(got.cpu().numpy(), m.np_batch(qcodes[:64], codes[:256])))
+    if not exact:
+        failures.append("hamming: scores on the card differ from the numpy oracle")
+    return {"n": len(codes), "bits": HAMMING_BITS, "queries": nq, "build_s": build_s,
+            "repair": h._repair_stats, "by_ef": by_ef, "scores_equal_oracle": exact}, h, qcodes
+
+
+def _softmax(A):
+    e = np.exp(A - A.max(1, keepdims=True))
+    return (e / e.sum(1, keepdims=True)).astype(np.float32)
+
+
+def _words(rng, m, width=12):
+    """Zero-padded uint16 words of 3-12 letters from a-z."""
+    L = rng.integers(3, width + 1, m)
+    letters = rng.integers(ord("a"), ord("z") + 1, (m, width)).astype(np.uint16)
+    return np.where(np.arange(width)[None] < L[:, None], letters, 0).astype(np.uint16)
+
+
+def _misspellings(rng, base, m, width=12):
+    """``m`` misspellings of random words of ``base``: one or two random
+    edits (substitute, insert or delete a letter), lengths kept in 3-12, as a
+    spelling corrector's index holds them. Uniform random strings are all
+    about equally far apart, which gives a graph little to route by: the JAX
+    package's build of such a set answers with the port's ids
+    (``tests/test_torch_levenshtein_recall.py``), below the gate at 20k."""
+    out = np.zeros((m, width), np.uint16)
+    for r, b in enumerate(rng.integers(0, len(base), m)):
+        w = list(base[b][base[b] != 0])
+        for _ in range(int(rng.integers(1, 3))):
+            op = int(rng.integers(0, 3))
+            op = 0 if (op == 1 and len(w) == width) or (op == 2 and len(w) == 3) else op
+            pos = int(rng.integers(0, len(w) + (op == 1)))
+            c = int(rng.integers(ord("a"), ord("z") + 1))
+            if op == 0:
+                w[min(pos, len(w) - 1)] = c
+            elif op == 1:
+                w.insert(pos, c)
+            else:
+                del w[min(pos, len(w) - 1)]
+        out[r, :len(w)] = w
+    return out
+
+
+_W16 = (1.0 + np.arange(16, dtype=np.float32) / 16)
+
+
+def _wl2_pair(a, b):
+    diff = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return float((_W16 * diff * diff).sum())
+
+
+def _wl2_scores(q, C):
+    import torch
+    w = torch.as_tensor(_W16, device=q.device)
+    diff = q[:, None, :].float() - C.float()
+    return (w * diff * diff).sum(-1)
+
+
+def _wl2_matmul(q, X, x_sqnorms=None):
+    import torch
+    w = torch.as_tensor(_W16, device=q.device)
+    qf, Xf = q.float(), X.float()
+    g = qf @ (w * Xf).T
+    return torch.clamp_min((w * qf * qf).sum(-1)[:, None] - 2.0 * g
+                           + (w * Xf * Xf).sum(-1)[None, :], 0.0)
+
+
+def small_sets(X, Q, seed, n=20000, nq=1024):
+    """(metric, corpus, queries) of path 3's small metrics."""
+    from hnsw_tpu_torch import UserMetric
+
+    P, PQ = _softmax(X[:n, :64]), _softmax(Q[:nq, :64])
+    rng = np.random.default_rng(seed + 7)
+    user = UserMetric(_wl2_pair, name="WeightedL2", scores=_wl2_scores,
+                      matmul_scores=_wl2_matmul)
+    sets = [(name, P, PQ) for name in ("Jaccard", "Hellinger", "Jeffreys",
+                                        "JensenShannon", "L1")]
+    base = _words(rng, n // 10)
+    sets.append(("Levenshtein", _misspellings(rng, base, n), _misspellings(rng, base, nq)))
+    sets.append((user, np.ascontiguousarray(X[:n, :16]), np.ascontiguousarray(Q[:nq, :16])))
+    return sets
+
+
+def exact_kth(torch, m, Xs, Qs, k=10, pool=64):
+    """fp64 k-th distance per query: a top-``pool`` set from the metric's torch
+    scores over the whole corpus (query chunks on the card), refined by the
+    numpy oracle on the host."""
+    Xd = torch.as_tensor(Xs.astype(np.float32), device="cuda")
+    N, d = Xd.shape
+    step = max(1, (1 << 26) // (N * d))
+    pools = []
+    for s in range(0, len(Qs), step):
+        q = torch.as_tensor(Qs[s:s + step].astype(np.float32), device="cuda")
+        sc = m.scores(q, Xd[None].expand(q.shape[0], N, d))
+        pools.append(torch.topk(sc, pool, dim=1, largest=False).indices.cpu().numpy())
+    pools = np.concatenate(pools)
+    return np.array([np.sort(m.np_batch(Qs[b], Xs[pools[b]]))[k - 1]
+                     for b in range(len(Qs))])
+
+
+def recall_oracle(m, Xs, Qs, kth, oid, k=10):
+    hits = 0
+    for b in range(len(Qs)):
+        ok = oid[b] >= 0
+        d64 = m.np_batch(Qs[b], Xs[np.clip(oid[b], 0, len(Xs) - 1)])
+        hits += int((ok & (d64 <= kth[b] * (1.0 + 1e-6) + 1e-12)).sum())
+    return hits / (len(Qs) * k)
+
+
+def phase_small_metrics(torch, X, Q, seed, failures, k=10):
+    from hnsw_tpu_torch import Hnsw, get_metric
+
+    out = {}
+    for dist, Xs, Qs in small_sets(X, Q, seed):
+        m = get_metric(dist)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        h = Hnsw(max_nb_connection=16, max_elements=len(Xs), ef_construction=100,
+                 dist=m, dtype=Xs.dtype, device="cuda")
+        h.parallel_insert(Xs, mode="device", batch_size=4096)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        oid, qps = stream_timed(torch, h, Qs, k, 64, batch=len(Qs))
+        kth = exact_kth(torch, m, Xs, Qs, k)
+        recall = recall_oracle(m, Xs, Qs, kth, oid, k)
+        oid64, qps64 = stream_timed(torch, h, Qs, k, 64, batch=len(Qs), max_iters=64)
+        recall64 = recall_oracle(m, Xs, Qs, kth, oid64, k)
+        got = m.scores(torch.as_tensor(Qs[:64].astype(np.float32), device="cuda"),
+                       torch.as_tensor(Xs[:256].astype(np.float32),
+                                       device="cuda")[None].expand(64, 256, -1))
+        want = m.np_batch(Qs[:64], Xs[:256])
+        got = got.cpu().numpy().astype(np.float64)
+        rel = float((np.abs(got - want) / np.maximum(np.abs(want), 1e-30)).max())
+        row = {"n": len(Xs), "d": Xs.shape[1], "build_s": build_s, "qps": qps,
+               "recall_at_10": recall, "iters64": {"recall_at_10": recall64, "qps": qps64},
+               "repair": h._repair_stats,
+               "scores_max_rel_err": rel}
+        if m.name == "Levenshtein":
+            row["scores_equal_oracle"] = bool(np.array_equal(got, want))
+            if not row["scores_equal_oracle"]:
+                failures.append("Levenshtein: scores on the card differ from the oracle")
+        elif rel > SCORES_RTOL:
+            failures.append(f"{m.name}: scores max relative error {rel:.2e} > {SCORES_RTOL}")
+        if recall < RECALL_SMALL_EF64:
+            failures.append(f"{m.name}: recall@10 at ef=64 {recall:.4f} < {RECALL_SMALL_EF64}")
+        if h.device.type != "cuda":
+            failures.append(f"{m.name}: the index is not on the card")
+        out[m.name] = row
+    return out
+
+
+def phase_metrics(torch, X, Q, seed):
+    """Path 3. Returns (failures, the Hamming index, its query codes)."""
+    failures = []
+    ham, h, qcodes = phase_hamming(torch, X, Q, failures)
+    small = phase_small_metrics(torch, X, Q, seed, failures)
+    emit({"phase": "metrics", "hamming": ham, "small": small, "failures": failures})
+    return failures, h, qcodes
+
+
+# ------------------------------------------------------------------ path 4 ----
+
+RECALL_IVF_NP64 = 0.97
+RECALL_AUTO_COSINE = 0.95
+
+
+def matmul_kth(torch, X, Q, k=10, cosine=False, pool=64, chunk=512):
+    """fp64 k-th L2 (or cosine) distance per query, independent of the
+    engines under test: a top-``pool`` set from a chunked f32 matmul on the
+    card (TF32 off), refined on the host."""
+    Xd = torch.as_tensor(X, device="cuda")
+    if cosine:
+        Xd = torch.nn.functional.normalize(Xd, dim=1)
+    xsq = (Xd * Xd).sum(-1)
+    pools = []
+    for s in range(0, len(Q), chunk):
+        q = torch.as_tensor(Q[s:s + chunk], device="cuda")
+        if cosine:
+            sc = -(torch.nn.functional.normalize(q, dim=1) @ Xd.T)
+        else:
+            sc = xsq[None, :] - 2.0 * (q @ Xd.T)
+        pools.append(torch.topk(sc, pool, dim=1, largest=False).indices.cpu().numpy())
+    pools = np.concatenate(pools)
+    dist = cosine64 if cosine else l2_64
+    return np.array([np.sort(dist(Q[b], X[pools[b]]))[k - 1] for b in range(len(Q))])
+
+
+def l2_64(q, Xr):
+    dv = Xr.astype(np.float64) - q.astype(np.float64)
+    return np.sqrt((dv * dv).sum(-1))
+
+
+def cosine64(q, Xr):
+    q = q.astype(np.float64)
+    Xr = Xr.astype(np.float64)
+    return 1.0 - (Xr @ q) / (np.linalg.norm(Xr, axis=1) * np.linalg.norm(q))
+
+
+def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
+    """Path 4: IVF-Flat and AutoIndex on the 1M x 128 clustered corpus,
+    scored against an fp64-refined f32 matmul. Returns (failures, (the IVF
+    index, the queries), (the exact engine, corpus, queries, k-th distances))."""
+    from hnsw_tpu_torch import AutoIndex, BruteForceIndex, IvfFlatIndex
+    from hnsw_tpu_torch.ops import kernel_lib
+
+    failures = []
+    t0 = time.time()
+    X, Q = make_dataset("clustered", np.random.default_rng(seed), n, nq, 128, 16)
+    data_s = time.time() - t0
+    # the truth takes no engine under test: kernel B2 is scored against it
+    kth = matmul_kth(torch, X, Q, k)
+    bf = BruteForceIndex(dist="L2", device="cuda")
+    bf.parallel_insert(X)
+    if not bf._use_scan():
+        raise RuntimeError("the 1M exact engine must take the scan (kernel B2)")
+    ids_bf, _ = bf.search_batch(Q, k)
+    exact_recall = recall_fp64(X, Q, kth, ids_bf, k)
+    # the IVF engine at its defaults
+    ix = IvfFlatIndex("L2", device="cuda")
+    ix.parallel_insert(X)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ix.build()
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    L, cap = ix.n_lists, ix._built[6]
+    by_np = {}
+    for nprobe in (16, 32, 64):
+        ids, _ = ix.search_batch(Q, k, nprobe=nprobe)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ix.search_batch(Q, k, nprobe=nprobe)
+        by_np[nprobe] = {"recall_at_10": recall_fp64(X, Q, kth, ids, k),
+                         "qps": nq / (time.time() - t0)}
+    r = [by_np[p]["recall_at_10"] for p in (16, 32, 64)]
+    if not r[0] <= r[1] <= r[2]:
+        failures.append(f"ivf recall@10 decreases with nprobe: {r}")
+    if r[2] < RECALL_IVF_NP64:
+        failures.append(f"ivf recall@10 at nprobe=64 {r[2]:.4f} < {RECALL_IVF_NP64}")
+    # the pipelined stream (f16 ingest) against search_batch on the same
+    # f16-rounded queries in batches of the same size
+    ids_s, _ = ix.search_stream(Q, k, nprobe=32, batch=8192)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ix.search_stream(Q, k, nprobe=32, batch=8192)
+    stream_qps = nq / (time.time() - t0)
+    q16 = Q.astype(np.float16).astype(np.float32)
+    ids_b16, _ = ix.search_batch(q16, k, nprobe=32, chunk=8192)
+    stream_equal = bool(np.array_equal(ids_s, ids_b16))
+    if not stream_equal:
+        failures.append("ivf search_stream ids differ from search_batch's")
+    # AutoIndex: clustered L2 inside IVF_BUDGET -> the exact scan (kernel B2)
+    a = AutoIndex("L2", device="cuda")
+    t0 = time.time()
+    a.parallel_insert(zip(X, range(n)))
+    eng_l2 = a.choose_engine()
+    a.build()
+    auto_l2_s = time.time() - t0
+    before = dict(kernel_lib.LAUNCHES)
+    ids_a, _ = a.search_batch(Q, k)
+    auto_b2 = {e: kernel_lib.LAUNCHES[e] - before[e] for e in ("scan_topk", "scan_topk.wgmma")}
+    if auto_b2["scan_topk"] == 0 or auto_b2["scan_topk.wgmma"] != auto_b2["scan_topk"]:
+        failures.append(f"AutoIndex('L2')'s search did not go through B2's wgmma entry: {auto_b2}")
+    if eng_l2 != "scan" or a.engine_name != "scan":
+        failures.append(f"AutoIndex('L2') chose {eng_l2!r}, not 'scan'")
+    if not np.array_equal(ids_a, ids_bf):
+        failures.append("AutoIndex('L2') ids differ from BruteForceIndex's")
+    # AutoIndex: clustered Cosine -> IVF
+    c = AutoIndex("Cosine", device="cuda")
+    t0 = time.time()
+    c.parallel_insert(zip(X, range(n)))
+    eng_cos = c.choose_engine()
+    c.build()
+    auto_cos_s = time.time() - t0
+    ids_c, _ = c.engine.search_batch(Q, k, nprobe=32)
+    kth_c = matmul_kth(torch, X, Q, k, cosine=True)
+    hits = sum(int(((ids_c[b] >= 0) & (cosine64(Q[b], X[np.clip(ids_c[b], 0, n - 1)])
+                                       <= kth_c[b] * (1.0 + 1e-6) + 1e-12)).sum())
+               for b in range(nq))
+    r_cos = hits / (nq * k)
+    if eng_cos != "ivf" or c.engine_name != "ivf":
+        failures.append(f"AutoIndex('Cosine') chose {eng_cos!r}, not 'ivf'")
+    if r_cos < RECALL_AUTO_COSINE:
+        failures.append(f"AutoIndex('Cosine') recall@10 at nprobe=32 {r_cos:.4f} "
+                        f"< {RECALL_AUTO_COSINE}")
+    for name, eng in (("ivf", ix), ("auto L2", a.engine), ("auto Cosine", c.engine)):
+        if eng.device.type != "cuda":
+            failures.append(f"{name}: the engine is not on the card")
+    emit({"phase": "ivf", "n": n, "d": 128, "queries": nq, "data_s": data_s,
+          "truth": "f32 matmul top-64 on the card, refined in fp64",
+          "exact_recall_at_10": exact_recall,
+          "ivf": {"build_s": build_s, "lists": L, "cap": cap,
+                  "padding_share": 1.0 - n / (L * cap), "by_nprobe": by_np,
+                  "stream": {"nprobe": 32, "batch": 8192, "qps": stream_qps,
+                             "ids_equal_search_batch": stream_equal,
+                             "ids_equal_f32_batch_frac": float(
+                                 (ids_s == ix.search_batch(Q, k, nprobe=32)[0]).all(1).mean())}},
+          "auto_l2": {"engine": eng_l2, "insert_build_s": auto_l2_s, "b2_launches": auto_b2,
+                      "ids_equal_bruteforce": bool(np.array_equal(ids_a, ids_bf))},
+          "auto_cosine": {"engine": eng_cos, "insert_build_s": auto_cos_s,
+                          "lists": c.engine.n_lists, "recall_at_10_nprobe32": r_cos},
+          "failures": failures})
+    return failures, (ix, Q), (bf, X, Q, kth)
+
+
+def scan_on_clustered(torch, bf, X, Q, kth, k=10):
+    """B2 against its plain version on path 4's corpus and queries at the
+    shape ``BruteForceIndex`` gives it (the shuffled, padded 1M corpus in bf16,
+    2048-query batches), and where the exact scan's misses come from: the
+    engine's answers through the kernel and through the plain version, an f32
+    scan (B2's simt entry), and a wider overfetch, each scored against the
+    matmul truth. Runs after path 4's counts are read: these are comparisons.
+    Returns (the raw-output check, failures)."""
+    from hnsw_tpu_torch.ops import kernel_lib
+    from hnsw_tpu_torch.ops import scan_topk as st
+
+    failures = []
+    Xd, xsq, Xs, perm, acc = bf._scan_device()
+    Bq = 2048
+    qs = torch.as_tensor(Q[:Bq], device="cuda").to(torch.bfloat16)
+    check = compare_scans(torch, st, kernel_lib, qs, Xs, xsq, acc,
+                          f"path 4 clustered B={Bq} N={Xd.shape[0]} d={Xd.shape[1]} "
+                          f"bf16 acc={acc}", "wgmma", failures)
+    del qs
+
+    def answers(**kw):
+        out = []
+        for s in range(0, len(Q), Bq):
+            q = torch.as_tensor(Q[s:s + Bq], device="cuda")
+            out.append(st.l2_topk(q, Xd, xsq, k, acc=acc, **kw)[1].cpu().numpy())
+            torch.cuda.empty_cache()
+        return perm[np.clip(np.concatenate(out), 0, len(perm) - 1)]
+
+    of = bf.SCAN_OVERFETCH
+    variants = {"kernel": dict(Xscan=Xs, overfetch=of),
+                "plain": dict(Xscan=Xs, overfetch=of, plain=True),
+                "f32_scan": dict(Xscan=None, overfetch=of),
+                "overfetch_54": dict(Xscan=Xs, overfetch=54)}
+    ids = {name: answers(**kw) for name, kw in variants.items()}
+    recall = {name: recall_fp64(X, Q, kth, i, k) for name, i in ids.items()}
+    same = float((np.sort(ids["kernel"], 1) == np.sort(ids["plain"], 1)).all(1).mean())
+    if same < B2_SET_EQUAL:
+        failures.append(f"path 4: B2's answers set-equal to its plain version's on "
+                        f"{same:.4f} of queries")
+    emit({"phase": "ivf_scan", "check": check, "recall_at_10": recall,
+          "kernel_set_equal_plain_frac": same, "overfetch": of, "failures": failures})
+    return check, failures
+
+
 def profiled(torch, label, fn, top=12):
     """Run ``fn`` under torch.profiler; emit device busy time by kernel and
     the device's idle share of the window's wall time. Returns a failure
@@ -895,7 +1415,8 @@ def profiled(torch, label, fn, top=12):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="env,kernels,build,gt,serve,persist,serve2")
+    ap.add_argument("--phases",
+                    default="env,kernels,build,gt,serve,persist,serve2,metrics,ivf")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, trace one served batch per operating "
@@ -957,6 +1478,31 @@ def main():
             r, f = gathered_rows(torch, Q, args.seed, codec, h._nb_point)
             rows += r
             failures += f
+    h2 = bf = None
+    torch.cuda.empty_cache()
+    # ---- path 3: every other metric, counts from zero ----
+    kernel_lib.reset_launch_counts()
+    ham = ivf = None
+    if "metrics" in phases:
+        f, *ham = phase_metrics(torch, X, Q, args.seed)
+        failures += f
+    path3 = dict(kernel_lib.LAUNCHES)
+    torch.cuda.empty_cache()
+    # ---- path 4: IVF-Flat and AutoIndex on the 1M clustered corpus ----
+    kernel_lib.reset_launch_counts()
+    scan4 = None
+    if "ivf" in phases:
+        f, ivf, scan4 = phase_ivf(torch, args.seed)
+        failures += f
+    path4 = dict(kernel_lib.LAUNCHES)
+    if scan4 is not None:
+        check, f = scan_on_clustered(torch, *scan4)
+        failures += f
+        for r in rows:
+            if r["name"] == "B2":
+                r["shapes_checked"].append(check)
+    scan4 = None
+    torch.cuda.empty_cache()
     if args.profile and h is not None:
         from hnsw_tpu_torch.ops.beam_search import device_search_stream
         windows = [(f"serve ef={ef} batch=16384",
@@ -970,8 +1516,11 @@ def main():
         windows.append(("serve k=100 ef=192 expand=8 pool=256 batch=16384",
                         lambda: device_search_stream(h, Q, 100, 192, batch=16384,
                                                      expand=8, pool=256)))
-        if bf is not None:
+        if "gt" in phases:
+            from hnsw_tpu_torch import BruteForceIndex
             from hnsw_tpu_torch.ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk_stream
+            bf = BruteForceIndex(dist="L2", device="cuda")
+            bf.parallel_insert(X)
             Xd, xsq, Xscan, _, acc = bf._scan_device()
             windows.append(("exact k=10 packed, one 2048-query batch",
                             lambda: bf.search_batch(Q[:2048], 10)))
@@ -980,6 +1529,16 @@ def main():
                                 Q[:2048], Xd, xsq, 100, tn=SCAN_TN, group=SCAN_GROUP,
                                 Xscan=Xscan, acc=acc, overfetch=bf.SCAN_OVERFETCH,
                                 batch=2048, packed=False)))
+        if ham:
+            hh, qc = ham
+            windows.append(("hamming serve ef=128, one 4096-query batch",
+                            lambda: device_search_stream(hh, qc, 10, 128, batch=len(qc))))
+        if ivf:
+            ix, Qc = ivf
+            windows.append(("ivf search_batch nprobe=32, 4096 queries in chunks of 512",
+                            lambda: ix.search_batch(Qc, 10, nprobe=32)))
+            windows.append(("ivf search_stream nprobe=32, 4096 queries, f16 ingest",
+                            lambda: ix.search_stream(Qc, 10, nprobe=32, batch=8192)))
         windows.append(("build (a second, traced build of the same index)",
                         lambda: phase_build(torch, X)))
         for label, fn in windows:
@@ -987,26 +1546,31 @@ def main():
             if f:
                 failures.append(f)
     # a kernel's launches are read on the path that drives it: B1 and B2 on
-    # path 1 (and again on path 2), B4 and B5 on path 2; B3 is on neither
+    # path 1 (and again on path 2), B4 and B5 on path 2, B2 on path 4 (the
+    # AutoIndex scan and BruteForceIndex's answers); B3 is on none, path 3 on none
     ran1 = all(p in phases for p in ("build", "gt", "serve"))
     ran2 = ran1 and all(p in phases for p in ("persist", "serve2"))
-    needed = {"B1": [(ran1, path1), (ran2, path2)], "B2": [(ran1, path1)],
-              "B4": [(ran2, path2)], "B5": [(ran2, path2)]}
+    ran4 = "ivf" in phases
+    paths = {"path1": path1, "path2": path2, "path3": path3, "path4": path4}
+    # (ran, counts, must launch there)
+    needed = {"B1": [(ran1, path1, True), (ran2, path2, False)],
+              "B2": [(ran1, path1, True), (ran4, path4, True)],
+              "B4": [(ran2, path2, True)], "B5": [(ran2, path2, True)]}
     for r in rows:
         c = r.pop("counter")
-        r["launches_by_path"] = {"path1": path1[c], "path2": path2[c]}
-        r["launches"] = path1[c] or path2[c]
+        r["launches_by_path"] = {p: cnt[c] for p, cnt in paths.items()}
+        r["launches"] = path1[c] or path2[c] or path4[c]
         # every launch of the paths by the entry the comparison went through:
         # wgmma for the scans, bulk for B1, stream for B4
         e = f"{c}.{r['entry']}"
         r["launches_by_entry"] = {
-            "path1": {k.split(".")[1]: v for k, v in path1.items() if k.startswith(c + ".")},
-            "path2": {k.split(".")[1]: v for k, v in path2.items() if k.startswith(c + ".")}}
-        for which, (ran, counts) in enumerate(needed.get(r["name"], [])):
+            p: {k.split(".")[1]: v for k, v in cnt.items() if k.startswith(c + ".")}
+            for p, cnt in paths.items()}
+        for ran, counts, must in needed.get(r["name"], []):
             if not ran:
                 continue
             if counts[c] == 0:
-                if which == 0:
+                if must:
                     failures.append(f"kernel {r['name']} never launched on its path")
             elif counts[e] != counts[c]:
                 failures.append(f"kernel {r['name']} did not run its path through the "

@@ -12,6 +12,13 @@ search one graph with both.
 
 ``params``: ``M``, ``efC``, ``max_layer``, ``scale`` (level scale), ``metric``,
 ``keep_pruned``, ``extend``.
+
+``ivf_to_arrays(ix)`` / ``ivf_from_arrays(state, ...)`` do the same for an
+``IvfFlatIndex``'s built state: ``centroids``, the packed f32 rows
+(``packed``, list-major, ``cap`` rows a list), ``xsq`` (inf on padding rows),
+``row2idx``, ``cap``, ``X`` and ``ids``. ``ivf_to_arrays`` reads either
+package's index, so the port can serve a JAX-built index's lists as they are
+(k-means alone would drift with the f32 summation order).
 """
 
 from __future__ import annotations
@@ -19,8 +26,10 @@ from __future__ import annotations
 import json
 
 import numpy as np
+import torch
 
 from .models.hnsw import Hnsw, _LayerTable
+from .models.ivf import IvfFlatIndex
 
 _POINT_KEYS = ("_data", "_origin", "_level", "_rank_in_layer", "_layer_npoints")
 
@@ -78,3 +87,33 @@ def from_arrays(state: dict, params: dict, device=None) -> Hnsw:
     if "sampler_scale" in state:
         h.level_sampler.scale = float(state["sampler_scale"])
     return h
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def ivf_to_arrays(ix) -> dict:
+    """The built state of an IVF-Flat index (either package's) as numpy arrays."""
+    ix.build()
+    cent, _, _, Xf3, xsq3, row2idx, cap = ix._built
+    Xf = _host(Xf3).astype(np.float32)
+    return {"centroids": _host(cent).astype(np.float32),
+            "packed": Xf.reshape(-1, Xf.shape[-1]),
+            "xsq": _host(xsq3).astype(np.float32).reshape(-1),
+            "row2idx": np.asarray(row2idx, np.int64),
+            "cap": np.array(int(cap), np.int64),
+            "X": np.asarray(ix._X, np.float32),
+            "ids": np.asarray(ix._ids, np.int64)}
+
+
+def ivf_from_arrays(state: dict, dist="L2", nprobe: int = 8,
+                    device=None) -> IvfFlatIndex:
+    """An ``IvfFlatIndex`` serving the lists of ``state`` (``ivf_to_arrays``)."""
+    ix = IvfFlatIndex(dist=dist, n_clusters=len(state["centroids"]), nprobe=nprobe,
+                      device=device)
+    ix._X = np.asarray(state["X"], np.float32)
+    ix._ids = np.asarray(state["ids"], np.int64)
+    ix._set_built(state["centroids"], state["packed"], state["xsq"],
+                  state["row2idx"], int(state["cap"]))
+    return ix

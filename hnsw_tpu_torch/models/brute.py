@@ -3,8 +3,10 @@
 
 L2 corpora of ``SCAN_MIN_POINTS`` rows and more go through the exact scan
 (kernel B2, ``ops/scan_topk.py``): a bf16 scan keeps ``k + overfetch``
-finalists per query, re-scored in f32. Smaller corpora and the other ported
-metrics (Dot, Cosine) take one matmul + top-k (``_bf_topk``).
+finalists per query, re-scored in f32. Smaller corpora and metrics with a
+matmul form (L1, Dot, Cosine, user metrics with ``matmul_scores``) take one
+matmul + top-k (``_bf_topk``); the others score the broadcast corpus through
+their gathered form, a chunk of queries at a time.
 """
 
 from __future__ import annotations
@@ -14,14 +16,27 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.beam_search import smallest
+from ..ops.beam_search import scores_gathered, smallest
 from ..ops.distances import get_metric
 from ..utils.device import resolve_device
 
+# elements of one [queries, N, d] broadcast block of the gathered fallback
+_BROADCAST_ELEMS = 1 << 27
+
 
 def _bf_topk(q, X, xsq, k: int, metric: str):
-    d = get_metric(metric).matmul_scores(q, X, xsq)
-    return smallest(d, k)
+    m = get_metric(metric)
+    if m.matmul_scores is not None:
+        return smallest(m.matmul_scores(q, X, xsq), k)
+    N, d = X.shape
+    step = max(1, _BROADCAST_ELEMS // max(1, N * d))
+    vs, ix = [], []
+    for s in range(0, q.shape[0], step):
+        qs = q[s:s + step]
+        v, i = smallest(scores_gathered(metric, qs, X[None].expand(qs.shape[0], N, d)), k)
+        vs.append(v)
+        ix.append(i)
+    return torch.cat(vs), torch.cat(ix)
 
 
 class BruteForceIndex:

@@ -113,7 +113,8 @@ class Hnsw:
 
     Parameters mirror reference ``Hnsw::new`` (``src/hnsw.rs:766-787``):
     ``max_nb_connection`` (M), ``max_elements`` (capacity hint), ``max_layer`` (≤16),
-    ``ef_construction``, and the distance (name or :class:`Metric`).
+    ``ef_construction``, and the distance (name, :class:`Metric`, ``UserMetric``
+    or a Python pair function).
     ``device`` is where the batched build and search run (default ``"cuda"``;
     raises when CUDA is absent unless ``device="cpu"``).
     """
@@ -564,9 +565,10 @@ class Hnsw:
     def _batched_mode(self, mode: str, large: bool) -> str:
         """Resolve ``mode`` to ``"device"`` or ``"serial"``. ``"auto"`` takes
         the device when the work is ``large`` and the metric has a batched
-        form, else the serial host path. An explicit ``"device"`` with a metric
-        that has none (NoDist) raises: the caller asked for the accelerator
-        and would get the host without notice."""
+        form (every builtin but NoDist, a ``UserMetric`` given ``scores``),
+        else the serial host path. An explicit ``"device"`` with a metric that
+        has none (NoDist, a bare callable) raises: the caller asked for the
+        accelerator and would get the host without notice."""
         if mode == "auto":
             return "device" if large and self.metric.scores is not None else "serial"
         if mode == "device" and self.metric.scores is None:
@@ -627,9 +629,8 @@ class Hnsw:
         """Elementwise metric distances between point pairs (a_idx[i], b_idx[i])."""
         out = np.empty(len(a_idx))
         for s in range(0, len(a_idx), chunk):
-            A = self._data[a_idx[s:s + chunk]]
-            B = self._data[b_idx[s:s + chunk]]
-            out[s:s + chunk] = np.diagonal(self.metric.np_batch(A, B))
+            out[s:s + chunk] = self.metric.pairs(self._data[a_idx[s:s + chunk]],
+                                                 self._data[b_idx[s:s + chunk]])
         return out
 
     def ensure_navigable(self, max_rounds: int = 4096, sample: int = 8192,

@@ -80,14 +80,19 @@ def scores_gathered(metric_name: str, q, cvecs, csq=None):
         cf = cvecs.to(torch.float32)
         denom = torch.linalg.norm(qf, dim=-1)[:, None] * torch.linalg.norm(cf, dim=-1)
         return 1.0 - torch.where(denom > 0, s / torch.clamp_min(denom, 1e-10), 0.0)
-    return get_metric(metric_name).scores(q, cvecs)
+    m = get_metric(metric_name)
+    if m.scores is None:
+        raise NotImplementedError(f"metric {metric_name} has no batched form")
+    return m.scores(q, cvecs)
 
 
 def scores_matmul(metric_name: str, q, pv, psq):
     """Distances of every query to a fixed pivot set through one matmul:
-    [B,d] x [P,d] -> [B,P] (inner-product family)."""
+    [B,d] x [P,d] -> [B,P] (inner-product family; other metrics through their
+    ``matmul_scores``, a user metric's included)."""
     qf = q.to(torch.float32)
-    g = qf @ pv.to(torch.float32).T
+    if metric_name in ("L2", "DistL2", "Dot", "DistDot", "Cosine", "DistCosine"):
+        g = qf @ pv.to(torch.float32).T
     if metric_name in ("L2", "DistL2"):
         qsq = (qf * qf).sum(-1)[:, None]
         return torch.sqrt(torch.clamp_min(qsq - 2.0 * g + psq[None, :], 0.0))
@@ -97,6 +102,10 @@ def scores_matmul(metric_name: str, q, pv, psq):
         qn = torch.linalg.norm(qf, dim=-1)[:, None]
         pn = torch.sqrt(torch.clamp_min(psq, 1e-20))[None, :]
         return 1.0 - g / torch.clamp_min(qn * pn, 1e-10)
+    from .distances import get_metric
+    m = get_metric(metric_name)
+    if m.matmul_scores is not None:
+        return m.matmul_scores(qf, pv, psq)
     raise NotImplementedError(f"pivot scan unsupported for {metric_name}")
 
 

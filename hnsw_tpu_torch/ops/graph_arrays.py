@@ -122,7 +122,8 @@ def compute_pivots(hnsw, layer0_ids, n: int):
     Shared with ``Hnsw.ensure_navigable`` so the repair's reachability
     guarantee covers exactly the seeds search starts from."""
     pivot_count = getattr(hnsw, "_pivot_count", None)
-    has_matmul = hnsw.metric.name in _PIVOT_METRICS
+    has_matmul = (hnsw.metric.name in _PIVOT_METRICS
+                  or hnsw.metric.matmul_scores is not None)  # L1, user metrics
     if pivot_count == 0 or n < PIVOT_MIN_POINTS or not has_matmul:
         return None
     from .components import select_pivots

@@ -75,8 +75,15 @@ class RoundConfig:
 
 # ----------------------------------------------------------- neighbour selection -----
 
+# elements of one [rows, K, d] block of the generic pairwise form
+_PAIRWISE_ELEMS = 1 << 27
+
+
 def _pairwise_dists(metric: str, cvecs, csq):
-    """[B,K,d] -> [B,K,K] candidate-candidate distances for the diversity prune."""
+    """[B,K,d] -> [B,K,K] candidate-candidate distances for the diversity prune.
+    The inner-product metrics take one batched matmul; the others score each
+    candidate against its query's K candidates through ``scores_gathered``,
+    in blocks of whole (query, candidate) rows sized to ``_PAIRWISE_ELEMS``."""
     if metric in ("L2", "DistL2"):
         g = torch.einsum("bkd,bjd->bkj", cvecs, cvecs)
         return torch.sqrt(torch.clamp_min(csq[:, :, None] - 2.0 * g + csq[:, None, :], 0.0))
@@ -86,7 +93,15 @@ def _pairwise_dists(metric: str, cvecs, csq):
         nrm = torch.sqrt(torch.clamp_min(csq, 1e-20))
         u = cvecs / nrm[:, :, None]
         return 1.0 - torch.einsum("bkd,bjd->bkj", u, u)
-    raise NotImplementedError(f"no pairwise form for metric {metric}")
+    B, K, d = cvecs.shape
+    rows = cvecs.reshape(B * K, d)
+    step = max(1, _PAIRWISE_ELEMS // max(1, K * d))
+    out = torch.empty((B * K, K), dtype=torch.float32, device=cvecs.device)
+    for s in range(0, B * K, step):
+        e = min(s + step, B * K)
+        owner = torch.arange(s, e, device=cvecs.device) // K  # query of each row
+        out[s:e] = scores_gathered(metric, rows[s:e], cvecs[owner])
+    return out.reshape(B, K, K)
 
 
 def select_neighbours_batched(metric: str, vectors, sqnorms, cand_ids, cand_d,

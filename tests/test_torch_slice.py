@@ -19,7 +19,8 @@ import hnsw_tpu.ops.graph_arrays as jga
 import hnsw_tpu_torch.ops.graph_arrays as tga
 from hnsw_tpu import Hnsw as JHnsw
 from hnsw_tpu.ops.beam_search import device_search_stream as j_stream
-from hnsw_tpu_torch import BruteForceIndex, Hnsw, HnswIo, get_metric, load_native
+from hnsw_tpu_torch import (AutoIndex, BruteForceIndex, Hnsw, HnswIo, IvfFlatIndex,
+                            get_metric, load_native)
 from hnsw_tpu_torch.ops import scan_topk as st
 from hnsw_tpu_torch.ops.beam_search import device_search_stream as t_stream
 from chip_smoke import make_dataset
@@ -155,6 +156,12 @@ def test_default_device_is_cuda():
             Hnsw()
         with pytest.raises(RuntimeError, match="device='cpu'"):
             BruteForceIndex()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            IvfFlatIndex()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            AutoIndex()
+    for make in (IvfFlatIndex, AutoIndex):
+        assert make(device="cpu").device.type == "cpu"
 
 
 def test_l1_and_nodist_match_reference(rng):
@@ -176,9 +183,27 @@ def test_l1_and_nodist_match_reference(rng):
                                   j_metric("NoDist").np_batch(q[0], C[0]))
 
 
-def test_unported_metric_names_the_queue():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_metric("Hamming")
+METRIC_NAMES = ["L1", "L2", "Cosine", "Dot", "Hamming", "Jaccard", "Hellinger",
+                "Jeffreys", "JensenShannon", "Levenshtein", "NoDist"]
+
+
+@pytest.mark.parametrize("name", METRIC_NAMES + ["Dist" + n for n in METRIC_NAMES]
+                         + ["Manhattan"])
+def test_unported_metric_names_the_queue(name):
+    """Every metric name of the JAX package, and its ``Dist`` alias, resolves
+    in the port to the metric the JAX package resolves it to (the queue that
+    once held six of them is done); an unknown name raises ``ValueError`` in
+    both."""
+    from hnsw_tpu import get_metric as j_metric
+    if name == "Manhattan":
+        for resolve in (get_metric, j_metric):
+            with pytest.raises(ValueError, match="unknown distance"):
+                resolve(name)
+        return
+    m = get_metric(name)
+    assert m.name == j_metric(name).name == name.removeprefix("Dist")
+    assert (m.scores is None) == (j_metric(name).jnp_scores is None)
+    assert (m.matmul_scores is None) == (j_metric(name).jnp_matmul_scores is None)
 
 
 def _imports(path):
