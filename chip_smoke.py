@@ -24,11 +24,13 @@ Phases, each printing one JSON line. Path 1 (build and serve):
 Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
 
   persist  ``save_native`` -> ``load_native`` (h2) and ``file_dump`` ->
-           ``HnswIo.load_hnsw`` (h3), both onto the card; origin ids, levels,
+           ``HnswIo.load_hnsw`` (h3), both onto the card, the dump and reload
+           through the native C++ tier (``ROUTES``); origin ids, levels,
            entry, vectors and every layer's ids, dists, counts and width must
            equal the built index's (h2 array for array; h3, stored in layer
            order, through ``check_graph_equality`` and the row-sorted tables);
-           file sizes and the seconds of the four steps
+           a second dump by the Python route must be byte-equal; file sizes
+           and the seconds of every step
   serve2   on h2: (a) k=100 through the pool reservoir (ef 192, expand 8,
            pool 256): ids identical to the built index's, recall@100 in fp64;
            (b) ef=256, k=10 with ``allow_fused=False`` (kernel B4) and
@@ -44,6 +46,13 @@ Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
            ragged group (d = 48, 40, 16, 128, 256, 1024; M0 = 5 to 100; one
            to four id rows or none; E = 1 to 3; B = 5; the table's last block
            among the nodes) through every entry that takes the shape
+
+  native   (after path 2's counts are read; host threads) ``NativeHnsw.from_hnsw``
+           of the built index: ``parallel_search`` of 4096 queries at ef 64,
+           recall@10 against path 1's truth, host QPS; ``to_hnsw()`` served
+           on the card at ef 64 must answer path 1's ids on every query; a
+           native build of the first 20,000 rows (M=16, efC=100) handed to the
+           card and served at ef 64, recall@10 against an exact truth
 
 Path 3 (``metrics``; every other metric, built and served on the card):
 
@@ -74,6 +83,16 @@ exact engine's shape there (the shuffled 1M corpus in bf16, B=2048) and where
 the exact scan's misses come from: the engine's recall through the kernel,
 the plain version, an f32 scan and a wider overfetch.
 
+Path 5 (``sharded``; ``ShardedHnsw`` on one card): four shards of path 1's
+200k x 128 corpus on ``cuda:0`` with path 1's graph settings on every shard,
+built with ``mode="mesh"``; ``search_stream`` with the per-shard int8 codec (no
+id rows: kernel B3) at ef 64 and 96 (k=10, batch 16384), ``search_batch`` on
+2048 queries (ids equal to the stream's), ``exact_search_batch`` in ``auto`` mode
+(the packed scan, kernel B2, on every shard) against path 1's exact engine and
+in ``tiled`` mode, and the manifest dump reloaded onto the card (equal ids).
+After path 5's counts are read, B3 against its plain version on shard 0's
+codec at path 5's shape.
+
 Each kernels line carries median CUDA-event times of the kernel, its plain
 version and a one-call PyTorch yardstick, and the bound the card allows for
 the same work; the two scans also the bound of their epilogue (CUDA-core
@@ -88,12 +107,12 @@ fails the run.
 
 The launch counters are set to 0 just before each path and read just after
 it: B1 and B2 must have run on path 1, B4, B5 (and B1, B2) on path 2, B2 on
-path 4 (path 3 runs no kernel of the repo's: its metrics have no TPU kernel), the two
-scans through their tensor-core entry, B1 through "bulk" and B4 through
-"stream" on every launch, and the comparison launches fall outside both
-windows. The kernels line
+path 4 (path 3 runs no kernel of the repo's: its metrics have no TPU kernel),
+B3 and B2 and no other kernel on path 5, the two scans through their
+tensor-core entry, B1 and B3 through "bulk" and B4 through "stream" on every
+launch, and the comparison launches fall outside the windows. The kernels line
 (``{"kernels": [...]}``, all five kernels; ``launches`` is the count on the
-first path that runs the kernel, ``launches_by_path`` all four) and the card line
+first path that runs the kernel, ``launches_by_path`` all five) and the card line
 come before the last line, which is ``{"ok": true, "device": {...}}`` when
 every phase passed. Without CUDA, or without the package beside it, the
 script exits non-zero and prints no result.
@@ -254,20 +273,34 @@ def phase_env(torch, kernel_lib):
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
     print(card, flush=True)
-    t0 = time.time()
-    kernel_lib.build_all()
-    build_s = time.time() - t0
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hnsw_tpu_torch.ffi import native_lib
+
+    def timed(fn):
+        t0 = time.time()
+        fn()
+        return time.time() - t0
+
+    # the native tier's g++ build runs beside the kernels' nvcc builds
+    with ThreadPoolExecutor(1) as ex:
+        native = ex.submit(timed, native_lib)
+        build_s = timed(kernel_lib.build_all)
+        native_s = native.result()
     emit({"phase": "env", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "kernel_build_s": build_s, "ptxas": kernel_lib.ptxas_report()})
+          "cpu_count": os.cpu_count(), "kernel_build_s": build_s,
+          "native_build_s": native_s, "ptxas": kernel_lib.ptxas_report()})
     return card
 
 
-def codec_rows(torch, Q, seed, codec=None, n=None):
-    """B1 and B3 against their plain version on the card. With ``codec`` (the
-    built index's BeamCodec) the check runs on the table the serve phase
-    reads, at its M0 and id rows; without, on a random table of that shape
-    (M0=56, 8 id rows, the 200k build's). Each is checked and timed at every
+def codec_rows(torch, Q, seed, codec=None, n=None, names=("B1", "B3"), b3=None):
+    """B1 and B3 (``names``) against their plain version on the card. With
+    ``codec`` (the built index's BeamCodec) the check runs on the table the
+    serve phase reads, at its M0 and id rows; without, on a random table of
+    that shape (M0=56, 8 id rows, the 200k build's). B3 runs on the vector rows
+    of that table, or with ``b3`` = (blocks, scale, rows) on path 5's shard-0
+    codec, whose blocks have no id rows. Each is checked and timed at every
     beam width the paths give it (``CODEC_EXPANDS``: src [16384, 4] and
     [16384, 8])."""
     from hnsw_tpu_torch.ops import codec_scores as cs
@@ -276,7 +309,10 @@ def codec_rows(torch, Q, seed, codec=None, n=None):
     rows, failures = [], []
     B, d = 16384, Q.shape[1]
     g = torch.Generator(device=dev).manual_seed(seed)
-    if codec is not None:
+    if b3 is not None and names == ("B3",):
+        blocks, scale, n = b3
+        M0 = blocks.shape[1]
+    elif codec is not None:
         M0, blocks, scale = codec.M0, codec.blocks, codec.scale
     else:
         M0, RID, n = 56, 8, 200_000
@@ -334,10 +370,12 @@ def codec_rows(torch, Q, seed, codec=None, n=None):
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                 "library_ms": lib_ms}
 
-    for name in ("B1", "B3"):
+    table = ("path 5 shard 0" if b3 is not None and names == ("B3",)
+             else "built index" if codec is not None else "random")
+    for name in names:
         blk = blocks if name == "B1" else blocks[:, :M0].contiguous()
-        # both widths the paths give the kernel: expand=4 (path 1, ef=256)
-        # and expand=8 (path 2, k=100); the row's own numbers are expand=4's
+        # both widths the paths give the kernel: expand=4 (paths 1 and 5) and
+        # expand=8 (path 2, k=100); the row's own numbers are expand=4's
         by_E = {E: at_width(name, blk, E) for E in CODEC_EXPANDS}
         rows.append({"name": name, "route": "cuda",
                      "source": "hnsw_tpu_torch/csrc/codec_scores.cu",
@@ -347,12 +385,12 @@ def codec_rows(torch, Q, seed, codec=None, n=None):
                      **by_E[CODEC_EXPANDS[0]],
                      "shape": {"B": B, "E": CODEC_EXPANDS[0], "M0": M0,
                                "id_rows": blk.shape[1] - M0, "d": d,
-                               "table": "built index" if codec is not None
-                               else "random"},
+                               "table": table},
                      "shapes_checked": {"E": list(CODEC_EXPANDS)},
                      **{f"E{E}": by_E[E] for E in CODEC_EXPANDS[1:]}})
         del blk
-    rows[0]["ragged_checked"] = codec_ragged(torch, cs, failures)
+    if "B1" in names:
+        rows[0]["ragged_checked"] = codec_ragged(torch, cs, failures)
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "rows": rows, "failures": failures})
     return rows, failures
@@ -737,6 +775,7 @@ def kth_fp64(bf, X, Q, nq, k, pool):
 
 def phase_gt(torch, X, Q, k=10):
     from hnsw_tpu_torch import BruteForceIndex
+    from hnsw_tpu_torch.ops.scan_topk import refine_width
 
     nq_gt, pool = min(len(Q), 4096), max(64, 4 * k)
     bf = BruteForceIndex(dist="L2", device="cuda")
@@ -754,8 +793,8 @@ def phase_gt(torch, X, Q, k=10):
     recall = recall_fp64(X, Q, kth, ids_bf, k)
     emit({"phase": "gt", "nq": nq_gt, "pool": pool, "pool_s": gt_s,
           "exact_recall_at_10": recall, "exact_qps": len(Q) / scan_s,
-          "exact_queries": len(Q)})
-    return kth, recall, bf
+          "exact_queries": len(Q), "refine_width": refine_width(k, bf.SCAN_OVERFETCH, 1 << 30)})
+    return kth, recall, bf, ids_bf
 
 
 def phase_serve(torch, h, X, Q, kth, k=10):
@@ -825,10 +864,16 @@ def index_differences(h, r, layer_order: bool):
 
 
 def phase_persist(torch, h):
-    """Dump the built index both ways and reload both onto the card."""
+    """Dump the built index both ways and reload both onto the card; the
+    reference-format dump and reload must take the native tier, and a second
+    dump by the Python route must give the same bytes."""
+    import filecmp
+
     from hnsw_tpu_torch import HnswIo, load_native
+    from hnsw_tpu_torch.io import hnswio
 
     failures = []
+    routes0 = dict(hnswio.ROUTES)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         npz = os.path.join(tmp, "smoke.npz")
         t = [time.time()]
@@ -840,6 +885,23 @@ def phase_persist(torch, h):
         t.append(time.time())
         h3 = HnswIo(tmp, base).load_hnsw()
         t.append(time.time())
+        routes = {k: hnswio.ROUTES[k] - routes0[k] for k in routes0}
+        if routes["file_dump.native"] != 1 or routes["load_hnsw.native"] != 1:
+            failures.append(f"file_dump / load_hnsw did not take the native route: {routes}")
+        os.environ["HNSW_TPU_NATIVE_IO"] = "0"
+        try:
+            t_py = time.time()
+            base_py = h.file_dump(tmp, "smoke_python")
+            py_dump_s = time.time() - t_py
+        finally:
+            del os.environ["HNSW_TPU_NATIVE_IO"]
+        if hnswio.ROUTES["file_dump.python"] - routes0["file_dump.python"] != 1:
+            failures.append("the HNSW_TPU_NATIVE_IO=0 dump did not take the Python route")
+        same = {ext: filecmp.cmp(os.path.join(tmp, base + ext),
+                                 os.path.join(tmp, base_py + ext), shallow=False)
+                for ext in (".hnsw.graph", ".hnsw.data")}
+        if not all(same.values()):
+            failures.append(f"native and Python dumps differ: {same}")
         sizes = {os.path.basename(p): os.path.getsize(p)
                  for p in (npz, os.path.join(tmp, base + ".hnsw.graph"),
                            os.path.join(tmp, base + ".hnsw.data"))}
@@ -856,9 +918,68 @@ def phase_persist(torch, h):
                            "dump": int(h3._layers[0].width)},
           "save_native_s": t[1] - t[0], "load_native_s": t[2] - t[1],
           "file_dump_s": t[3] - t[2], "load_hnsw_s": t[4] - t[3],
-          "compare_s": compare_s,
+          "file_dump_python_s": py_dump_s, "routes": routes,
+          "native_equals_python_bytes": same, "compare_s": compare_s,
           "bytes": sizes, "failures": failures})
     return h2, h3, failures
+
+
+RECALL_NATIVE_EF64 = 0.97   # the native tier's host search of path 1's graph
+RECALL_NATIVE20K = 0.95     # a native build of 20k rows, served on the card
+
+
+def phase_native(torch, h, X, Q, kth, k=10, nq=4096):
+    """The native tier on the host threads: path 1's graph searched by the
+    C++ core, handed back to the card, and a native build served on the card."""
+    from hnsw_tpu_torch import NativeHnsw
+    from hnsw_tpu_torch.ops.beam_search import device_search_stream
+
+    failures = []
+    t0 = time.time()
+    nh = NativeHnsw.from_hnsw(h)
+    import_s = time.time() - t0
+    ids, _ = nh.parallel_search(Q[:nq], k, 64)  # external ids: arange
+    t0 = time.time()
+    nh.parallel_search(Q[:nq], k, 64)
+    host_qps = nq / (time.time() - t0)
+    r_host = recall_fp64(X, Q, kth[:nq], ids, k)
+    if r_host < RECALL_NATIVE_EF64:
+        failures.append(f"native host search recall@10 at ef=64 {r_host:.4f} "
+                        f"< {RECALL_NATIVE_EF64}")
+    back = nh.to_hnsw()
+    del nh
+    served = {}
+    for name, hh in (("built", h), ("to_hnsw", back)):
+        i, _ = device_search_stream(hh, Q[:nq], k, 64, batch=16384, expand=4)
+        served[name] = np.where(i >= 0, hh._origin[np.clip(i, 0, hh._nb_point - 1)], -1)
+    same = float((served["built"] == served["to_hnsw"]).all(1).mean())
+    if same < 1.0:
+        failures.append(f"to_hnsw() served ids equal the built index's on {same:.5f} "
+                        "of queries, not all")
+    del back
+    # a native build of path 1's first 20k rows, handed to the card
+    n20 = 20_000
+    t0 = time.time()
+    nb = NativeHnsw(max_nb_connection=16, max_elements=n20, ef_construction=100)
+    nb.parallel_insert(X[:n20], np.arange(n20))
+    build20_s = time.time() - t0
+    h20 = nb.to_hnsw()
+    kth20 = matmul_kth(torch, X[:n20], Q[:nq], k)
+    i20, _ = device_search_stream(h20, Q[:nq], k, 64, batch=16384, expand=4)
+    i20 = np.where(i20 >= 0, h20._origin[np.clip(i20, 0, n20 - 1)], -1)
+    r20 = recall_fp64(X[:n20], Q, kth20, i20, k)
+    if r20 < RECALL_NATIVE20K:
+        failures.append(f"native 20k build served on the card: recall@10 at ef=64 "
+                        f"{r20:.4f} < {RECALL_NATIVE20K}")
+    if h20.device.type != "cuda":
+        failures.append("to_hnsw() did not place the index on the card")
+    emit({"phase": "native", "queries": nq, "cpu_count": os.cpu_count(),
+          "import_s": import_s, "host_recall_at_10_ef64": r_host, "host_qps": host_qps,
+          "to_hnsw_ids_equal_frac": same,
+          "build20k": {"n": n20, "M": 16, "efC": 100, "build_s": build20_s,
+                       "card_recall_at_10_ef64": r20},
+          "failures": failures})
+    return failures
 
 
 def phase_serve2(torch, h, h2, bf, X, Q, kth10):
@@ -1201,6 +1322,8 @@ def phase_metrics(torch, X, Q, seed):
 # ------------------------------------------------------------------ path 4 ----
 
 RECALL_IVF_NP64 = 0.97
+# the exact scan (bf16, 32 finalists re-scored in f32) on the 1M clustered corpus
+RECALL_EXACT_CLUSTERED = 0.99
 RECALL_AUTO_COSINE = 0.95
 
 
@@ -1254,7 +1377,14 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
     if not bf._use_scan():
         raise RuntimeError("the 1M exact engine must take the scan (kernel B2)")
     ids_bf, _ = bf.search_batch(Q, k)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bf.search_batch(Q, k)
+    exact_qps = nq / (time.time() - t0)
     exact_recall = recall_fp64(X, Q, kth, ids_bf, k)
+    if exact_recall < RECALL_EXACT_CLUSTERED:
+        failures.append(f"exact-scan recall@10 on the clustered corpus {exact_recall:.5f} "
+                        f"< {RECALL_EXACT_CLUSTERED}")
     # the IVF engine at its defaults
     ix = IvfFlatIndex("L2", device="cuda")
     ix.parallel_insert(X)
@@ -1328,7 +1458,7 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
             failures.append(f"{name}: the engine is not on the card")
     emit({"phase": "ivf", "n": n, "d": 128, "queries": nq, "data_s": data_s,
           "truth": "f32 matmul top-64 on the card, refined in fp64",
-          "exact_recall_at_10": exact_recall,
+          "exact_recall_at_10": exact_recall, "exact_qps": exact_qps,
           "ivf": {"build_s": build_s, "lists": L, "cap": cap,
                   "padding_share": 1.0 - n / (L * cap), "by_nprobe": by_np,
                   "stream": {"nprobe": 32, "batch": 8192, "qps": stream_qps,
@@ -1387,6 +1517,110 @@ def scan_on_clustered(torch, bf, X, Q, kth, k=10):
     return check, failures
 
 
+# ------------------------------------------------------------------ path 5 ----
+
+N_SHARDS = 4
+RECALL_SHARDED_EF96 = 0.97
+SET_EQUAL_EXACT = 0.999
+
+
+def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
+    """Path 5: ``ShardedHnsw`` with four shards on one card, path 1's corpus
+    and graph settings, the mesh build and the per-shard int8 codec (B3), the
+    exact search (B2 on every shard), the manifest dump and reload. Returns
+    (failures, the index)."""
+    from hnsw_tpu_torch import ShardedHnsw
+    from hnsw_tpu_torch.ops import kernel_lib
+
+    failures = []
+    n, nq = len(X), len(kth)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sh = ShardedHnsw(n_shards=N_SHARDS, max_nb_connection=24, max_elements=n // N_SHARDS + 8,
+                     ef_construction=400, dist="L2")
+    for s in sh.shards:
+        s.set_keeping_pruned(True)
+        s.modify_level_scale(0.5)
+    sh.set_traversal_codec("i8")
+    sh.parallel_insert(X, mode="mesh")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    if any(d != torch.device("cuda", 0) for d in sh.devices):
+        failures.append(f"path 5's shards are not all on cuda:0: {sh.devices}")
+    blocks, _, scale, M0, _ = sh.device_codec_arrays()
+    by_ef, stream_ids = {}, None
+    for ef in (64, 96):
+        ids, _ = sh.search_stream(Q, k, ef, batch=16384)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sh.search_stream(Q, k, ef, batch=16384)
+        by_ef[ef] = {"recall_at_10": recall_fp64(X, Q, kth, ids, k),
+                     "qps": len(Q) / (time.time() - t0)}
+        stream_ids = ids
+    if by_ef[96]["recall_at_10"] < RECALL_SHARDED_EF96:
+        failures.append(f"sharded recall@10 at ef=96 {by_ef[96]['recall_at_10']:.4f} "
+                        f"< {RECALL_SHARDED_EF96}")
+    ids_b, _ = sh.search_batch(Q[:2048], k, 96)
+    batch_equal = bool(np.array_equal(ids_b, stream_ids[:2048]))
+    if not batch_equal:
+        failures.append("sharded search_batch ids differ from search_stream's")
+    # exact: auto must take the packed scan (B2) on every shard
+    before = kernel_lib.LAUNCHES["scan_topk"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ids_e, _ = sh.exact_search_batch(Q[:nq], k)
+    exact_s = time.time() - t0
+    b2 = kernel_lib.LAUNCHES["scan_topk"] - before
+    if b2 != N_SHARDS:
+        failures.append(f"exact_search_batch(auto) launched B2 {b2} times, not once a shard")
+    r_exact = recall_fp64(X, Q, kth, ids_e, k)
+    eq_bf = float((np.sort(ids_e, 1) == np.sort(ids_bf[:nq], 1)).all(1).mean())
+    if r_exact < RECALL_EXACT or eq_bf < SET_EQUAL_EXACT:
+        failures.append(f"sharded exact: recall@10 {r_exact:.5f} (gate {RECALL_EXACT}), "
+                        f"ids set-equal to BruteForceIndex's on {eq_bf:.5f} (gate "
+                        f"{SET_EQUAL_EXACT})")
+    ids_t, _ = sh.exact_search_batch(Q[:2048], k, mode="tiled")
+    eq_tiled = float((np.sort(ids_t, 1) == np.sort(ids_e[:2048], 1)).all(1).mean())
+    if eq_tiled < SET_EQUAL_EXACT:
+        failures.append(f"sharded exact tiled vs auto: set-equal on {eq_tiled:.5f}")
+    # the manifest dump, reloaded onto the card
+    from hnsw_tpu_torch.io import hnswio
+    routes0 = dict(hnswio.ROUTES)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        t0 = time.time()
+        sh.file_dump(tmp, "sharded")
+        dump_s = time.time() - t0
+        t0 = time.time()
+        r = ShardedHnsw.load(tmp, "sharded", max_nb_connection=24,
+                             max_elements=n // N_SHARDS + 8, ef_construction=400, dist="L2")
+        load_s = time.time() - t0
+    routes = {kk: hnswio.ROUTES[kk] - routes0[kk] for kk in routes0}
+    r.set_traversal_codec("i8")
+    ids_r, _ = r.search_batch(Q[:2048], k, 96)
+    reload_equal = bool(np.array_equal(ids_r, ids_b))
+    if not reload_equal:
+        failures.append(f"the reloaded sharded index answers differently on "
+                        f"{float((ids_r != ids_b).any(1).mean()):.5f} of queries")
+    if any(d.type != "cuda" for d in r.devices):
+        failures.append("the sharded reload is not on the card")
+    del r
+    emit({"phase": "sharded", "n": n, "shards": N_SHARDS,
+          "devices": [str(d) for d in sh.devices], "build_s": build_s,
+          "rounds": sh._mesh_rounds, "layer0_widths": [int(s._layers[0].width)
+                                                       for s in sh.shards],
+          "shard_sizes": [s._nb_point for s in sh.shards],
+          "codec": {"M0": M0, "id_rows": 0, "scales": [float(x) for x in scale],
+                    "blocks_shape": list(blocks[0].shape)},
+          "by_ef": by_ef, "batch_ids_equal_stream": batch_equal,
+          "exact": {"queries": nq, "b2_launches": b2, "recall_at_10": r_exact,
+                    "qps": nq / exact_s, "set_equal_bruteforce_frac": eq_bf,
+                    "tiled_set_equal_frac": eq_tiled},
+          "persist": {"file_dump_s": dump_s, "load_s": load_s, "routes": routes,
+                      "ids_equal": reload_equal},
+          "failures": failures})
+    return failures, sh
+
+
 def profiled(torch, label, fn, top=12):
     """Run ``fn`` under torch.profiler; emit device busy time by kernel and
     the device's idle share of the window's wall time. Returns a failure
@@ -1416,7 +1650,8 @@ def profiled(torch, label, fn, top=12):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="env,kernels,build,gt,serve,persist,serve2,metrics,ivf")
+                    default="env,kernels,build,gt,serve,persist,serve2,native,metrics,"
+                            "ivf,sharded")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, trace one served batch per operating "
@@ -1446,9 +1681,9 @@ def main():
     # ---- path 1: counts run from zero over build, gt and serve ----
     kernel_lib.reset_launch_counts()
     h = phase_build(torch, X) if "build" in phases else None
-    kth = bf = None
+    kth = bf = ids_bf = None
     if "gt" in phases:
-        kth, exact, bf = phase_gt(torch, X, Q)
+        kth, exact, bf, ids_bf = phase_gt(torch, X, Q)
         if exact < RECALL_EXACT:
             failures.append(f"exact-scan recall@10 {exact:.4f} < {RECALL_EXACT}")
     if h is not None and kth is not None and "serve" in phases:
@@ -1467,11 +1702,15 @@ def main():
         _, f = phase_serve2(torch, h, h2, bf, X, Q, kth)
         failures += f
     path2 = dict(kernel_lib.LAUNCHES)
+    if h is not None and kth is not None and "native" in phases:
+        failures += phase_native(torch, h, X, Q, kth)
     if "kernels" in phases:
-        # after the paths, on the codec the serve phases read
+        # after the paths, on the codec the serve phases read (B3 on path
+        # 5's codec when path 5 runs)
         codec = h.device_codec() if h is not None else None
         r, f = codec_rows(torch, Q, args.seed, codec,
-                          h._nb_point if h is not None else None)
+                          h._nb_point if h is not None else None,
+                          names=("B1",) if "sharded" in phases else ("B1", "B3"))
         rows = r + rows
         failures += f
         if codec is not None:
@@ -1503,6 +1742,19 @@ def main():
                 r["shapes_checked"].append(check)
     scan4 = None
     torch.cuda.empty_cache()
+    # ---- path 5: the sharded tier on one card, counts from zero ----
+    kernel_lib.reset_launch_counts()
+    sh = None
+    if kth is not None and "sharded" in phases:
+        f, sh = phase_sharded(torch, X, Q, kth, ids_bf)
+        failures += f
+    path5 = dict(kernel_lib.LAUNCHES)
+    if sh is not None and "kernels" in phases:
+        blocks, _, scale, _, _ = sh.device_codec_arrays()
+        r, f = codec_rows(torch, Q, args.seed, names=("B3",),
+                          b3=(blocks[0], scale[0], sh.shards[0]._nb_point))
+        rows = rows[:1] + r + rows[1:]
+        failures += f
     if args.profile and h is not None:
         from hnsw_tpu_torch.ops.beam_search import device_search_stream
         windows = [(f"serve ef={ef} batch=16384",
@@ -1539,6 +1791,9 @@ def main():
                             lambda: ix.search_batch(Qc, 10, nprobe=32)))
             windows.append(("ivf search_stream nprobe=32, 4096 queries, f16 ingest",
                             lambda: ix.search_stream(Qc, 10, nprobe=32, batch=8192)))
+        if sh is not None:
+            windows.append(("sharded search_stream ef=96, 4 shards, one 16384-query batch",
+                            lambda: sh.search_stream(Q, 10, 96, batch=16384)))
         windows.append(("build (a second, traced build of the same index)",
                         lambda: phase_build(torch, X)))
         for label, fn in windows:
@@ -1547,19 +1802,28 @@ def main():
                 failures.append(f)
     # a kernel's launches are read on the path that drives it: B1 and B2 on
     # path 1 (and again on path 2), B4 and B5 on path 2, B2 on path 4 (the
-    # AutoIndex scan and BruteForceIndex's answers); B3 is on none, path 3 on none
+    # AutoIndex scan and BruteForceIndex's answers), B3 and B2 on path 5;
+    # path 3 on none
     ran1 = all(p in phases for p in ("build", "gt", "serve"))
     ran2 = ran1 and all(p in phases for p in ("persist", "serve2"))
     ran4 = "ivf" in phases
-    paths = {"path1": path1, "path2": path2, "path3": path3, "path4": path4}
+    ran5 = sh is not None
+    paths = {"path1": path1, "path2": path2, "path3": path3, "path4": path4,
+             "path5": path5}
     # (ran, counts, must launch there)
     needed = {"B1": [(ran1, path1, True), (ran2, path2, False)],
-              "B2": [(ran1, path1, True), (ran4, path4, True)],
+              "B2": [(ran1, path1, True), (ran4, path4, True), (ran5, path5, True)],
+              "B3": [(ran5, path5, True)],
               "B4": [(ran2, path2, True)], "B5": [(ran2, path2, True)]}
+    if ran5:
+        other = {c: path5[c] for c in ("codec_scores_ids", "codec_scores_gathered",
+                                       "scan_topk_unpacked") if path5[c]}
+        if other:
+            failures.append(f"path 5 launched kernels other than B3 and B2: {other}")
     for r in rows:
         c = r.pop("counter")
         r["launches_by_path"] = {p: cnt[c] for p, cnt in paths.items()}
-        r["launches"] = path1[c] or path2[c] or path4[c]
+        r["launches"] = path1[c] or path2[c] or path4[c] or path5[c]
         # every launch of the paths by the entry the comparison went through:
         # wgmma for the scans, bulk for B1, stream for B4
         e = f"{c}.{r['entry']}"

@@ -37,6 +37,8 @@ from .utils.profiling import enable_profiling, profiling_report, PROFILER
 from .utils.logging import init_logging
 from .convert import from_arrays, to_arrays, ivf_from_arrays, ivf_to_arrays
 from .ops.kernel_lib import LAUNCHES as KERNEL_LAUNCHES, reset_launch_counts
+from .ffi import NativeHnsw, init_native_log
+from .parallel.sharded import ShardedHnsw
 
 __version__ = "0.1.0"
 
@@ -50,5 +52,6 @@ __all__ = [
     "FilterT", "SortedIdFilter", "CallableFilter",
     "enable_profiling", "profiling_report", "PROFILER", "init_logging",
     "from_arrays", "to_arrays", "ivf_from_arrays", "ivf_to_arrays",
-    "KERNEL_LAUNCHES", "reset_launch_counts",
+    "KERNEL_LAUNCHES", "reset_launch_counts", "NativeHnsw", "init_native_log",
+    "ShardedHnsw",
 ]

@@ -21,12 +21,16 @@ data file:
   per point: u32 MAGICDATAP | u64 origin_id | u64 byte_len | raw vector bytes
 
 Files are the state the two packages share: either package reads the other's
-dumps and snapshots. Where the JAX package walks the records with one
-``struct`` call per field (and hands large indexes to its native C++ tier,
-which this port does not carry yet), this module lays the records out with
-numpy — every field's byte offset is computed for all points at once and the
-fields are scattered into (or gathered from) one byte buffer — so the Python
-route serves every size. The bytes are the same.
+dumps and snapshots. Full dumps and reloads of ``NATIVE_IO_MIN_POINTS`` points
+or more take the native C++ tier (``ffi/``: flat-array handoff, one buffered
+pass), as in the JAX package; ``HNSW_TPU_NATIVE_IO=0`` turns that off. Where
+the JAX package falls back to its Python route on any native error, the port
+takes the Python route only on a machine without g++: a native build or load
+that fails there raises. ``ROUTES`` counts the route each dump and reload
+took. The Python route lays the records out with numpy — every field's byte
+offset is computed for all points at once and the fields are scattered into
+(or gathered from) one byte buffer — where the JAX package makes one
+``struct`` call per field. The bytes are the same on every route.
 
 The native snapshot (``save_native``/``load_native``) is a plain ``.npz`` of
 the flat arrays.
@@ -42,6 +46,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..ffi import NativeHnsw, native_available
 from ..models.hnsw import Hnsw, NB_LAYER_MAX
 from ..utils.rng import DEFAULT_SEED
 
@@ -156,6 +161,19 @@ def load_description(path) -> Description:
         return read_description(f)
 
 
+# Full dumps and reloads of this many points or more take the native tier.
+NATIVE_IO_MIN_POINTS = 5_000
+_NATIVE_METRICS = ("L1", "L2", "Cosine", "Dot", "Hamming", "Jaccard",
+                   "Hellinger", "Jeffreys", "JensenShannon", "Levenshtein")
+ROUTES = {"file_dump.native": 0, "file_dump.python": 0,
+          "load_hnsw.native": 0, "load_hnsw.python": 0}
+
+
+def _native_io_enabled() -> bool:
+    return (os.environ.get("HNSW_TPU_NATIVE_IO", "1") not in ("0", "false")
+            and native_available())
+
+
 def graph_path(dirpath, basename):
     return os.path.join(dirpath, basename + ".hnsw.graph")
 
@@ -212,6 +230,12 @@ def file_dump(hnsw: Hnsw, dirpath, basename: str, mode: str = "Full") -> str:
     if hnsw._data is None:
         raise ValueError("cannot dump an index that holds no vectors "
                          "(graph-only reload)")
+    if (full and n >= NATIVE_IO_MIN_POINTS and hnsw.metric.name in _NATIVE_METRICS
+            and hnsw.dtype.name in _RUST_TYPE and _native_io_enabled()):
+        NativeHnsw.from_hnsw(hnsw).file_dump(dirpath, basename)
+        ROUTES["file_dump.native"] += 1
+        return basename
+    ROUTES["file_dump.python"] += 1
     d = Description(
         format_version=4, dumpmode=1 if full else 0,
         max_nb_connection=hnsw.max_nb_connection,
@@ -315,6 +339,25 @@ def _lookup(sorted_keys: np.ndarray, order: np.ndarray, keys: np.ndarray,
     return order[at]
 
 
+def _as_python_route(hnsw: Hnsw):
+    """Give a native reload the tables the Python route gives: no table for a
+    layer without links (``to_hnsw`` makes one for every level), and each row
+    ordered by (distance, index) (the C++ reader sorts by distance alone,
+    leaving equal distances in no fixed order; only rows holding a tie are
+    re-sorted)."""
+    n = hnsw._nb_point
+    for l in [l for l, t in hnsw._layers.items() if not t.counts[:n].any()]:
+        del hnsw._layers[l]
+    for t in hnsw._layers.values():
+        d = t.dists[:n]
+        rows = np.flatnonzero(((d[:, 1:] == d[:, :-1]) & np.isfinite(d[:, 1:])).any(1))
+        if len(rows):
+            ids, dd = t.ids[rows], t.dists[rows]
+            o = np.lexsort((ids, dd), axis=1)
+            t.ids[rows] = np.take_along_axis(ids, o, 1)
+            t.dists[rows] = np.take_along_axis(dd, o, 1)
+
+
 class HnswIo:
     """Stateful reloader — reference ``HnswIo`` (``src/hnswio.rs:300-364``). Owns the
     optional mmap, so keep it alive as long as the reloaded index when using
@@ -343,6 +386,14 @@ class HnswIo:
         reloaded index's (``None``: the card), as for ``Hnsw(...)``."""
         gpath = graph_path(self.dir, self.basename)
         dpath = data_path(self.dir, self.basename)
+        pre = load_description(gpath)
+        if (not graph_only and not self.options.datamap and dtype is None
+                and (dist is None or isinstance(dist, str))
+                and pre.nb_point >= NATIVE_IO_MIN_POINTS and pre.t_name in _NP_TYPE
+                and short_dist_name(pre.distname) in _NATIVE_METRICS
+                and _native_io_enabled()):
+            return self._load_native(pre, dist, device)
+        ROUTES["load_hnsw.python"] += 1
         with open(gpath, "rb") as g:
             raw = g.read()
         f = io.BytesIO(raw)
@@ -480,6 +531,24 @@ class HnswIo:
             self._load_data(hnsw, dpath, descr)
         hnsw._version += 1
         return hnsw
+
+    def _load_native(self, descr: Description, dist, device) -> Hnsw:
+        """The native route of ``load_hnsw``: the C++ reader, then the
+        flat-array export (``NativeHnsw.to_hnsw``, which widens tables as the
+        Python route does), then the Python route's table layout."""
+        if dist is not None:
+            from ..ops.distances import get_metric
+            want, got = get_metric(dist).name, short_dist_name(descr.distname)
+            if want != got:
+                raise ValueError(f"distance mismatch: dump has {got}, requested {want}")
+        h = NativeHnsw.load(self.dir, self.basename).to_hnsw(device=device)
+        _as_python_route(h)
+        # reference hardcodes these on reload (src/hnswio.rs:507-518)
+        h.extend_candidates = True
+        h.keep_pruned = False
+        h._version += 1
+        ROUTES["load_hnsw.native"] += 1
+        return h
 
     def load_hnsw_with_dist(self, dist, dtype=None, device=None) -> Hnsw:
         """Reload with an explicit distance instance (reference

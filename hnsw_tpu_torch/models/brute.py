@@ -2,8 +2,9 @@
 ``hnsw_tpu/models/brute.py``.
 
 L2 corpora of ``SCAN_MIN_POINTS`` rows and more go through the exact scan
-(kernel B2, ``ops/scan_topk.py``): a bf16 scan keeps ``k + overfetch``
-finalists per query, re-scored in f32. Smaller corpora and metrics with a
+(kernel B2, ``ops/scan_topk.py``): a bf16 scan keeps
+``scan_topk.refine_width(k, overfetch)`` finalists per query (32 at k=10),
+re-scored in f32. Smaller corpora and metrics with a
 matmul form (L1, Dot, Cosine, user metrics with ``matmul_scores``) take one
 matmul + top-k (``_bf_topk``); the others score the broadcast corpus through
 their gathered form, a chunk of queries at a time.
@@ -44,7 +45,7 @@ class BruteForceIndex:
 
     SCAN_MIN_POINTS = 32_768
     # Scan precision: bf16 corpus copy and queries, f32 products; the refine
-    # re-scores k + SCAN_OVERFETCH finalists against the f32 corpus.
+    # re-scores refine_width(k, SCAN_OVERFETCH) finalists against the f32 corpus.
     SCAN_DTYPE: Optional[torch.dtype] = torch.bfloat16
     SCAN_OVERFETCH = 8
 
@@ -114,12 +115,14 @@ class BruteForceIndex:
                     np.full((len(q), knbn), np.inf, np.float32))
         q = np.atleast_2d(np.asarray(queries, np.float32))
         k = min(knbn, len(self._X))
+        # a filter post-masks the fetched candidates, on both routes: fetch kf
+        # so the filtered answer still holds k survivors at moderate
+        # selectivity (the JAX package overfetches on its scan only and gives
+        # its matmul route k, which leaves filtered rows short)
         kf = k if filter is None else min(len(self._X), ((4 * k + 63) // 32) * 32)
         if self._use_scan():
             from ..ops.scan_topk import l2_topk_stream
             Xd, xsq, Xscan, perm, acc = self._scan_device()
-            # a filter post-masks the fetched candidates: overfetch so the
-            # filtered answer still holds k survivors at moderate selectivity
             d, idx = l2_topk_stream(q, Xd, xsq, kf, Xscan=Xscan,
                                     overfetch=self.SCAN_OVERFETCH, acc=acc,
                                     batch=min(2048, max(256, len(q))))

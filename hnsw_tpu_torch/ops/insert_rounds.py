@@ -495,6 +495,14 @@ class HostBuildState:
         self.entry_level = int(hnsw._level[self.entry]) if self.entry >= 0 else 0
         self.cursor = n0
 
+    def conform(self, L: int, widths: tuple, cap1: int):
+        """Adopt a geometry shared with other states: the sharded build runs
+        one round per shard per step on one set of shapes."""
+        assert L >= self.L and cap1 >= self.cap1
+        if L > self.L:
+            self.counts = np.concatenate([self.counts, np.zeros(L - self.L, np.int64)])
+        self.L, self.widths, self.cap1 = int(L), tuple(widths), int(cap1)
+
     def vec_np(self) -> np.ndarray:
         h = self.hnsw
         vec = np.zeros((self.cap1, h._dim), np.float32)

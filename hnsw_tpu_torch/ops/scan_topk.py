@@ -240,6 +240,16 @@ def _decode(vals, cols, tn: int, group: int, acc: int, LB: int, N: int):
     return dval, torch.clamp_max(ids, N - 1)
 
 
+def refine_width(k: int, overfetch: int, n_cand: int) -> int:
+    """Finalists the refine re-scores: ``k + overfetch`` rounded up to a
+    multiple of 32, at least 32, at most the ``n_cand`` candidates the scan
+    kept (the JAX package's width, ``pallas_topk.py:246,308``). A recall
+    contract, not a tile shape: on clustered corpora at large norms the bf16
+    scan's order is coarse, and 18 finalists at k=10 lose about 1% of the
+    top-10 that 32 keep."""
+    return min(max(32, -(-(k + overfetch) // 32) * 32), n_cand)
+
+
 def l2_topk(q, X, xsq, k: int, tn: int = SCAN_TN, group: int = SCAN_GROUP,
             refine: bool = True, Xscan=None, overfetch: int = 8,
             acc: int = 8, plain: bool = False, packed: bool = True):
@@ -247,9 +257,8 @@ def l2_topk(q, X, xsq, k: int, tn: int = SCAN_TN, group: int = SCAN_GROUP,
     ascending. ``X`` [Np, d] f32 padded by ``pad_corpus``; ``Xscan`` an
     optional reduced-precision copy (bf16) used only by the scan.
 
-    With ``refine`` the scan keeps ``k + overfetch`` finalists and re-scores
-    them in f32 with the direct |q - x|^2 form (the TPU's round-up of that
-    width to 32 was a ``lax.top_k`` speed cliff and is gone). ``packed=False``
+    With ``refine`` the scan keeps ``refine_width(k, overfetch)`` finalists
+    and re-scores them in f32 with the direct |q - x|^2 form. ``packed=False``
     takes the unpacked scan (kernel B5): first-stage distances keep all their
     mantissa bits, at twice the candidate bytes. ``plain=True`` runs the
     scan's plain version whatever the device (kernel comparisons)."""
@@ -267,7 +276,7 @@ def l2_topk(q, X, xsq, k: int, tn: int = SCAN_TN, group: int = SCAN_GROUP,
         outd, outi = scan(qs, Xs, xsq, tn, group, acc)
         cv = outd.permute(1, 0, 2).reshape(B, -1)
         ci = outi.permute(1, 0, 2).reshape(B, -1)
-    kk = k if not refine else min(k + overfetch, cv.shape[1])
+    kk = k if not refine else refine_width(k, overfetch, cv.shape[1])
     vals, pos = torch.topk(cv, kk, dim=1, largest=False, sorted=True)
     if packed:
         dval, ids = _decode(vals, pos, tn, group, acc, LB, N)

@@ -1,0 +1,765 @@
+"""Corpus-sharded index over a list of devices — counterpart of
+``hnsw_tpu/parallel/sharded.py``.
+
+The JAX package runs one program over a device mesh (``shard_map``), driven
+by one Python process. The port keeps that single-controller design without
+``torch.distributed``: one process holds a list of torch devices, and shard
+``s`` lives on ``devices[s]`` — its vectors, tables, codec and scan copy, and
+its beam program. On several cards the shards' launches overlap because
+CUDA is asynchronous; a device may also appear more than once (several shards
+on one card, or on the CPU in the tests).
+
+  * **build**: the corpus is split round-robin; ``mode="mesh"`` runs one
+    synchronized insertion round per shard per step (``round_step``) on one
+    shared geometry, subgraphs being independent;
+  * **search**: every shard runs the single-card search program (the int8
+    codec without id rows, so kernel B3 scores each beam iteration, then the
+    exact rerank); each shard's (local id, distance) rows are copied to
+    ``devices[0]`` and merged there by a stable sort, which takes the place of
+    the mesh's ``all_gather`` and replicated sort. External ids stay int64 on
+    the host and are mapped after the fetch;
+  * **exact search**: every shard scans its slice, through the packed exact
+    scan (kernel B2) over a bf16 copy or a tiled running top-k, and the same
+    merge follows.
+
+Left out, as TPU habits: the batch padding to a multiple of 8, ``pick_tn``
+(the scan takes the port's ``SCAN_TN``/``scan_acc`` geometry), the codec's
+M0 padding and width rounding to 8, and the program caches. Kept: stable
+sorts (ties to the lower position) and the mesh build's use of the
+in-degree guarantee whatever ``HNSW_BUILD_PROTECT`` and ``HNSW_MIN_INDEG``
+say (a fault of the reference, ``sharded.py:209``, reproduced on purpose).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..filter import filter_mask
+from ..io.hnswio import HnswIo
+from ..models.hnsw import Hnsw
+from ..ops.beam_search import _resolve_slack, search_program, smallest
+from ..ops.distances import get_metric
+from ..ops.graph_arrays import BeamCodec, _round_up
+from ..ops.insert_rounds import HostBuildState, RoundConfig, _next_pow2, round_step
+from ..ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk, refine_width, scan_acc
+from ..ops.stream import fetch_host, pipelined_stream, upload_batch
+from ..utils.device import resolve_device
+
+INF = float("inf")
+
+
+def default_devices(n_shards: Optional[int] = None, device=None) -> list:
+    """The devices of ``n_shards`` shards: ``device`` (default ``"cuda"``)
+    for every shard when it names one device (``"cpu"``, ``"cuda:0"``); a
+    bare ``"cuda"`` deals the shards round-robin over the visible cards
+    (default: one shard per card). Raises where CUDA is absent unless the
+    CPU is asked for."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        count = torch.cuda.device_count()
+        return [torch.device("cuda", s % count) for s in range(n_shards or count)]
+    return [dev] * (n_shards or 1)
+
+
+def _on(dev):
+    """The current CUDA device for a shard's launches (the kernels launch on
+    the current device's stream); nothing on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _per_device(x, devices):
+    """``x`` on each shard's device, copied once per distinct device."""
+    out = {}
+    return [out.setdefault(d, x.to(d, non_blocking=True)) for d in devices]
+
+
+@dataclasses.dataclass
+class _ShardState:
+    """Per-shard device state on one shared geometry (lists indexed by shard)."""
+
+    vectors: list  # [cap1, d] f32 per shard
+    sqnorms: list  # [cap1] per shard
+    n_live: list  # live points per shard (masks padding rows and empty shards)
+    host_origin: np.ndarray  # [D, cap1] int64 external ids (-1 pad), on the host:
+    # ids stay 64-bit (reference DataId is usize, src/hnsw.rs:51); the merge
+    # carries (shard, local id) pairs and the mapping happens after the fetch
+    layer_ids: list  # per shard: tuple of [cap1, w_l] int32, one per layer
+    entry: list  # entry point per shard
+    cap1: int
+    num_layers: int
+    layer_nonempty: tuple
+    entry_level: int
+
+
+class ShardedHnsw:
+    """A corpus-sharded HNSW over a list of devices. Each shard is a full
+    ``Hnsw`` (so filters, dump and reload and flatten apply per shard); the
+    per-shard device state serves the sharded search."""
+
+    axis = "shard"  # the JAX package's mesh axis name, kept in the manifest
+
+    def __init__(self, devices: Optional[Sequence] = None, n_shards: Optional[int] = None,
+                 **hnsw_kwargs):
+        device = hnsw_kwargs.pop("device", None)
+        self.devices = ([torch.device(d) for d in devices] if devices is not None
+                        else default_devices(n_shards, device))
+        self.n_shards = len(self.devices)
+        self.hnsw_kwargs = dict(hnsw_kwargs)
+        seed = self.hnsw_kwargs.pop("seed", 397)
+        self.shards = [Hnsw(seed=seed + 1000 * s, device=self.devices[s], **self.hnsw_kwargs)
+                       for s in range(self.n_shards)]
+        self._state: Optional[_ShardState] = None
+        self._versions = None
+        self._codec_kind = "auto"
+        self._codec_width = None
+        self._codec_state = None
+        self._scan_state = None
+        self._placement = None  # lazy {external id: shard}; rebuilt after inserts
+        self._mesh_rounds = 0  # steps of the last mesh build
+
+    def __len__(self):
+        return sum(len(s) for s in self.shards)
+
+    def shard_of(self, k: int) -> int:
+        """The shard holding external id ``k`` (recorded placement: ids need
+        not be an ``arange``). Raises KeyError for an unknown id."""
+        versions = tuple(s._version for s in self.shards)
+        if self._placement is None or self._placement[0] != versions:
+            pl = {}
+            for s, sh in enumerate(self.shards):
+                for o in sh._origin[: sh._nb_point].tolist():
+                    pl[int(o)] = s
+            self._placement = (versions, pl)
+        return self._placement[1][int(k)]
+
+    def set_traversal_codec(self, kind, width=None):
+        """Per-shard beam-traversal codec of the sharded search — the contract
+        of ``Hnsw.set_traversal_codec`` (``"i8"``/``"bf16"``/``None``/``"auto"``)."""
+        if kind not in ("i8", "bf16", "auto", None):
+            raise ValueError(f"unknown codec kind {kind!r}")
+        self._codec_kind = kind
+        self._codec_width = width
+        self._codec_state = None
+
+    # ----------------------------------------------------------------- build -----
+
+    def parallel_insert(self, data_with_ids: Sequence[tuple], mode: str = "auto",
+                        batch_size: Optional[int] = None):
+        """Deal the points round-robin over the shards, then build.
+        ``mode="mesh"`` (chosen by ``"auto"`` for more than one shard and 1024
+        points a shard) advances every shard by one synchronized round per
+        step; ``"device"``/``"serial"`` build the shards one after another."""
+        dt = self.shards[0].dtype
+        if isinstance(data_with_ids, np.ndarray) and data_with_ids.ndim == 2:
+            X = np.asarray(data_with_ids, dtype=dt)
+            ids = np.arange(len(X), dtype=np.int64)
+        elif (isinstance(data_with_ids, tuple) and len(data_with_ids) == 2
+              and isinstance(data_with_ids[0], np.ndarray)
+              and np.asarray(data_with_ids[0]).ndim == 2):
+            X = np.asarray(data_with_ids[0], dtype=dt)
+            ids = np.asarray(data_with_ids[1], dtype=np.int64)
+            if len(ids) != len(X):
+                raise ValueError(f"ids length {len(ids)} != rows {len(X)}")
+        else:
+            vs, iis = [], []
+            for v, i in data_with_ids:
+                vs.append(np.asarray(v, dtype=dt))
+                iis.append(int(i))
+            X = np.stack(vs) if vs else np.zeros((0, 0), dt)
+            ids = np.asarray(iis, np.int64)
+        # strided split: bucket sizes within one of each other for any n
+        buckets = [(X[s::self.n_shards], ids[s::self.n_shards])
+                   for s in range(self.n_shards)]
+        if mode == "auto":
+            per = max((len(b[0]) for b in buckets), default=0)
+            mode = "mesh" if (self.n_shards > 1 and per >= 1024) else (
+                "device" if per >= 2048 else "serial")
+        if mode == "mesh":
+            self._mesh_insert(buckets, batch_size=batch_size)
+        else:
+            for s, (Xb, ib) in enumerate(buckets):
+                if len(Xb):
+                    with _on(self.devices[s]):
+                        self.shards[s].parallel_insert((Xb, ib), mode=mode,
+                                                       batch_size=batch_size)
+            self._state = None
+
+    def _mesh_insert(self, buckets, batch_size: Optional[int] = None, expand: int = 8):
+        """The sharded build: each step runs one round on every shard
+        (``sharded_insert_round_fn``); afterwards the device tables seed the
+        search state directly."""
+        D = self.n_shards
+        dim = next((b[0].shape[1] for b in buckets if len(b[0])), None)
+        if dim is None:
+            return
+        for s in range(D):
+            Xb, ib = buckets[s]
+            self.shards[s]._set_dim(dim)
+            if self.shards[s]._nb_point == 0 and len(Xb):
+                self.shards[s].insert(Xb[0], int(ib[0]))  # seed the entry point
+                buckets[s] = (Xb[1:], ib[1:])
+        if not any(len(b[0]) for b in buckets):
+            self._state = None
+            return
+        states = [HostBuildState(self.shards[s], buckets[s]) for s in range(D)]
+        # one geometry for all shards; a shard whose table was already widened
+        # keeps its width
+        L = max(st.L for st in states)
+        widths = tuple(max([self.shards[0]._layer_width(l)]
+                           + [st.widths[l] for st in states if l < st.L])
+                       for l in range(L))
+        cap1 = max(st.cap1 for st in states)
+        for st in states:
+            st.conform(L, widths, cap1)
+        devs = self.devices
+        vectors = [torch.as_tensor(st.vec_np(), device=devs[s]) for s, st in enumerate(states)]
+        sqnorms = [(v * v).sum(-1) for v in vectors]
+        levels = [torch.as_tensor(st.levels_np(), device=devs[s])
+                  for s, st in enumerate(states)]
+        tables = [[(torch.as_tensor(i, device=devs[s]), torch.as_tensor(d, device=devs[s]))
+                   for i, d in st.tables_np()] for s, st in enumerate(states)]
+        # the layer-0 in-degree guarantee on every shard (RoundConfig.min_indeg)
+        indeg = [torch.as_tensor(st.indeg0_np(), device=devs[s]) for s, st in enumerate(states)]
+        B = int(batch_size) if batch_size else int(
+            min(4096, max(64, max(st.remaining for st in states))))
+        h0 = self.shards[0]
+        self._mesh_rounds = 0
+        while any(st.remaining for st in states):
+            self._mesh_rounds += 1
+            Br = min(st.ramp(B) for st in states if st.remaining)
+            max_obs = max(st.entry_level for st in states)
+            nonempty = tuple(bool(any(st.counts[l] > 0 for st in states)) for l in range(L))
+            entry = [int(st.entry) for st in states]
+            bidx = np.empty((D, Br), np.int32)
+            n_hi = 0
+            for s, st in enumerate(states):
+                bidx[s], nh = st.round_batch(Br)
+                n_hi = max(n_hi, nh)
+            B1 = 0 if n_hi == 0 else int(min(Br, _next_pow2(max(8, n_hi))))
+            cfg = RoundConfig(B=Br, cap1=cap1, num_layers=L, widths=widths,
+                              efc=h0.ef_construction, M=h0.max_nb_connection,
+                              metric=h0.metric.name, expand=int(expand),
+                              max_obs=max_obs, nonempty=nonempty,
+                              keep_pruned=bool(h0.keep_pruned),
+                              extend=bool(h0.extend_candidates), B1=B1)
+            tables, indeg = sharded_insert_round_fn(devs, cfg)(
+                vectors, sqnorms, levels, tables, bidx, entry, indeg)
+        for s, st in enumerate(states):
+            st.flush([(i.cpu().numpy(), d.cpu().numpy()) for i, d in tables[s]])
+        org = np.full((D, cap1), -1, np.int64)
+        n_live = []
+        for s in range(D):
+            n = self.shards[s]._nb_point
+            n_live.append(n)
+            org[s, :n] = self.shards[s]._origin[:n]
+        self._state = _ShardState(
+            vectors=vectors, sqnorms=sqnorms, n_live=n_live, host_origin=org,
+            layer_ids=[tuple(t[0] for t in tables[s]) for s in range(D)],
+            entry=[int(st.entry) for st in states], cap1=cap1, num_layers=L,
+            layer_nonempty=tuple(bool(any(st.counts[l] > 0 for st in states))
+                                 for l in range(L)),
+            entry_level=max(st.entry_level for st in states))
+        self._versions = tuple(s._version for s in self.shards)
+
+    # ---------------------------------------------------------- device state -----
+
+    def _build_state(self) -> _ShardState:
+        """The per-shard device state from the host shards (cached per graph
+        version), on one geometry: the largest shard's row count and each
+        layer's widest table."""
+        versions = tuple(s._version for s in self.shards)
+        if self._state is not None and self._versions == versions:
+            return self._state
+        sh = self.shards
+        cap1 = max(_round_up(max(s._nb_point, 8), 8) + 1 for s in sh)  # +1 sink row
+        L = max(max(s._layers.keys(), default=0) + 1 for s in sh)
+        d = next((s._dim for s in sh if s._dim), 1)
+        widths = [max([sh[0]._layer_width(l)] + [s._layers[l].width for s in sh
+                                                  if l in s._layers]) for l in range(L)]
+        org = np.full((self.n_shards, cap1), -1, np.int64)
+        vectors, sqnorms, layer_ids, entry, n_live = [], [], [], [], []
+        for s, (h, dev) in enumerate(zip(sh, self.devices)):
+            n = h._nb_point
+            vec = np.zeros((cap1, d), np.float32)
+            if n:
+                vec[:n] = np.asarray(h._data[:n], np.float32)
+            org[s, :n] = h._origin[:n]
+            tabs = []
+            for l in range(L):
+                ids = np.full((cap1, widths[l]), -1, np.int32)
+                t = h._layers.get(l)
+                if t is not None:
+                    ids[:n, : t.width] = t.ids[:n]
+                tabs.append(torch.as_tensor(ids, device=dev))
+            v = torch.as_tensor(vec, device=dev)
+            vectors.append(v)
+            sqnorms.append((v * v).sum(-1))
+            layer_ids.append(tuple(tabs))
+            entry.append(int(max(h._entry, 0)))
+            n_live.append(n)
+        state = _ShardState(
+            vectors=vectors, sqnorms=sqnorms, n_live=n_live, host_origin=org,
+            layer_ids=layer_ids, entry=entry, cap1=cap1, num_layers=L,
+            layer_nonempty=tuple(any(h.get_layer_nb_point(l) > 0 for h in sh)
+                                 for l in range(L)),
+            entry_level=max(h.get_max_level_observed() for h in sh))
+        self._state = state
+        self._versions = versions
+        return state
+
+    def device_codec_arrays(self):
+        """The per-shard blocked traversal codec, built on each shard's device
+        (``_sharded_codec_build_fn``), or None: ``(blocks, blocks_sq, scale,
+        M0, dim)`` with one ``[cap1, M0, d]`` block table, ``[cap1, M0]``
+        squared norms and scale per shard. The blocks carry no id rows, so the
+        search scores them through kernel B3."""
+        kind = self._codec_kind
+        metric = self.shards[0].metric.name
+        if kind is None or metric not in BeamCodec.SUPPORTED:
+            return None
+        st = self._build_state()
+        w = st.layer_ids[0][0].shape[1]
+        if self._codec_width is not None:
+            w = min(int(self._codec_width), w)
+        if kind == "auto":
+            d = st.vectors[0].shape[1]
+            est = self.n_shards * st.cap1 * w * d
+            if len(self) < Hnsw.CODEC_MIN_POINTS or est > Hnsw.CODEC_MAX_BYTES:
+                return None
+            kind = "i8"
+        versions = tuple(s._version for s in self.shards)
+        cs = self._codec_state
+        if cs is not None and cs[0] == (versions, kind, self._codec_width):
+            return cs[1]
+        tbl = [t[0][:, :w] for t in st.layer_ids]
+        blocks, bsq, scale = _sharded_codec_build_fn(self.devices, metric, kind)(
+            st.vectors, tbl)
+        out = (blocks, bsq, scale, int(w), int(st.vectors[0].shape[1]))
+        self._codec_state = ((versions, kind, self._codec_width), out)
+        return out
+
+    def _masks(self, filter, st: _ShardState):
+        """The filter as one [cap1] bool mask per shard, on its device."""
+        out = []
+        for sh, dev in zip(self.shards, self.devices):
+            m = np.zeros(st.cap1, bool)
+            n = sh._nb_point
+            if n:
+                m[:n] = filter_mask(filter, sh._origin[:n])
+            out.append(torch.as_tensor(m, device=dev))
+        return out
+
+    @staticmethod
+    def _to_external(st: _ShardState, local, shard, dists):
+        local, shard, dists = (x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+                               for x in (local, shard, dists))
+        ok = np.isfinite(dists) & (local >= 0)
+        ids = np.full(local.shape, -1, np.int64)
+        ids[ok] = st.host_origin[shard[ok], local[ok]]
+        return ids, np.where(ok, dists, np.inf).astype(np.float32)
+
+    # ---------------------------------------------------------------- search -----
+
+    def _search_fn(self, knbn, ef, filter, expand, rerank):
+        st = self._build_state()
+        codec = self.device_codec_arrays()
+        tail = []
+        if codec is not None:
+            blocks, bsq, scale, M0, dim = codec
+            tail = [blocks, bsq, scale]
+        else:
+            M0 = dim = 0
+        if filter is not None:
+            tail.append(self._masks(filter, st))
+        cfg = _SearchCfg(num_layers=st.num_layers, layer_nonempty=st.layer_nonempty,
+                         cap1=st.cap1, entry_level=st.entry_level,
+                         metric=self.shards[0].metric.name, ef=int(ef), knbn=int(knbn),
+                         expand=int(expand), use_codec=codec is not None, codec_M0=M0,
+                         codec_dim=dim, use_mask=filter is not None,
+                         rerank=None if rerank is None else int(rerank))
+        fn = _sharded_search_fn(self.devices, cfg)
+        fixed = [st.vectors, st.sqnorms, st.n_live, st.layer_ids, st.entry]
+        return st, (lambda q: fn(*fixed, q, *tail))
+
+    def search_batch(self, queries, knbn: int, ef: int, filter=None,
+                     expand: int = 4, rerank: Optional[int] = None):
+        """Sharded batched search: the single-card search program on every
+        shard (int8 codec with kernel B3 and the exact rerank when the codec
+        is on), then the merge on ``devices[0]``. Returns (external ids
+        [B, k] int64, -1 padded, dists [B, k])."""
+        q = np.asarray(queries, np.float32)
+        if q.ndim == 1:
+            q = q[None]
+        st, run = self._search_fn(knbn, ef, filter, expand, rerank)
+        return self._to_external(st, *run(torch.as_tensor(q, device=self.devices[0])))
+
+    def _scan_arrays(self, tn: int):
+        """Per-shard bf16 scan copy padded to a multiple of ``tn`` rows, and
+        its squared norms with 3e38 past the live rows so that padding never
+        enters a top-k (the sharded counterpart of ``pad_corpus``); cached per
+        graph version."""
+        versions = tuple(s._version for s in self.shards)
+        cs = self._scan_state
+        if cs is not None and cs[0] == (versions, tn):
+            return cs[1]
+        st = self._build_state()
+        Np = -(-st.cap1 // tn) * tn
+        Xp, xsqp = [], []
+        for v, sq, n in zip(st.vectors, st.sqnorms, st.n_live):
+            vb = torch.zeros((Np, v.shape[1]), dtype=torch.bfloat16, device=v.device)
+            vb[: st.cap1] = v.to(torch.bfloat16)
+            xs = torch.full((Np,), 3.0e38, dtype=torch.float32, device=v.device)
+            xs[:n] = sq[:n]
+            Xp.append(vb)
+            xsqp.append(xs)
+        self._scan_state = ((versions, tn), (Xp, xsqp, Np))
+        return self._scan_state[1]
+
+    def search_stream(self, queries, knbn: int, ef: int, filter=None,
+                      expand: int = 4, rerank: Optional[int] = None,
+                      batch: int = 4096, query_dtype=None):
+        """Pipelined sharded serving (``ops/stream.py``): the upload of batch
+        i+1 and the fetch of batch i-1 overlap the search of batch i; a filter
+        mask uploads once for the stream. ``query_dtype="f16"`` sends the
+        queries as float16 (the search runs in f32). Returns (external ids
+        [nq, k] int64, -1 padded, dists [nq, k])."""
+        q = np.asarray(queries, np.float32)
+        if q.ndim == 1:
+            q = q[None]
+        if query_dtype in ("f16", "float16", np.float16):
+            q = q.astype(np.float16)
+        elif query_dtype not in (None, "f32", "float32", np.float32):
+            raise ValueError(f"unsupported query_dtype {query_dtype!r}")
+        nq = q.shape[0]
+        st, run = self._search_fn(knbn, ef, filter, expand, rerank)
+        out_i = np.full((nq, knbn), -1, np.int64)
+        out_d = np.full((nq, knbn), np.inf, np.float32)
+        work = [(s, min(s + int(batch), nq)) for s in range(0, nq, int(batch))]
+
+        def _upload(w):
+            return upload_batch(q[w[0]:w[1]], self.devices[0])
+
+        def _dispatch(w, staged):
+            with _on(self.devices[0]):
+                return fetch_host(run(staged.wait()))
+
+        def _fetch(w, out):
+            ws, we = w
+            out_i[ws:we], out_d[ws:we] = self._to_external(st, *out.get())
+
+        pipelined_stream(work, _upload, _dispatch, _fetch)
+        return out_i, out_d
+
+    def exact_search_batch(self, queries, knbn: int, filter=None,
+                           mode: str = "auto", tile: int = 16384):
+        """Sharded exact search: every shard scans its slice and keeps a
+        local top-k, and the same merge follows; the union of the shards'
+        exact top-k holds the global one. ``mode``:
+
+          * ``"pallas"``: the packed exact scan (kernel B2) over each shard's
+            bf16 copy keeps the reference's 32-aligned candidate count, then
+            an f32 direct-form refine. L2 only, unfiltered, k <= 128.
+          * ``"tiled"``: a loop over ``tile``-row slices with a running
+            top-k ([B, tile] of workspace); any metric with a matmul form,
+            filters.
+          * ``"auto"``: ``"pallas"`` where it applies, else ``"tiled"``."""
+        metric = self.shards[0].metric.name
+        if get_metric(metric).matmul_scores is None:
+            raise ValueError(f"exact sharded scan needs a matmul-form metric, got {metric!r}")
+        st = self._build_state()
+        if mode == "auto":
+            mode = ("pallas" if metric in ("L2", "DistL2") and filter is None
+                    and knbn <= 128 else "tiled")
+        q = np.asarray(queries, np.float32)
+        if q.ndim == 1:
+            q = q[None]
+        qd = torch.as_tensor(q, device=self.devices[0])
+        k = int(min(knbn, st.cap1))
+        if mode == "pallas":
+            if metric not in ("L2", "DistL2") or filter is not None:
+                raise ValueError("pallas sharded scan is L2-only, unfiltered")
+            Xp, xsqp, Np = self._scan_arrays(SCAN_TN)
+            fn = _sharded_scan_pallas_fn(self.devices, k, SCAN_TN, Np, st.cap1)
+            local, shard, dists = fn(st.vectors, st.n_live, Xp, xsqp, qd)
+        elif mode == "tiled":
+            args = [st.vectors, st.sqnorms, st.n_live, qd]
+            if filter is not None:
+                args.append(self._masks(filter, st))
+            fn = _sharded_scan_fn(self.devices, metric, k, filter is not None,
+                                  int(min(tile, st.cap1)))
+            local, shard, dists = fn(*args)
+        else:
+            raise ValueError(f"unknown exact mode {mode!r}")
+        ids, dists = self._to_external(st, local, shard, dists)
+        if ids.shape[1] < knbn:
+            pad = knbn - ids.shape[1]
+            ids = np.concatenate([ids, np.full((len(ids), pad), -1, np.int64)], 1)
+            dists = np.concatenate([dists, np.full((len(ids), pad), np.inf, np.float32)], 1)
+        return ids, dists
+
+    # --------------------------------------------------------------- persist -----
+
+    def file_dump(self, path, basename: str) -> str:
+        """One reference-format dump per shard (``<basename>.shard<i>.hnsw.*``)
+        and a manifest ``<basename>.shards.json`` in the JAX package's format
+        (``hnsw_tpu.sharded.v1``), so each package reloads the other's."""
+        for s, sh in enumerate(self.shards):
+            sh.file_dump(path, f"{basename}.shard{s}")
+        manifest = {"format": "hnsw_tpu.sharded.v1", "n_shards": self.n_shards,
+                    "axis": self.axis, "basename": basename}
+        with open(os.path.join(path, f"{basename}.shards.json"), "w") as f:
+            json.dump(manifest, f)
+        return basename
+
+    @classmethod
+    def load(cls, path, basename: str, devices: Optional[Sequence] = None,
+             **hnsw_kwargs) -> "ShardedHnsw":
+        """Reload a sharded dump. ``devices`` may be longer than the dump's
+        shard count (the extra shards start empty), never shorter."""
+        with open(os.path.join(path, f"{basename}.shards.json")) as f:
+            manifest = json.load(f)
+        n = int(manifest["n_shards"])
+        obj = cls(devices=devices, n_shards=None if devices is not None else n, **hnsw_kwargs)
+        if obj.n_shards < n:
+            raise ValueError(f"{obj.n_shards} devices; the dump has {n} shards")
+        loaded = []
+        for s in range(n):
+            with _on(obj.devices[s]):
+                loaded.append(HnswIo(path, f"{basename}.shard{s}").load_hnsw(
+                    device=obj.devices[s]))
+        obj.shards = loaded + obj.shards[n:]
+        obj._state = obj._versions = obj._placement = None
+        return obj
+
+    def searcher(self):
+        """The per-shard device state the sharded search programs read."""
+        return self._build_state()
+
+
+def sharded_insert_round_fn(devices, cfg):
+    """One synchronized insertion round on every shard (``round_step`` on
+    ``devices[s]``): subgraphs are independent, so a step moves nothing
+    between shards. The returned function takes per-shard lists and returns
+    (tables, in-degrees), updated in place."""
+    def step(vectors, sqnorms, levels, tables, batch_ids, entry, indeg):
+        out_t, out_i = [], []
+        for s, dev in enumerate(devices):
+            with _on(dev):
+                t, ind = round_step(vectors[s], sqnorms[s], levels[s], tables[s],
+                                    torch.as_tensor(batch_ids[s], device=dev), entry[s],
+                                    None, indeg[s], cfg=cfg)
+            out_t.append(list(t))
+            out_i.append(ind)
+        return out_t, out_i
+    return step
+
+
+def _sharded_codec_build_fn(devices, metric, kind):
+    """The blocked traversal codec of every shard, built on its device (the
+    sharded counterpart of ``BeamCodec.build``): a per-shard int8 scale (or
+    bf16 store), Cosine rows normalized first, and the one-gather
+    neighbourhood blocks, with no id rows."""
+
+    def build(vectors, tbls):
+        blocks, bsq, scales = [], [], []
+        for v, t, dev in zip(vectors, tbls, devices):
+            with _on(dev):
+                v = v.to(torch.float32)
+                if metric in ("Cosine", "DistCosine"):
+                    v = v / torch.sqrt(torch.clamp_min((v * v).sum(-1, keepdim=True), 1e-20))
+                safe = torch.clamp(t, 0, v.shape[0] - 1).long()
+                if kind == "bf16":
+                    vq = v.to(torch.bfloat16)
+                    scale = torch.tensor(1.0, dtype=torch.float32, device=v.device)
+                    vf = vq.to(torch.float32)
+                    qsq = (vf * vf).sum(-1)
+                else:
+                    amax = torch.clamp_min(v.abs().max(), 1e-12)
+                    vq = torch.clamp(torch.round(v * (127.0 / amax)), -127, 127).to(torch.int8)
+                    scale = (amax / 127.0).to(torch.float32)
+                    qi = vq.to(torch.int32)
+                    qsq = (qi * qi).sum(-1).to(torch.float32) * (scale * scale)
+                blocks.append(vq[safe].contiguous())  # [cap1, M0, d]
+                bsq.append(qsq[safe])
+                scales.append(scale)
+        return blocks, bsq, scales
+    return build
+
+
+def _merge_shard_topk(ids, dists, k, device):
+    """Merge the shards' top-k rows on ``device``: each shard's [B, k_local]
+    rows are copied there and one stable sort keeps the best ``k`` (ties to
+    the lower shard and position). Returns (local ids [B,k], shard [B,k],
+    dists [B,k])."""
+    all_ids = torch.stack([i.to(device) for i in ids])  # [D, B, k_local]
+    all_d = torch.stack([d.to(device) for d in dists])
+    D_, B_, k_ = all_ids.shape
+    flat_ids = all_ids.permute(1, 0, 2).reshape(B_, D_ * k_)
+    flat_d = all_d.permute(1, 0, 2).reshape(B_, D_ * k_)
+    v, order = smallest(flat_d, k)
+    return torch.gather(flat_ids, 1, order), (order // k_).to(torch.int32), v
+
+
+def _sharded_scan_fn(devices, metric: str, k: int, use_mask: bool, tile: int):
+    """The tiled exact scan of every shard: a loop over ``tile``-row slices
+    with a running top-k, so the workspace is [B, tile]. The last slice's
+    start clamps into range; rows an earlier slice covered are masked by their
+    index, so duplicates never displace results."""
+    m = get_metric(metric)
+
+    def local_scan(v, xsq, n_live, qf, mask_full):
+        cap1, d = v.shape
+        TN = min(tile, cap1)
+        B = qf.shape[0]
+        bd = torch.full((B, k), INF, device=v.device)
+        bi = torch.full((B, k), -1, dtype=torch.int32, device=v.device)
+        for i in range(-(-cap1 // TN)):
+            s = i * TN
+            start = min(s, cap1 - TN)
+            dt = m.matmul_scores(qf, v[start:start + TN], xsq[start:start + TN])
+            gidx = start + torch.arange(TN, dtype=torch.int32, device=v.device)[None, :]
+            alive = (gidx >= s) & (gidx < n_live)
+            if mask_full is not None:
+                alive = alive & mask_full[start:start + TN][None, :]
+            dt = torch.where(alive, dt.to(torch.float32), INF)
+            cd = torch.cat([bd, dt], 1)
+            ci = torch.cat([bi, gidx.expand(B, TN)], 1)
+            bd, pos = smallest(cd, k)
+            bi = torch.gather(ci, 1, pos)
+        fin = torch.isfinite(bd)
+        return torch.where(fin, bi, -1), torch.where(fin, bd, INF)
+
+    def scan(vectors, sqnorms, n_live, q, *opt):
+        masks = opt[0] if use_mask else [None] * len(devices)
+        qs = _per_device(q.to(torch.float32), devices)
+        ids, dists = [], []
+        for s, dev in enumerate(devices):
+            with _on(dev):
+                i, d = local_scan(vectors[s], sqnorms[s], n_live[s], qs[s], masks[s])
+            ids.append(i)
+            dists.append(d)
+        return _merge_shard_topk(ids, dists, k, devices[0])
+    return scan
+
+
+def _sharded_scan_pallas_fn(devices, k: int, tn: int, Np: int, cap1: int):
+    """The exact scan of every shard through the packed scan kernel (B2 on
+    the card, ``ops/scan_topk.py``): each shard's bf16 copy keeps
+    ``refine_width(k, 8)`` candidates (the reference's 32-aligned count), which
+    are re-scored in f32 direct form against the shard's vectors; the merge
+    follows."""
+    acc = scan_acc(Np, tn)
+    n_blocks = -(-(Np // tn) // acc)
+    cand_w = n_blocks * 2 * (tn // SCAN_GROUP)
+    kk = refine_width(k, 8, min(Np, cand_w))
+    assert k <= kk, (k, kk)  # large k goes to the tiled scan
+
+    def local_scan(v, n_live, Xp, xsqp, qf):
+        dd, ids = l2_topk(qf, Xp, xsqp, kk, tn=tn, group=SCAN_GROUP, refine=False, acc=acc)
+        safe = torch.clamp(ids, 0, cap1 - 1)
+        diff = v[safe].to(torch.float32) - qf[:, None, :]
+        d2 = (diff * diff).sum(-1)
+        bad = (ids >= n_live) | ~torch.isfinite(dd) | (dd >= 1e18)
+        v2, pos = smallest(torch.where(bad, INF, d2), k)
+        dists = torch.sqrt(torch.clamp_min(v2, 0.0))  # inf stays inf for misses
+        out = torch.where(torch.isfinite(dists), torch.gather(safe, 1, pos), -1)
+        return out.to(torch.int32), dists
+
+    def scan(vectors, n_live, Xp, xsqp, q):
+        qs = _per_device(q.to(torch.float32), devices)
+        ids, dists = [], []
+        for s, dev in enumerate(devices):
+            with _on(dev):
+                i, d = local_scan(vectors[s], n_live[s], Xp[s], xsqp[s], qs[s])
+            ids.append(i)
+            dists.append(d)
+        return _merge_shard_topk(ids, dists, k, devices[0])
+    return scan
+
+
+@dataclasses.dataclass(frozen=True)
+class _SearchCfg:
+    num_layers: int
+    layer_nonempty: tuple
+    cap1: int
+    entry_level: int
+    metric: str
+    ef: int
+    knbn: int
+    expand: int
+    use_codec: bool
+    codec_M0: int
+    codec_dim: int
+    use_mask: bool
+    rerank: Optional[int]
+
+
+@dataclasses.dataclass(frozen=True)
+class _GA:
+    """What ``search_program`` reads of a graph snapshot, for one shard (no
+    pivot set: the shards enter by the greedy descent, as in the JAX
+    package)."""
+
+    vectors: object
+    sqnorms: object
+    levels: object
+    layer_ids: object
+    layer_dists: object
+    entry: int
+    n: int
+    cap1: int
+    entry_level: int
+    layer_nonempty: tuple
+    metric_name: str
+    num_layers: int
+    pivot_ids: object = None
+
+
+def _sharded_search_fn(devices, cfg: _SearchCfg):
+    """The sharded search: the single-card search program on every shard —
+    the blocked int8 codec (kernel B3 on the card), the exact f32 rerank and
+    the in-search filter mask — then the merge on ``devices[0]``."""
+
+    def local_search(vectors, sqnorms, n_live, layer_ids, entry, q, codec, mask):
+        g = _GA(vectors=vectors, sqnorms=sqnorms, levels=None, layer_ids=layer_ids,
+                layer_dists=(), entry=entry, n=cfg.cap1 - 1, cap1=cfg.cap1,
+                entry_level=cfg.entry_level, layer_nonempty=cfg.layer_nonempty,
+                metric_name=cfg.metric, num_layers=cfg.num_layers)
+        ids, dists = search_program(
+            g, q, mask, ef=cfg.ef, knbn=cfg.knbn, expand=cfg.expand,
+            use_mask=cfg.use_mask, codec=codec,
+            term_slack=_resolve_slack(None, codec), rerank=cfg.rerank)
+        # an empty or padded shard can answer a valid-looking id (the entry
+        # against zero padding): mask by the live count before the merge (with
+        # a codec, the rerank has already restored exact f32 distances, so the
+        # merge compares exact values across the shards' scales)
+        valid = (ids >= 0) & (ids < n_live)
+        return torch.where(valid, ids, -1), torch.where(valid, dists, INF)
+
+    def search(vectors, sqnorms, n_live, layer_ids, entry, q, *opt):
+        opt = list(opt)
+        codecs = [None] * len(devices)
+        if cfg.use_codec:
+            blocks, bsq, scale = opt[:3]
+            opt = opt[3:]
+            codecs = [BeamCodec(blocks=blocks[s], blocks_sq=bsq[s], scale=scale[s],
+                                M0=cfg.codec_M0, dim=cfg.codec_dim, metric_name=cfg.metric)
+                      for s in range(len(devices))]
+        masks = opt.pop(0) if cfg.use_mask else [None] * len(devices)
+        qs = _per_device(q, devices)
+        ids, dists = [], []
+        for s, dev in enumerate(devices):
+            with _on(dev):
+                i, d = local_search(vectors[s], sqnorms[s], n_live[s], layer_ids[s],
+                                    entry[s], qs[s], codecs[s], masks[s])
+            ids.append(i)
+            dists.append(d)
+        return _merge_shard_topk(ids, dists, cfg.knbn, devices[0])
+    return search
