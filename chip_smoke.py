@@ -16,10 +16,18 @@ Phases, each printing one JSON line. Path 1 (build and serve):
   build    Hnsw(M=24, efC=400, L2) with level scale 0.5 and kept pruned
            links, ``parallel_insert(mode="device", batch_size=16384,
            build_max_iters=96)`` on the 200k x 128 gauss corpus of bench.py
+           (``hnsw_tpu_torch.bench.make_dataset``, rounded to float32)
   gt       BruteForceIndex (kernel B2) top-64 pool + fp64 host refine over
            4096 queries; exact-scan recall@10
   serve    device_search_stream (batch 16384, expand 4, int8 codec, pivots)
            at ef 32/64/96, k=10: recall@10 scored in fp64, streamed QPS
+  bench    the port's benchmark (``hnsw_tpu_torch.bench``) on the same
+           index, queries and truth: its ef sweep, the exact engine and the
+           chosen ef timed in 3 blocks of 1 s, the device-resident rate over
+           4 sub-batches; its record on a line ``{"bench": {...}}`` must hold
+           every key of its JSON line, recall@10 >= 0.98 (graph) and >= 0.999
+           (exact), and every B1 launch through "bulk", every B2 launch
+           through "wgmma"
 
 Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
 
@@ -130,6 +138,8 @@ import time
 
 import numpy as np
 
+from hnsw_tpu_torch.bench import f32_dataset, recall_fp64
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Card peaks used for bounds (NVIDIA H100 SXM data sheet, dense).
@@ -173,6 +183,7 @@ B5_TERM_RTOL = 1e-6
 B5_ID_EQUAL = 0.999
 RECALL_EF96 = 0.97
 RECALL_EXACT = 0.999
+RECALL_BENCH = 0.98         # bench.py's floor, at the ef its sweep chooses
 RECALL_K100 = 0.95          # k=100 through the pool reservoir, ef=192
 RECALL_EF256 = 0.995        # unfused; path 1 reads 0.9955 at ef=96
 FUSED_UNFUSED_GAP = 0.002   # recall@10 of the two codec routes at ef=256
@@ -182,53 +193,6 @@ CODEC_EXPANDS = (4, 8)      # beam widths the two paths give B1: [B, E] src rows
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def make_dataset(kind, rng, n, nq, d, intrinsic):
-    """bench.py's ``make_dataset``: a low-intrinsic-dimension corpus through a
-    fixed random linear map, corpus and queries on forked streams so X depends
-    on (seed, n, d, intrinsic) only. "gauss": gaussian codes. "clustered":
-    max(64, n // 4000) clusters with lognormal weights and scales, Student-t
-    offsets, rows in cluster order, a tenth of the queries from the
-    background."""
-    xrng = np.random.default_rng(rng.integers(2**63))
-    qrng = np.random.default_rng(rng.integers(2**63))
-    A = (rng.standard_normal((intrinsic, d)).astype(np.float32)
-         / np.float32(np.sqrt(intrinsic)))  # f32 under NumPy 1 and 2 alike
-    if kind == "gauss":
-        Z = xrng.standard_normal((n, intrinsic), dtype=np.float32)
-        Zq = qrng.standard_normal((nq, intrinsic), dtype=np.float32)
-    elif kind == "clustered":
-        C = max(64, n // 4000)
-        w = rng.lognormal(0.0, 1.2, C)
-        w /= w.sum()
-        centers = 4.0 * rng.standard_normal((C, intrinsic))
-        sig = rng.lognormal(-0.4, 0.6, C)
-
-        def draw(g, m, counts):
-            Z = np.empty((m, intrinsic), np.float32)
-            ofs = 0
-            for c in range(C):
-                k = int(counts[c])
-                Z[ofs:ofs + k] = centers[c] + sig[c] * g.standard_t(4, (k, intrinsic))
-                ofs += k
-            return Z
-
-        Z = draw(xrng, n, xrng.multinomial(n, w))  # cluster-ordered on purpose
-        nq_bg = nq // 10
-        Zq = np.concatenate([draw(qrng, nq - nq_bg, qrng.multinomial(nq - nq_bg, w)),
-                             4.0 * qrng.standard_normal((nq_bg, intrinsic))
-                             .astype(np.float32)])
-        Zq = Zq[qrng.permutation(nq)]
-    else:
-        raise ValueError(f"unknown dataset {kind!r}")
-    X = np.matmul(Z.astype(np.float32), A)
-    for s in range(0, n, 65536):
-        e = min(s + 65536, n)
-        X[s:e] += 0.02 * xrng.standard_normal((e - s, d), dtype=np.float32)
-    Q = np.matmul(Zq.astype(np.float32), A)
-    Q += 0.02 * qrng.standard_normal((nq, d), dtype=np.float32)
-    return X, Q
 
 
 def cuda_ms_turns(torch, fns, rounds=5, warmup=1):
@@ -724,21 +688,6 @@ def scan_rows(torch, X, Q):
     return rows, failures
 
 
-def recall_fp64(X, Q, kth, origin_ids, k=10):
-    """bench.py's recall scoring: the returned candidates' distances are
-    recomputed in fp64 and compared with the fp64 k-th distance, with a
-    relative 1e-6 margin for the two evaluation orders."""
-    nq = len(kth)
-    ok = origin_ids[:nq] >= 0
-    safe = np.clip(origin_ids[:nq], 0, len(X) - 1)
-    hits = 0
-    for b in range(nq):
-        dv = X[safe[b]].astype(np.float64) - Q[b].astype(np.float64)
-        d64 = np.sqrt((dv * dv).sum(-1))
-        hits += int((ok[b] & (d64 <= kth[b] * (1.0 + 1e-6) + 1e-12)).sum())
-    return hits / (nq * k)
-
-
 def phase_build(torch, X):
     from hnsw_tpu_torch import Hnsw, PROFILER
 
@@ -759,7 +708,7 @@ def phase_build(torch, X):
           "max_level": h.get_max_level_observed(),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "spans": PROFILER.report()})
-    return h
+    return h, build_s
 
 
 def kth_fp64(bf, X, Q, nq, k, pool):
@@ -823,6 +772,43 @@ def phase_serve(torch, h, X, Q, kth, k=10):
           "codec_id_rows": codec.id_rows, "pivots": int(g.pivot_ids.numel()),
           "stream_queries": len(Qs), "by_ef": out})
     return out
+
+
+def phase_bench(torch, h, build_s, bf, X, Q, kth):
+    """The port's benchmark (``hnsw_tpu_torch.bench``) on path 1's
+    index, queries and truth, with no second build: its ef sweep, the exact
+    engine (on ``bf``'s scan corpus) and the chosen ef timed in 3 blocks of
+    1 s, the device-resident rate over S2 = 4 sub-batches, the other knobs at
+    bench.py's defaults. Prints its record, ``{"bench": {...}}``, and returns
+    the failures: a key missing, recall below bench.py's floor (graph) or
+    RECALL_EXACT (exact), a B1 launch not through ``bulk`` or a B2 launch not
+    through ``wgmma``."""
+    from hnsw_tpu_torch import bench
+    from hnsw_tpu_torch.ops import kernel_lib
+
+    cfg = bench.Config(n=len(X), d=X.shape[1], qbatch=len(Q), k=10, dataset="gauss",
+                       recall=RECALL_BENCH, blocks=3, min_block_s=1.0, kernel_s=4,
+                       device="cuda")
+    before = dict(kernel_lib.LAUNCHES)
+    t0 = time.time()
+    exact = bench.measure_exact(cfg, bf._scan_device(), X, Q, kth)
+    hnsw = bench.measure_hnsw(cfg, h, X, Q, kth)
+    faults = bench.entry_faults(before, kernel_lib.LAUNCHES, X.shape[1], h.device_codec())
+    rec = bench.make_record(cfg, exact, hnsw, h, build_s, "device",
+                            bench.device_info(torch.device("cuda")))
+    emit({"phase": "bench", "seconds": time.time() - t0, "sweep": hnsw["choice"].sweep,
+          "launches": {c: kernel_lib.LAUNCHES[c] - before[c]
+                       for c in ("codec_scores_ids.bulk", "scan_topk.wgmma")}})
+    emit({"bench": rec})
+    failures = [f"bench: {f}" for f in faults]
+    missing = [key for key in bench.KEYS if key not in rec]
+    if missing:
+        failures.append(f"bench: keys missing from the record: {missing}")
+    if rec["hnsw_recall"] < cfg.recall:
+        failures.append(f"bench: hnsw_recall {rec['hnsw_recall']} < {cfg.recall}")
+    if rec["exact_recall"] < RECALL_EXACT:
+        failures.append(f"bench: exact_recall {rec['exact_recall']} < {RECALL_EXACT}")
+    return failures
 
 
 def index_differences(h, r, layer_order: bool):
@@ -1368,7 +1354,7 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
 
     failures = []
     t0 = time.time()
-    X, Q = make_dataset("clustered", np.random.default_rng(seed), n, nq, 128, 16)
+    X, Q = f32_dataset("clustered", np.random.default_rng(seed), n, nq, 128, 16)
     data_s = time.time() - t0
     # the truth takes no engine under test: kernel B2 is scored against it
     kth = matmul_kth(torch, X, Q, k)
@@ -1650,8 +1636,8 @@ def profiled(torch, label, fn, top=12):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="env,kernels,build,gt,serve,persist,serve2,native,metrics,"
-                            "ivf,sharded")
+                    default="env,kernels,build,gt,serve,bench,persist,serve2,native,"
+                            "metrics,ivf,sharded")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, trace one served batch per operating "
@@ -1673,14 +1659,14 @@ def main():
     failures = []
     card = phase_env(torch, kernel_lib)
     d, nq = 128, 16384
-    X, Q = make_dataset("gauss", np.random.default_rng(args.seed), 200_000, nq, d, 16)
+    X, Q = f32_dataset("gauss", np.random.default_rng(args.seed), 200_000, nq, d, 16)
     rows = []
     if "kernels" in phases:
         rows, f = scan_rows(torch, X, Q)
         failures += f
     # ---- path 1: counts run from zero over build, gt and serve ----
     kernel_lib.reset_launch_counts()
-    h = phase_build(torch, X) if "build" in phases else None
+    h, build_s = phase_build(torch, X) if "build" in phases else (None, None)
     kth = bf = ids_bf = None
     if "gt" in phases:
         kth, exact, bf, ids_bf = phase_gt(torch, X, Q)
@@ -1691,6 +1677,8 @@ def main():
         if by_ef[96]["recall_at_10"] < RECALL_EF96:
             failures.append(f"recall@10 at ef=96 {by_ef[96]['recall_at_10']:.4f} "
                             f"< {RECALL_EF96}")
+    if h is not None and kth is not None and "bench" in phases:
+        failures += phase_bench(torch, h, build_s, bf, X, Q, kth)
     path1 = dict(kernel_lib.LAUNCHES)
     # ---- path 2: counts run from zero over persist and serve2 ----
     kernel_lib.reset_launch_counts()

@@ -14,7 +14,7 @@ torch.set_num_threads(2)
 
 import jax.numpy as jnp
 
-from chip_smoke import make_dataset, recall_fp64
+from hnsw_tpu_torch.bench import f32_dataset, recall_fp64
 from hnsw_tpu.ops.pallas_topk import _round_up, pad_corpus as j_pad, pallas_l2_topk, pick_tn
 from hnsw_tpu_torch import BruteForceIndex, get_metric
 from hnsw_tpu_torch.ops import scan_topk as st
@@ -35,7 +35,7 @@ def _reference_kf(k, n, filtered):
 def test_refine_width_is_the_references(k, filtered, monkeypatch):
     """The finalists ``BruteForceIndex``'s scan re-scores, seen at the
     ``torch.topk`` over the scan's candidates, against the reference's formula."""
-    X, Q = make_dataset("gauss", np.random.default_rng(3), 5000, 8, 16, 8)
+    X, Q = f32_dataset("gauss", np.random.default_rng(3), 5000, 8, 16, 8)
     bf = BruteForceIndex(device="cpu")
     bf.SCAN_MIN_POINTS = 1
     bf.parallel_insert(X)
@@ -62,7 +62,7 @@ def test_clustered_recall_matches_reference():
     interpreted, at its own geometry, reach recall@10 within 0.002 of each
     other (at 18 finalists the port read 0.0039 below)."""
     nq, k = 256, 10
-    X, Q = make_dataset("clustered", np.random.default_rng(1234), 60_000, nq, 128, 16)
+    X, Q = f32_dataset("clustered", np.random.default_rng(1234), 60_000, nq, 128, 16)
     X64, Q64 = X.astype(np.float64), Q.astype(np.float64)
     d2 = (X64 * X64).sum(1)[None, :] - 2.0 * Q64 @ X64.T + (Q64 * Q64).sum(1)[:, None]
     kth = np.sqrt(np.maximum(np.partition(d2, k - 1, axis=1)[:, k - 1], 0.0))

@@ -23,7 +23,7 @@ from hnsw_tpu_torch import (AutoIndex, BruteForceIndex, Hnsw, HnswIo, IvfFlatInd
                             get_metric, load_native)
 from hnsw_tpu_torch.ops import scan_topk as st
 from hnsw_tpu_torch.ops.beam_search import device_search_stream as t_stream
-from chip_smoke import make_dataset
+from hnsw_tpu_torch.bench import f32_dataset
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N, D, K = 4096, 128, 10
@@ -41,7 +41,7 @@ def _recall(h, ids, X, Q):
 def test_main_path_small(monkeypatch):
     monkeypatch.setattr(jga, "PIVOT_MIN_POINTS", 1)
     monkeypatch.setattr(tga, "PIVOT_MIN_POINTS", 1)
-    X, Q = make_dataset("gauss", np.random.default_rng(7), N, 64, D, 16)
+    X, Q = f32_dataset("gauss", np.random.default_rng(7), N, 64, D, 16)
     recalls = []
     for cls, stream, kw in ((Hnsw, t_stream, {"device": "cpu"}), (JHnsw, j_stream, {})):
         h = cls(max_nb_connection=8, max_elements=N, ef_construction=64, dist="L2", **kw)
@@ -77,7 +77,7 @@ def test_second_path_small(monkeypatch, tmp_path):
     order, so its answers are compared as external ids."""
     monkeypatch.setattr(jga, "PIVOT_MIN_POINTS", 1)
     monkeypatch.setattr(tga, "PIVOT_MIN_POINTS", 1)
-    X, Q = make_dataset("gauss", np.random.default_rng(7), N, 64, D, 16)
+    X, Q = f32_dataset("gauss", np.random.default_rng(7), N, 64, D, 16)
     h = Hnsw(max_nb_connection=8, max_elements=N, ef_construction=64, dist="L2",
              device="cpu")
     h.set_keeping_pruned(True)
@@ -135,7 +135,7 @@ def test_second_path_small(monkeypatch, tmp_path):
 
 def test_exact_engine_small():
     """BruteForceIndex over the scan (threshold lowered to this size)."""
-    X, Q = make_dataset("gauss", np.random.default_rng(8), 5000, 32, 64, 16)
+    X, Q = f32_dataset("gauss", np.random.default_rng(8), 5000, 32, 64, 16)
     bf = BruteForceIndex(device="cpu")
     bf.SCAN_MIN_POINTS = 1
     bf.parallel_insert(X)
