@@ -20,7 +20,15 @@ Phases, each printing one JSON line. Path 1 (build and serve):
   gt       BruteForceIndex (kernel B2) top-64 pool + fp64 host refine over
            4096 queries; exact-scan recall@10
   serve    device_search_stream (batch 16384, expand 4, int8 codec, pivots)
-           at ef 32/64/96, k=10: recall@10 scored in fp64, streamed QPS
+           at ef 32/64/96, k=10: recall@10 scored in fp64, streamed QPS; B1
+           launches a batch read on a warmed call (the first call for a
+           program key runs a warm-up before its replay)
+  program  the search as one device program (``ops/program.py``, CUDA
+           graphs) at ef 32/64/96 on one 16384-query batch: the replay must
+           equal a direct call of the same pieces and the eager search bit for
+           bit, and launch B1 once a beam iteration (10 / 18 / 26), all
+           "bulk"; wall (host clock) and device busy (torch.profiler) of both
+           forms in turns, and the bytes the programs' pools hold
   bench    the port's benchmark (``hnsw_tpu_torch.bench``) on the same
            index, queries and truth: its ef sweep, the exact engine and the
            chosen ef timed in 3 blocks of 1 s, the device-resident rate over
@@ -42,7 +50,9 @@ Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
   serve2   on h2: (a) k=100 through the pool reservoir (ef 192, expand 8,
            pool 256): ids identical to the built index's, recall@100 in fp64;
            (b) ef=256, k=10 with ``allow_fused=False`` (kernel B4) and
-           ``True`` (B1): recall@10 of each, B4 launches per batch; (c) exact
+           ``True`` (B1): recall@10 of each, B4 launches per batch (on a
+           warmed call); each search's program replay equal to a direct call
+           of its pieces on one batch; (c) exact
            k=100 over 4096 queries with ``packed=False`` (kernel B5) against
            ``packed=True`` (B2): id sets, recall@100; streamed QPS of each
 
@@ -75,7 +85,8 @@ Path 3 (``metrics``; every other metric, built and served on the card):
       ``UserMetric`` (weighted L2, both torch forms) on 20k x 16; each built
       with M=16, efC=100, batch 4096, searched at ef 64 over 1024 queries;
       recall@10 against a top-64 pool of the metric's torch scores refined by
-      its fp64 numpy oracle; the torch scores against the oracle on 64 x 256
+      its fp64 numpy oracle; the torch scores against the oracle on 64 x 256;
+      each metric's program replay equal to a direct call of its pieces
 
 Path 4 (``ivf``; bench.py's 1M x 128 clustered corpus): ground truth from a
 chunked f32 matmul on the card refined in fp64 (no engine under test);
@@ -97,7 +108,9 @@ built with ``mode="mesh"``; ``search_stream`` with the per-shard int8 codec (no
 id rows: kernel B3) at ef 64 and 96 (k=10, batch 16384), ``search_batch`` on
 2048 queries (ids equal to the stream's), ``exact_search_batch`` in ``auto`` mode
 (the packed scan, kernel B2, on every shard) against path 1's exact engine and
-in ``tiled`` mode, and the manifest dump reloaded onto the card (equal ids).
+in ``tiled`` mode, and the manifest dump reloaded onto the card (equal ids);
+one warmed batch at ef 96 through the per-shard programs (chunked: B3
+launches, wall ms, each shard's replay equal to a direct call of its pieces).
 After path 5's counts are read, B3 against its plain version on shard 0's
 codec at path 5's shape.
 
@@ -758,20 +771,144 @@ def phase_serve(torch, h, X, Q, kth, k=10):
     out = {}
     Qs = np.concatenate([Q, Q])
     for ef in (32, 64, 96):
+        # the first call builds the program (a warm-up run, then a replay)
         b1_before = kernel_lib.LAUNCHES["codec_scores_ids"]
         ids, _ = device_search_stream(h, Q, k, ef, batch=16384, expand=4)
-        b1_batch = kernel_lib.LAUNCHES["codec_scores_ids"] - b1_before
+        b1_first = kernel_lib.LAUNCHES["codec_scores_ids"] - b1_before
         oid = np.where(ids >= 0, h._origin[np.clip(ids, 0, h._nb_point - 1)], -1)
         r = recall_fp64(X, Q, kth, oid, k)
         torch.cuda.synchronize()
+        b1_before = kernel_lib.LAUNCHES["codec_scores_ids"]
         t0 = time.time()
         device_search_stream(h, Qs, k, ef, batch=16384, expand=4)
         qps = len(Qs) / (time.time() - t0)
-        out[ef] = {"recall_at_10": r, "qps": qps, "b1_launches_per_batch": b1_batch}
+        b1_batch = (kernel_lib.LAUNCHES["codec_scores_ids"] - b1_before) / (len(Qs) // 16384)
+        out[ef] = {"recall_at_10": r, "qps": qps, "b1_launches_per_batch": b1_batch,
+                   "b1_launches_first_call": b1_first}
     emit({"phase": "serve", "batch": 16384, "expand": 4, "codec_M0": codec.M0,
           "codec_id_rows": codec.id_rows, "pivots": int(g.pivot_ids.numel()),
           "stream_queries": len(Qs), "by_ef": out})
     return out
+
+
+PROGRAM_EFS = (32, 64, 96)
+PROGRAM_ROUNDS = 3          # timed windows of each form, taken in turns
+
+
+def search_static(h, ef, k=10, expand=4, **kw):
+    """``search_program``'s static arguments as ``device_search_stream``
+    passes them, so ``h.device_program`` finds the program the stream built."""
+    from hnsw_tpu_torch.ops.beam_search import serve_static
+
+    return serve_static(h.device_codec(), ef=ef, knbn=k, expand=expand, **kw)
+
+
+def replay_equals_direct(torch, prog, q, mask=None):
+    """The program's replay against a direct call of the same pieces on the
+    card (``search_fixed``: every beam iteration to the cap, no capture):
+    True when ids and distances are equal bit for bit."""
+    from hnsw_tpu_torch.ops.program import search_fixed
+
+    ids_r, d_r = prog.run(q, mask)
+    ids_d, d_d = search_fixed(prog.g, q, mask, **prog.kw)
+    return bool(torch.equal(ids_r, ids_d) and torch.equal(d_r, d_d))
+
+
+def trace_window(torch, fn):
+    """``fn`` once under torch.profiler: wall ms to the device's end, device
+    busy ms (the kernels' summed time) and the idle share, and the kernels by
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    # kernel-level events only: op-level rows repeat their kernels' time
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0
+          and e.device_type == torch.autograd.DeviceType.CUDA]
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "top": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3} for e in ev]}
+
+
+def phase_program(torch, h, Q, k=10):
+    """The search as one device program on path 1's index, batch 16384, at
+    ef 32/64/96 (one graph each: max_iters <= 48): the replay bit-equal to a
+    direct call of the same pieces and to the eager search (one host read per
+    iteration), B1 launches per batch counted through replays (one per beam
+    iteration, all ``bulk``), and the wall, device busy and idle of one batch
+    for both forms (median of PROGRAM_ROUNDS profiled windows in turns; wall
+    also from the host clock without the profiler). Returns the failures."""
+    from hnsw_tpu_torch.ops import kernel_lib
+    from hnsw_tpu_torch.ops.beam_search import search_program
+
+    failures = []
+    g, codec = h.device_graph(), h.device_codec()
+    q = torch.as_tensor(Q[:16384], device="cuda")
+    by_ef = {}
+    for ef in PROGRAM_EFS:
+        static = search_static(h, ef, k)
+        t0 = time.time()
+        prog = h.device_program(len(q), torch.float32, **static)
+        get_s = time.time() - t0  # 0 when the serve phase built it
+        prog.run(q)
+        torch.cuda.synchronize()
+        before = dict(kernel_lib.LAUNCHES)
+        ids_r, d_r = prog.run(q)
+        torch.cuda.synchronize()
+        b1 = kernel_lib.LAUNCHES["codec_scores_ids"] - before["codec_scores_ids"]
+        bulk = kernel_lib.LAUNCHES["codec_scores_ids.bulk"] - before["codec_scores_ids.bulk"]
+        direct = replay_equals_direct(torch, prog, q)
+        ids_e, d_e = search_program(g, q, None, codec=codec, **static)
+        eager = bool(torch.equal(ids_r, ids_e) and torch.equal(d_r, d_e))
+
+        def run_program():
+            prog.run(q)
+
+        def run_eager():
+            search_program(g, q, None, codec=codec, **static)
+
+        walls = {"program": [], "eager": []}
+        for _ in range(PROGRAM_ROUNDS):
+            for name, fn in (("program", run_program), ("eager", run_eager)):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                fn()
+                torch.cuda.synchronize()
+                walls[name].append((time.time() - t0) * 1e3)
+        traced = {"program": [], "eager": []}
+        for _ in range(PROGRAM_ROUNDS):
+            for name, fn in (("program", run_program), ("eager", run_eager)):
+                traced[name].append(trace_window(torch, fn))
+        row = {"max_iters": static["max_iters"], "unrolled": prog.unrolled,
+               "program_get_s": get_s, "pool_bytes": prog.pool_bytes,
+               "b1_launches_per_batch": b1, "b1_bulk": bulk,
+               "replay_equals_direct": direct, "replay_equals_eager": eager}
+        for name in ("program", "eager"):
+            w = traced[name]
+            mid = sorted(w, key=lambda x: x["wall_ms"])[len(w) // 2]
+            row[name] = {"wall_ms": float(np.median(walls[name])),
+                         "wall_ms_all": walls[name],
+                         "traced_wall_ms": mid["wall_ms"],
+                         "device_busy_ms": mid["device_busy_ms"],
+                         "idle_share": mid["idle_share"],
+                         "busy_ms_all": [x["device_busy_ms"] for x in w],
+                         "top": mid["top"][:6]}
+        by_ef[ef] = row
+        if not (direct and eager):
+            failures.append(f"program ef={ef}: replay equals direct {direct}, eager {eager}")
+        if b1 != static["max_iters"] or bulk != b1:
+            failures.append(f"program ef={ef}: {b1} B1 launches a batch ({bulk} bulk), "
+                            f"not {static['max_iters']}")
+    emit({"phase": "program", "batch": len(q), "programs": len(h._programs),
+          "pool_bytes": h._programs.pool_bytes(), "by_ef": by_ef, "failures": failures})
+    return failures
 
 
 def phase_bench(torch, h, build_s, bf, X, Q, kth):
@@ -997,24 +1134,39 @@ def phase_serve2(torch, h, h2, bf, X, Q, kth10):
     r100 = recall_fp64(X, Q, kth100, oids(h2, ids_h2), 100)
     if r100 < RECALL_K100:
         failures.append(f"recall@100 at ef=192 pool=256 {r100:.4f} < {RECALL_K100}")
+    q1 = torch.as_tensor(Q[:16384], device="cuda")
+    prog = h2.device_program(len(q1), torch.float32,
+                             **search_static(h2, 192, 100, expand=8, pool=256))
     out = {"k100": {"ef": 192, "expand": 8, "pool": 256, "recall_at_100": r100,
                     "ids_equal_built": bool(np.array_equal(ids_h, ids_h2)),
-                    "qps": stream_qps(h2, 100, 192, **kw)}}
+                    "qps": stream_qps(h2, 100, 192, **kw), "unrolled": prog.unrolled,
+                    "replay_equals_direct": replay_equals_direct(torch, prog, q1)}}
     # (b) ef=256 through the unfused (B4) and the fused (B1) codec scores
     for name, fused, counter in (("unfused", False, "codec_scores_gathered"),
                                  ("fused", True, "codec_scores_ids")):
+        # the first call builds the program (66 iterations: the chunked
+        # form); launches and time are read on the second
+        ids, _ = device_search_stream(h2, Q, 10, 256, batch=16384, expand=4,
+                                      allow_fused=fused)
         before = kernel_lib.LAUNCHES[counter]
         torch.cuda.synchronize()
         t0 = time.time()
-        ids, _ = device_search_stream(h2, Q, 10, 256, batch=16384, expand=4,
-                                      allow_fused=fused)
+        device_search_stream(h2, Q, 10, 256, batch=16384, expand=4, allow_fused=fused)
         batch_ms = (time.time() - t0) * 1e3
         iters = kernel_lib.LAUNCHES[counter] - before
+        prog = h2.device_program(len(q1), torch.float32,
+                                 **search_static(h2, 256, 10, allow_fused=fused))
         out[name] = {"ef": 256, "expand": 4,
                      "recall_at_10": recall_fp64(X, Q, kth10, oids(h2, ids), 10),
                      "launches_per_batch": iters, "batch_ms": batch_ms,
                      "ms_per_iteration": batch_ms / max(iters, 1),
-                     "qps": stream_qps(h2, 10, 256, expand=4, allow_fused=fused)}
+                     "qps": stream_qps(h2, 10, 256, expand=4, allow_fused=fused),
+                     "chunks": prog.n_chunks,
+                     "replay_equals_direct": replay_equals_direct(torch, prog, q1)}
+    for name in ("k100", "unfused", "fused"):
+        if not out[name]["replay_equals_direct"]:
+            failures.append(f"serve2 {name}: the program's replay differs from the "
+                            "direct call of its pieces")
     if out["unfused"]["recall_at_10"] < RECALL_EF256:
         failures.append(f"unfused recall@10 at ef=256 {out['unfused']['recall_at_10']:.4f} "
                         f"< {RECALL_EF256}")
@@ -1137,6 +1289,11 @@ def phase_hamming(torch, X, Q, failures, nq=4096, k=10):
         kth, got = hamming_truth(torch, xw, qw, oid, k)
         recall = float(((oid >= 0) & (got <= kth[:, None])).sum() / (nq * k))
         by_ef[ef] = {"recall_at_10": recall, "qps": qps}
+    prog = h.device_program(nq, torch.float32, **search_static(h, 128, k))
+    program_equal = replay_equals_direct(
+        torch, prog, torch.as_tensor(qcodes.astype(np.float32), device="cuda"))
+    if not program_equal:
+        failures.append("hamming: the program's replay differs from the direct call")
     if by_ef[128]["recall_at_10"] < RECALL_HAMMING_EF128:
         failures.append(f"hamming recall@10 at ef=128 {by_ef[128]['recall_at_10']:.4f} "
                         f"< {RECALL_HAMMING_EF128}")
@@ -1148,7 +1305,8 @@ def phase_hamming(torch, X, Q, failures, nq=4096, k=10):
     if not exact:
         failures.append("hamming: scores on the card differ from the numpy oracle")
     return {"n": len(codes), "bits": HAMMING_BITS, "queries": nq, "build_s": build_s,
-            "repair": h._repair_stats, "by_ef": by_ef, "scores_equal_oracle": exact}, h, qcodes
+            "repair": h._repair_stats, "by_ef": by_ef, "scores_equal_oracle": exact,
+            "replay_equals_direct": program_equal}, h, qcodes
 
 
 def _softmax(A):
@@ -1196,16 +1354,28 @@ def _wl2_pair(a, b):
     return float((_W16 * diff * diff).sum())
 
 
-def _wl2_scores(q, C):
+_W16_ON = {}
+
+
+def _w16(device):
+    """The weights on ``device``, copied there once: the search replays the
+    score form inside a CUDA graph, where a copy from the host is refused."""
     import torch
-    w = torch.as_tensor(_W16, device=q.device)
+    w = _W16_ON.get(str(device))
+    if w is None:
+        w = _W16_ON[str(device)] = torch.as_tensor(_W16, device=device)
+    return w
+
+
+def _wl2_scores(q, C):
+    w = _w16(q.device)
     diff = q[:, None, :].float() - C.float()
     return (w * diff * diff).sum(-1)
 
 
 def _wl2_matmul(q, X, x_sqnorms=None):
     import torch
-    w = torch.as_tensor(_W16, device=q.device)
+    w = _w16(q.device)
     qf, Xf = q.float(), X.float()
     g = qf @ (w * Xf).T
     return torch.clamp_min((w * qf * qf).sum(-1)[:, None] - 2.0 * g
@@ -1270,6 +1440,11 @@ def phase_small_metrics(torch, X, Q, seed, failures, k=10):
         oid, qps = stream_timed(torch, h, Qs, k, 64, batch=len(Qs))
         kth = exact_kth(torch, m, Xs, Qs, k)
         recall = recall_oracle(m, Xs, Qs, kth, oid, k)
+        prog = h.device_program(len(Qs), torch.float32, **search_static(h, 64, k))
+        program_equal = replay_equals_direct(
+            torch, prog, torch.as_tensor(np.asarray(Qs, np.float32), device="cuda"))
+        if not program_equal:
+            failures.append(f"{m.name}: the program's replay differs from the direct call")
         oid64, qps64 = stream_timed(torch, h, Qs, k, 64, batch=len(Qs), max_iters=64)
         recall64 = recall_oracle(m, Xs, Qs, kth, oid64, k)
         got = m.scores(torch.as_tensor(Qs[:64].astype(np.float32), device="cuda"),
@@ -1280,7 +1455,7 @@ def phase_small_metrics(torch, X, Q, seed, failures, k=10):
         rel = float((np.abs(got - want) / np.maximum(np.abs(want), 1e-30)).max())
         row = {"n": len(Xs), "d": Xs.shape[1], "build_s": build_s, "qps": qps,
                "recall_at_10": recall, "iters64": {"recall_at_10": recall64, "qps": qps64},
-               "repair": h._repair_stats,
+               "repair": h._repair_stats, "replay_equals_direct": program_equal,
                "scores_max_rel_err": rel}
         if m.name == "Levenshtein":
             row["scores_equal_oracle"] = bool(np.array_equal(got, want))
@@ -1546,6 +1721,24 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     if by_ef[96]["recall_at_10"] < RECALL_SHARDED_EF96:
         failures.append(f"sharded recall@10 at ef=96 {by_ef[96]['recall_at_10']:.4f} "
                         f"< {RECALL_SHARDED_EF96}")
+    # the per-shard programs of ef 96 (chunked: a cap of 128 iterations), on
+    # a warmed batch: B3 launches and wall time, then each shard's replay
+    # against a direct call of its pieces
+    q1 = torch.as_tensor(Q[:16384], device="cuda")
+    _, programs, run = sh._search_fn(k, 96, None, 4, None)
+    progs = programs(len(q1), torch.float32)
+    b3_before = kernel_lib.LAUNCHES["codec_scores"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    run(q1)
+    torch.cuda.synchronize()
+    one_batch = {"wall_ms": (time.time() - t0) * 1e3,
+                 "b3_launches": kernel_lib.LAUNCHES["codec_scores"] - b3_before,
+                 "chunks": [p.n_chunks for p in progs],
+                 "pool_bytes": sum(c.pool_bytes() for c in sh._programs),
+                 "replay_equals_direct": [replay_equals_direct(torch, p, q1) for p in progs]}
+    if not all(one_batch["replay_equals_direct"]):
+        failures.append("sharded: a shard's program replay differs from the direct call")
     ids_b, _ = sh.search_batch(Q[:2048], k, 96)
     batch_equal = bool(np.array_equal(ids_b, stream_ids[:2048]))
     if not batch_equal:
@@ -1597,7 +1790,7 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
           "shard_sizes": [s._nb_point for s in sh.shards],
           "codec": {"M0": M0, "id_rows": 0, "scales": [float(x) for x in scale],
                     "blocks_shape": list(blocks[0].shape)},
-          "by_ef": by_ef, "batch_ids_equal_stream": batch_equal,
+          "by_ef": by_ef, "one_batch_ef96": one_batch, "batch_ids_equal_stream": batch_equal,
           "exact": {"queries": nq, "b2_launches": b2, "recall_at_10": r_exact,
                     "qps": nq / exact_s, "set_equal_bruteforce_frac": eq_bf,
                     "tiled_set_equal_frac": eq_tiled},
@@ -1607,37 +1800,27 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     return failures, sh
 
 
-def profiled(torch, label, fn, top=12):
-    """Run ``fn`` under torch.profiler; emit device busy time by kernel and
-    the device's idle share of the window's wall time. Returns a failure
-    when the kernels' summed time exceeds the wall time (a double count)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
+def profiled(torch, label, fn, top=12, warm=True):
+    """Run ``fn`` under torch.profiler (after one untraced call with
+    ``warm``, so a search program is built before its window); emit device
+    busy time by kernel and the device's idle share of the window's wall
+    time. Returns a failure when the kernels' summed time exceeds the wall
+    time (a double count)."""
+    if warm:
         fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    # kernel-level events only: op-level rows repeat their kernels' time
-    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0
-          and e.device_type == torch.autograd.DeviceType.CUDA]
-    ev.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
-    emit({"phase": "profile", "window": label, "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-          "top": [{"name": e.key[:80], "calls": e.count,
-                   "device_ms": e.self_device_time_total / 1e3} for e in ev[:top]]})
-    if busy_ms > wall_ms:
-        return f"profile {label}: device busy {busy_ms:.1f} ms > wall {wall_ms:.1f} ms"
+    w = trace_window(torch, fn)
+    emit({"phase": "profile", "window": label, **w, "top": w["top"][:top]})
+    if w["device_busy_ms"] > w["wall_ms"]:
+        return (f"profile {label}: device busy {w['device_busy_ms']:.1f} ms > wall "
+                f"{w['wall_ms']:.1f} ms")
     return None
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="env,kernels,build,gt,serve,bench,persist,serve2,native,"
-                            "metrics,ivf,sharded")
+                    default="env,kernels,build,gt,serve,program,bench,persist,serve2,"
+                            "native,metrics,ivf,sharded")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, trace one served batch per operating "
@@ -1677,6 +1860,8 @@ def main():
         if by_ef[96]["recall_at_10"] < RECALL_EF96:
             failures.append(f"recall@10 at ef=96 {by_ef[96]['recall_at_10']:.4f} "
                             f"< {RECALL_EF96}")
+    if h is not None and kth is not None and "program" in phases:
+        failures += phase_program(torch, h, Q)
     if h is not None and kth is not None and "bench" in phases:
         failures += phase_bench(torch, h, build_s, bf, X, Q, kth)
     path1 = dict(kernel_lib.LAUNCHES)
@@ -1705,6 +1890,15 @@ def main():
             r, f = gathered_rows(torch, Q, args.seed, codec, h._nb_point)
             rows += r
             failures += f
+    # the search programs paths 1-2 captured, and the bytes their pools hold,
+    # released before the other paths
+    emit({"phase": "programs", "held": {
+        name: {"programs": len(x._programs), "pool_bytes": x._programs.pool_bytes()}
+        for name, x in (("path1", h), ("path2", h2))
+        if x is not None and x._programs is not None}})
+    for x in (h, h2):
+        if x is not None:
+            x.drop_programs()
     h2 = bf = None
     torch.cuda.empty_cache()
     # ---- path 3: every other metric, counts from zero ----
@@ -1785,7 +1979,7 @@ def main():
         windows.append(("build (a second, traced build of the same index)",
                         lambda: phase_build(torch, X)))
         for label, fn in windows:
-            f = profiled(torch, label, fn)
+            f = profiled(torch, label, fn, warm=not label.startswith("build"))
             if f:
                 failures.append(f)
     # a kernel's launches are read on the path that drives it: B1 and B2 on

@@ -21,10 +21,9 @@ benchmark) with its method, environment knobs, defaults and JSON keys:
     QPS at the chosen ef and at the matched-recall ef (``hnsw99_*``), through
     ``device_search_stream`` (kernel B1 in every beam iteration);
   * the device-resident rate (``hnsw_kernel_qps``): queries already on the
-    card, ``search_program`` over S1 = S2 / 2 and then S2 sub-batches, the
-    median of 5 differential pairs. The port runs the sub-batches in an eager
-    loop, so its host launches and the beam loop's per-iteration ``act.any()``
-    sync are inside this number, where the JAX package times one program.
+    card, the captured search program (``ops/program.py``) replayed over S1 =
+    S2 / 2 and then S2 sub-batches with one synchronize each, the median of 5
+    differential pairs (the JAX package times one ``lax.map`` program).
 
 Prints ONE JSON line on stdout: bench.py's keys plus ``device`` (the card's
 name, ``nvidia-smi``'s power limit and the device count; ``{"name": "cpu"}``
@@ -449,28 +448,27 @@ def build_index(cfg: Config, X, device):
 
 def kernel_rate(cfg: Config, h, Qstream, ef: int) -> Optional[float]:
     """Device-resident QPS at ``ef``: ``[S2, QB, d]`` queries on the card
-    (f16 when ``qdtype`` is set), ``search_program`` over the first S1 = S2/2
-    and then all S2 sub-batches, each run ending in a synchronize; the median
-    of ``(S2 - S1) * QB / (t2 - t1)`` over 5 pairs cancels what both runs pay
-    once. The sub-batches run in an eager loop."""
-    from .ops.beam_search import _resolve_slack, search_program
+    (f16 when ``qdtype`` is set), the captured search program
+    (``Hnsw.device_program``) replayed over the first S1 = S2/2 and then all
+    S2 sub-batches with one synchronize at the end of each run (the
+    reference's ``lax.map`` of the jitted program); the median of ``(S2 - S1)
+    * QB / (t2 - t1)`` over 5 pairs cancels what both runs pay once."""
+    from .ops.beam_search import serve_static
 
-    g, codec = h.device_graph(), h.device_codec()
-    dev = g.vectors.device
+    dev = h.device_graph().vectors.device
     S2, QB = cfg.kernel_s, cfg.qbatch
     S1 = S2 // 2
     qk = np.tile(Qstream, (-(-(S2 * QB) // len(Qstream)), 1))[: S2 * QB]
     qk = torch.as_tensor(qk.reshape(S2, QB, -1)
                          .astype(np.float16 if cfg.qdtype else np.float32), device=dev)
-    mi = max(8, int(ef) // int(cfg.expand) + 2)
-    slack = _resolve_slack(None, codec)
+    # the program the stream serves ef with (``device_search_stream``'s key)
+    prog = h.device_program(QB, qk.dtype, **serve_static(
+        h.device_codec(), ef=ef, knbn=cfg.k, expand=cfg.expand, pool=cfg.pool))
 
     def timed(S):
         t0 = time.time()
         for s in range(S):
-            search_program(g, qk[s], None, ef=int(ef), knbn=cfg.k, expand=cfg.expand,
-                           use_mask=False, max_iters=mi, codec=codec, term_slack=slack,
-                           rerank=None, pool=cfg.pool, seeds=4)
+            prog.run(qk[s])
         sync(dev)
         return time.time() - t0
 
@@ -485,7 +483,7 @@ def kernel_rate(cfg: Config, h, Qstream, ef: int) -> Optional[float]:
         return None
     kqps = float(np.median(diffs))
     log(f"[bench] kernel rate (device-resident, ef={ef}): {kqps:.0f} QPS over "
-        f"{len(diffs)} differential pairs")
+        f"{len(diffs)} differential pairs (spread {(max(diffs) - min(diffs)) / kqps:.1%})")
     return kqps
 
 

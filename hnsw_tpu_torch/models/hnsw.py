@@ -153,6 +153,7 @@ class Hnsw:
         self._device_cache = None
         self._codec_kind = "auto"  # beam-traversal codec policy (set_traversal_codec)
         self._codec_cache = None
+        self._programs = None  # captured search programs (ops/program.py), per version
 
     # ------------------------------------------------------------------ accessors ---
 
@@ -905,6 +906,7 @@ class Hnsw:
             raise ValueError(f"pivot count must be >= 0, got {count}")
         self._pivot_count = count
         self._device_cache = None
+        self.drop_programs()
 
     def set_device_dtype(self, dtype):
         """Vector dtype of the device search path: float32 (default) or bfloat16
@@ -917,6 +919,7 @@ class Hnsw:
             raise ValueError(f"unsupported device dtype {dtype!r}")
         self._device_dtype = dt
         self._device_cache = None
+        self.drop_programs()
 
     def device_graph(self):
         """The dense arrays as tensors on ``self.device`` (cached per version)."""
@@ -947,6 +950,7 @@ class Hnsw:
         self._codec_kind = kind
         self._codec_width = width
         self._codec_cache = None
+        self.drop_programs()
 
     def device_codec(self):
         """The (cached) BeamCodec for the current graph version, or None."""
@@ -971,6 +975,25 @@ class Hnsw:
                                      width=getattr(self, "_codec_width", None)))
             self._codec_cache = cache
         return cache[1]
+
+    def device_program(self, batch: int, dtype, **static):
+        """The captured search program (``ops/program.py``) for a batch of
+        ``batch`` queries of ``dtype`` and ``search_program``'s static
+        arguments, built at first use and cached beside the device graph and
+        the codec: a version bump, a new codec or new pivots drop it."""
+        from ..ops.program import ProgramCache, SearchProgram, program_key
+        g, codec = self.device_graph(), self.device_codec()
+        if self._programs is None:
+            self._programs = ProgramCache()
+        dev = g.vectors.device
+        key = program_key(g, codec, batch, dtype, dev, **static)
+        return self._programs.get(self._version, key, lambda: SearchProgram(
+            g, codec, batch, dtype, dev, **static))
+
+    def drop_programs(self):
+        """Release the captured search programs and their memory pools."""
+        if self._programs is not None:
+            self._programs.clear()
 
     # --------------------------------------------------------------- persistence ----
 

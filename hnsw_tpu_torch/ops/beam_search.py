@@ -13,12 +13,16 @@ A batch of queries advances in lock-step; per iteration each query
   4. merges beam and candidates into the best ``ef``.
 
 Termination follows the reference's rule (nearest unexpanded candidate
-farther than the worst kept result). The loop runs up to ``max_iters`` and
-stops as soon as every query is done; the TPU package's unrolled fixed-length
-loop (a Mosaic compile constraint, ``max_iters <= 48``) and its 8/128
-alignment gate on the kernels are gone: both codec kernels serve every loop
-length and shape, and ``allow_fused`` — which the JAX package derives from
-``max_iters <= 48`` — is the caller's switch here. Revisit tests are
+farther than the worst kept result). An iteration is three pieces
+(``beam_setup``, ``beam_step``, ``beam_finish``; ``search_begin`` and
+``search_end`` around them): the eager ``search_program`` runs up to
+``max_iters`` iterations and stops as soon as every query is done, and
+``ops/program.py`` captures the same pieces as the device program the serving
+entry points replay (one graph up to 48 iterations, as the reference
+unrolls; chunks above). The 8/128 alignment gate on the kernels is gone: both
+codec kernels serve every loop length and shape, and ``allow_fused`` — which
+the JAX package derives from ``max_iters <= 48`` — is the caller's switch
+here. Revisit tests are
 sorted-membership lookups (``torch.searchsorted``) instead of [B, K, H]
 broadcast compares; the answers are the same.
 
@@ -191,6 +195,167 @@ def exact_rerank(metric_name, vectors, sqnorms, q, ids, k: int):
     return torch.where(v < INF, out_ids, -1), v
 
 
+def beam_iters(ef: int, expand: int, max_iters: Optional[int] = None) -> int:
+    """The beam loop's iteration cap: ``max_iters``, or the reference's default
+    ``max(16, 4*ef // expand + 32)``."""
+    if max_iters is None:
+        return max(16, (4 * int(ef)) // int(expand) + 32)
+    return int(max_iters)
+
+
+class BeamState:
+    """One batch's beam loop between iterations: the tensors an iteration
+    replaces (``CARRY``; the history ring ``hist`` is written in place) and
+    what every iteration reads (queries, tables, codec, static sizes)."""
+
+    CARRY = ("done", "beam_ids", "beam_d", "res_ids", "res_d", "pool_ids", "pool_d")
+
+
+def beam_setup(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
+               start_dists, *, ef: int, expand: int = 4, mask=None, active=None,
+               max_iters: Optional[int] = None, codec=None, term_slack: float = 1.0,
+               pool: int = 0, allow_fused: bool = True) -> BeamState:
+    """The beam loop's set-up (arguments as ``beam_search_layer``): the
+    start beams, the reservoir, the history ring and the query norms."""
+    st = BeamState()
+    B, d = q.shape
+    cap1, M = tbl_ids.shape
+    dev = q.device
+    E = int(expand)
+    st.max_iters = beam_iters(ef, E, max_iters)
+    st.n_slots = min(st.max_iters, (2 * ef) // E + 16)
+    H = E * max(st.n_slots, 1)
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=dev)
+    if start_ids.ndim == 1:
+        start_ids = start_ids[:, None]
+        start_dists = start_dists[:, None]
+    S = start_ids.shape[1]
+    assert S <= ef and (not pool or S <= int(pool)), (S, ef, pool)
+    start_ids = start_ids.to(torch.int32)
+    start_dists = start_dists.to(torch.float32)
+    start_ok = active[:, None] & (start_ids >= 0)
+    pad_ids = torch.full((B, ef - S), -1, dtype=torch.int32, device=dev)
+    pad_d = torch.full((B, ef - S), INF, device=dev)
+    st.beam_ids = torch.cat([torch.where(start_ok, start_ids, -1), pad_ids], dim=1)
+    st.beam_d = torch.cat([torch.where(start_ok, start_dists, INF), pad_d], dim=1)
+    st.use_mask = mask is not None
+    st.res_ids = st.res_d = st.pool_ids = st.pool_d = None
+    if st.use_mask:
+        start_pass = start_ok & mask[torch.clamp(start_ids, 0, cap1 - 1).long()]
+        st.res_ids = torch.cat([torch.where(start_pass, start_ids, -1), pad_ids], dim=1)
+        st.res_d = torch.cat([torch.where(start_pass, start_dists, INF), pad_d], dim=1)
+    st.R = R = int(pool)
+    if R:
+        seed_ok = start_pass if st.use_mask else start_ok
+        st.pool_ids = torch.cat([torch.where(seed_ok, start_ids, -1),
+                                 torch.full((B, R - S), -1, dtype=torch.int32, device=dev)], 1)
+        st.pool_d = torch.cat([torch.where(seed_ok, start_dists, INF),
+                               torch.full((B, R - S), INF, device=dev)], 1)
+    st.hist = torch.full((B, H), -2, dtype=torch.int32, device=dev)  # -2 matches nothing
+    st.done = ~start_ok.any(dim=1)
+    qf = q.to(torch.float32)
+    st.qsq = (qf * qf).sum(-1)[:, None]
+    st.qnorm = torch.sqrt(torch.clamp_min(st.qsq, 1e-20))
+    # the kernel's id output replaces the table gather when the codec blocks
+    # carry this table's rows
+    st.codec_ids = (allow_fused and codec is not None and codec.id_rows > 0
+                    and codec.M0 == M and codec.blocks.dtype == torch.int8)
+    st.metric_name, st.vectors, st.sqnorms, st.tbl_ids = metric_name, vectors, sqnorms, tbl_ids
+    st.q, st.mask, st.codec, st.allow_fused = q, mask, codec, allow_fused
+    st.ef, st.E, st.M, st.K, st.cap1 = ef, E, M, E * M, cap1
+    st.term_slack = term_slack
+    return st
+
+
+def beam_select(st: BeamState):
+    """Step 1 of an iteration: the E nearest unexpanded beam entries
+    (expanded == in the ring) and the termination test. Returns (step_done,
+    act, sel_d, pos)."""
+    beam_exp = _member(st.beam_ids, st.hist)
+    cand_d = torch.where(beam_exp | (st.beam_ids < 0), INF, st.beam_d)
+    sel_d, pos = smallest(cand_d, st.E)
+    nearest_d = sel_d[:, 0]
+    worst = st.beam_d[:, st.ef - 1]
+    if st.term_slack == 1.0:
+        thresh = worst
+    else:
+        thresh = torch.where(torch.isfinite(worst),
+                             worst + (st.term_slack - 1.0) * worst.abs(), INF)
+    step_done = st.done | (nearest_d == INF) | (nearest_d > thresh)
+    return step_done, ~step_done, sel_d, pos
+
+
+def beam_expand(st: BeamState, it: int, step_done, act, sel_d, pos):
+    """Steps 2-5 of iteration ``it`` (a Python int, so the ring slot is a
+    static slice): log the selected entries in the history ring, score their
+    neighbourhoods, suppress revisits and merge into the beams."""
+    B, E, M, K, cap1 = st.beam_ids.shape[0], st.E, st.M, st.K, st.cap1
+    # 2. log them in the history ring and fetch their neighbourhoods
+    sel_ok = act[:, None] & (sel_d < INF)
+    src = torch.gather(st.beam_ids, 1, pos)
+    slot = (it % st.n_slots) * E
+    st.hist[:, slot:slot + E] = torch.where(sel_ok, src, -2)
+    src_c = torch.clamp(src, 0, cap1 - 1)
+    sc = None
+    if st.codec is not None:
+        sc, nbr = scores_codec(st.codec, st.q, src_c, st.qsq, st.qnorm, st.allow_fused)
+    if not st.codec_ids:
+        nbr = st.tbl_ids[src_c.long()].reshape(B, K)
+    valid = sel_ok[:, :, None].expand(B, E, M).reshape(B, K) & (nbr >= 0)
+    # 3. revisit suppression: beam, history ring, intra-step duplicates
+    in_beam = _member(nbr, st.beam_ids)
+    in_hist = _member(nbr, st.hist)
+    dup = _first_occurrence_dups(nbr, valid)
+    valid = valid & ~in_beam & ~in_hist & ~dup
+    nbr_c = torch.where(valid, nbr, cap1 - 1).long()
+    # 4. exact f32 scores when there is no codec
+    if sc is None:
+        sc = scores_gathered(st.metric_name, st.q, st.vectors[nbr_c], st.sqnorms[nbr_c])
+    sc = torch.where(valid, sc, INF)
+    new_ids = torch.where(valid, nbr, -1)
+    # 5. merge into the beams
+    st.beam_ids, st.beam_d = _merge_beam(st.beam_ids, st.beam_d, new_ids, sc, st.ef)
+    if st.use_mask:
+        passf = valid & st.mask[nbr_c]
+        st.res_ids, st.res_d = _merge_beam(st.res_ids, st.res_d,
+                                           torch.where(passf, nbr, -1),
+                                           torch.where(passf, sc, INF), st.ef)
+    if st.R:
+        c_ids = torch.where(passf, nbr, -1) if st.use_mask else new_ids
+        c_d = torch.where(passf, sc, INF) if st.use_mask else sc
+        st.pool_ids, st.pool_d = _merge_beam(st.pool_ids, st.pool_d, c_ids, c_d, st.R)
+    st.done = step_done
+
+
+def beam_step(st: BeamState, it: int):
+    """Iteration ``it`` with no host read. Once every query is done it
+    changes no output: ``done`` is sticky, so nothing is selected or valid,
+    every merge keeps its (sorted) beam, and the ring's -2 writes are read by
+    no later selection that could act."""
+    beam_expand(st, it, *beam_select(st))
+
+
+def beam_run(st: BeamState):
+    """The eager loop: up to ``max_iters`` iterations, stopping at the first
+    in which every query is done (one host read per iteration)."""
+    for it in range(st.max_iters):
+        sel = beam_select(st)
+        if not bool(sel[1].any()):
+            break  # every query done: the rest of the iteration is a no-op
+        beam_expand(st, it, *sel)
+
+
+def beam_finish(st: BeamState):
+    """The loop's outputs: the (filtered) result beam, and the deduplicated
+    reservoir when there is one."""
+    out_ids, out_d = (st.res_ids, st.res_d) if st.use_mask else (st.beam_ids, st.beam_d)
+    if st.R:
+        pool_ids, pool_d = _dedup_pairs(st.pool_ids, st.pool_d)
+        return out_ids, out_d, pool_ids, pool_d
+    return out_ids, out_d
+
+
 def beam_search_layer(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
                       start_dists, *, ef: int, expand: int = 4,
                       mask=None, active=None, max_iters: Optional[int] = None,
@@ -214,108 +379,15 @@ def beam_search_layer(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
 
     Returns (beam_ids [B,ef], beam_dists [B,ef]) ascending (the filtered
     result beam under ``mask``), plus (pool_ids, pool_dists) when ``pool``.
+    The loop is eager (``beam_run``); ``ops/program.py`` replays the same
+    pieces as a fixed-trip program.
     """
-    B, d = q.shape
-    cap1, M = tbl_ids.shape
-    dev = q.device
-    E = int(expand)
-    K = E * M
-    if max_iters is None:
-        max_iters = max(16, (4 * ef) // E + 32)
-    n_slots = min(int(max_iters), (2 * ef) // E + 16)
-    H = E * max(n_slots, 1)
-
-    if active is None:
-        active = torch.ones((B,), dtype=torch.bool, device=dev)
-    if start_ids.ndim == 1:
-        start_ids = start_ids[:, None]
-        start_dists = start_dists[:, None]
-    S = start_ids.shape[1]
-    assert S <= ef and (not pool or S <= int(pool)), (S, ef, pool)
-    start_ids = start_ids.to(torch.int32)
-    start_dists = start_dists.to(torch.float32)
-    start_ok = active[:, None] & (start_ids >= 0)
-    pad_ids = torch.full((B, ef - S), -1, dtype=torch.int32, device=dev)
-    pad_d = torch.full((B, ef - S), INF, device=dev)
-    beam_ids = torch.cat([torch.where(start_ok, start_ids, -1), pad_ids], dim=1)
-    beam_d = torch.cat([torch.where(start_ok, start_dists, INF), pad_d], dim=1)
-    use_mask = mask is not None
-    if use_mask:
-        start_pass = start_ok & mask[torch.clamp(start_ids, 0, cap1 - 1).long()]
-        res_ids = torch.cat([torch.where(start_pass, start_ids, -1), pad_ids], dim=1)
-        res_d = torch.cat([torch.where(start_pass, start_dists, INF), pad_d], dim=1)
-    R = int(pool)
-    if R:
-        seed_ok = start_pass if use_mask else start_ok
-        pool_ids = torch.cat([torch.where(seed_ok, start_ids, -1),
-                              torch.full((B, R - S), -1, dtype=torch.int32, device=dev)], 1)
-        pool_d = torch.cat([torch.where(seed_ok, start_dists, INF),
-                            torch.full((B, R - S), INF, device=dev)], 1)
-    hist = torch.full((B, H), -2, dtype=torch.int32, device=dev)  # -2 matches nothing
-    done = ~start_ok.any(dim=1)
-    qf = q.to(torch.float32)
-    qsq = (qf * qf).sum(-1)[:, None]
-    qnorm = torch.sqrt(torch.clamp_min(qsq, 1e-20))
-    # the kernel's id output replaces the table gather when the codec blocks
-    # carry this table's rows
-    codec_ids = (allow_fused and codec is not None and codec.id_rows > 0
-                 and codec.M0 == M and codec.blocks.dtype == torch.int8)
-
-    for it in range(int(max_iters)):
-        # 1. the E nearest unexpanded beam entries (expanded == in the ring)
-        beam_exp = _member(beam_ids, hist)
-        cand_d = torch.where(beam_exp | (beam_ids < 0), INF, beam_d)
-        sel_d, pos = smallest(cand_d, E)
-        nearest_d = sel_d[:, 0]
-        worst = beam_d[:, ef - 1]
-        if term_slack == 1.0:
-            thresh = worst
-        else:
-            thresh = torch.where(torch.isfinite(worst),
-                                 worst + (term_slack - 1.0) * worst.abs(), INF)
-        step_done = done | (nearest_d == INF) | (nearest_d > thresh)
-        act = ~step_done
-        if not bool(act.any()):
-            break  # every query done: the rest of the iteration is a no-op
-        # 2. log them in the history ring and fetch their neighbourhoods
-        sel_ok = act[:, None] & (sel_d < INF)
-        src = torch.gather(beam_ids, 1, pos)
-        slot = (it % n_slots) * E
-        hist[:, slot:slot + E] = torch.where(sel_ok, src, -2)
-        src_c = torch.clamp(src, 0, cap1 - 1)
-        sc = None
-        if codec is not None:
-            sc, nbr = scores_codec(codec, q, src_c, qsq, qnorm, allow_fused)
-        if not codec_ids:
-            nbr = tbl_ids[src_c.long()].reshape(B, K)
-        valid = sel_ok.repeat_interleave(M, dim=1) & (nbr >= 0)
-        # 3. revisit suppression: beam, history ring, intra-step duplicates
-        in_beam = _member(nbr, beam_ids)
-        in_hist = _member(nbr, hist)
-        dup = _first_occurrence_dups(nbr, valid)
-        valid = valid & ~in_beam & ~in_hist & ~dup
-        nbr_c = torch.where(valid, nbr, cap1 - 1).long()
-        # 4. exact f32 scores when there is no codec
-        if sc is None:
-            sc = scores_gathered(metric_name, q, vectors[nbr_c], sqnorms[nbr_c])
-        sc = torch.where(valid, sc, INF)
-        new_ids = torch.where(valid, nbr, -1)
-        # 5. merge into the beams
-        beam_ids, beam_d = _merge_beam(beam_ids, beam_d, new_ids, sc, ef)
-        if use_mask:
-            passf = valid & mask[nbr_c]
-            res_ids, res_d = _merge_beam(res_ids, res_d, torch.where(passf, nbr, -1),
-                                         torch.where(passf, sc, INF), ef)
-        if R:
-            c_ids = torch.where(passf, nbr, -1) if use_mask else new_ids
-            c_d = torch.where(passf, sc, INF) if use_mask else sc
-            pool_ids, pool_d = _merge_beam(pool_ids, pool_d, c_ids, c_d, R)
-        done = step_done
-    out_ids, out_d = (res_ids, res_d) if use_mask else (beam_ids, beam_d)
-    if R:
-        pool_ids, pool_d = _dedup_pairs(pool_ids, pool_d)
-        return out_ids, out_d, pool_ids, pool_d
-    return out_ids, out_d
+    st = beam_setup(metric_name, vectors, sqnorms, tbl_ids, q, start_ids, start_dists,
+                    ef=ef, expand=expand, mask=mask, active=active, max_iters=max_iters,
+                    codec=codec, term_slack=term_slack, pool=pool,
+                    allow_fused=allow_fused)
+    beam_run(st)
+    return beam_finish(st)
 
 
 def _best_neighbour(metric_name, vectors, sqnorms, tbl, q, pivot, act):
@@ -387,15 +459,27 @@ def _resolve_slack(term_slack, codec) -> float:
     return DEFAULT_CODEC_SLACK if codec is not None else 1.0
 
 
-def search_program(g, q, mask, *, ef: int, knbn: int, expand: int, use_mask: bool,
-                   max_iters=None, codec=None, term_slack: float = 1.0,
-                   rerank: Optional[int] = None, pool: Optional[int] = None,
-                   seeds: int = 1, allow_fused: bool = True):
-    """Full production search (reference ``search_filter``,
-    ``src/hnsw.rs:1487-1599``): entry from one matmul over the pivot set (or
-    the greedy descent on small graphs), the layer-0 beam (through the codec
-    when given), then an exact f32 rerank of the beam or the pool."""
-    q = q.to(torch.float32)
+def search_iters(ef: int, knbn: int, expand: int, max_iters=None,
+                 pool: Optional[int] = None) -> int:
+    """The beam loop's iteration cap for ``search_program``'s arguments."""
+    P = 0 if pool is None else max(int(pool), knbn)
+    return beam_iters(ef if P else max(ef, knbn), expand, max_iters)
+
+
+class SearchState:
+    """One batch between ``search_begin`` and ``search_end``: the beam loop's
+    state (``beam``) and what the rerank reads."""
+
+
+def search_begin(g, q, mask, *, ef: int, knbn: int, expand: int, use_mask: bool,
+                 max_iters=None, codec=None, term_slack: float = 1.0,
+                 rerank: Optional[int] = None, pool: Optional[int] = None,
+                 seeds: int = 1, allow_fused: bool = True) -> SearchState:
+    """The search's prologue: entry from one matmul over the pivot set (or the
+    greedy descent on small graphs), then the layer-0 beam's set-up."""
+    s = SearchState()
+    s.g, s.q = g, q.to(torch.float32)
+    q = s.q
     B = q.shape[0]
     layer0 = next((l for l, ne in enumerate(g.layer_nonempty) if ne), 0)
     if g.pivot_ids is not None:
@@ -421,23 +505,64 @@ def search_program(g, q, mask, *, ef: int, knbn: int, expand: int, use_mask: boo
            else torch.full((g.cap1, 1), -1, dtype=torch.int32, device=q.device))
     if codec is not None and codec.M0 < tbl.shape[1]:
         tbl = tbl[:, :codec.M0].contiguous()  # width-capped codec: same slice
-    P = 0 if pool is None else max(int(pool), knbn)
-    ef_t = ef if P else max(ef, knbn)
-    out = beam_search_layer(
-        g.metric_name, g.vectors, g.sqnorms, tbl,
-        q, pivot, d0, ef=ef_t, expand=expand, max_iters=max_iters,
-        mask=mask if use_mask else None, codec=codec, term_slack=term_slack,
-        pool=P, allow_fused=allow_fused)
-    if P:
+    s.P = 0 if pool is None else max(int(pool), knbn)
+    s.ef_t = ef if s.P else max(ef, knbn)
+    s.knbn, s.rerank, s.codec = knbn, rerank, codec
+    s.beam = beam_setup(g.metric_name, g.vectors, g.sqnorms, tbl, q, pivot, d0,
+                        ef=s.ef_t, expand=expand, max_iters=max_iters,
+                        mask=mask if use_mask else None, codec=codec,
+                        term_slack=term_slack, pool=s.P, allow_fused=allow_fused)
+    return s
+
+
+def search_end(s: SearchState):
+    """The search's epilogue: the beam's outputs, then the exact f32 rerank of
+    the beam or the pool (with a codec or a pool). Returns (ids, dists)
+    [B, knbn]."""
+    out = beam_finish(s.beam)
+    if s.P:
         _, _, ids, dists = out
     else:
         ids, dists = out
-    if codec is not None or P:
-        R = ids.shape[1] if rerank is None else max(int(rerank), knbn)
+    g, knbn = s.g, s.knbn
+    if s.codec is not None or s.P:
+        R = ids.shape[1] if s.rerank is None else max(int(s.rerank), knbn)
         R = min(R, ids.shape[1])
-        ids, dists = exact_rerank(g.metric_name, g.vectors, g.sqnorms, q,
-                                  ids[:, :R], min(max(ef_t, knbn, P), R))
+        ids, dists = exact_rerank(g.metric_name, g.vectors, g.sqnorms, s.q,
+                                  ids[:, :R], min(max(s.ef_t, knbn, s.P), R))
     return ids[:, :knbn], dists[:, :knbn]
+
+
+def search_program(g, q, mask, *, ef: int, knbn: int, expand: int, use_mask: bool,
+                   max_iters=None, codec=None, term_slack: float = 1.0,
+                   rerank: Optional[int] = None, pool: Optional[int] = None,
+                   seeds: int = 1, allow_fused: bool = True):
+    """Full production search (reference ``search_filter``,
+    ``src/hnsw.rs:1487-1599``): entry from one matmul over the pivot set (or
+    the greedy descent on small graphs), the layer-0 beam (through the codec
+    when given), then an exact f32 rerank of the beam or the pool. This is
+    the eager form, one host read per beam iteration; ``ops/program.py``
+    captures the same pieces (``search_begin``, ``beam_step``,
+    ``search_end``) as the device program the serving entry points replay."""
+    s = search_begin(g, q, mask, ef=ef, knbn=knbn, expand=expand, use_mask=use_mask,
+                     max_iters=max_iters, codec=codec, term_slack=term_slack,
+                     rerank=rerank, pool=pool, seeds=seeds, allow_fused=allow_fused)
+    beam_run(s.beam)
+    return search_end(s)
+
+
+def serve_static(codec, *, ef: int, knbn: int, expand: int = 4, max_iters=None,
+                 term_slack: float | None = None, rerank: int | None = None,
+                 pool: int | None = None, seeds: int = 4, allow_fused: bool = True,
+                 use_mask: bool = False) -> dict:
+    """``search_program``'s static arguments as the serving entry points
+    derive them (``max_iters`` ``max(8, ef // expand + 2)``, the codec's
+    termination slack): the key of the program they replay."""
+    if max_iters is None:
+        max_iters = max(8, int(ef) // int(expand) + 2)
+    return dict(ef=int(ef), knbn=int(knbn), expand=int(expand), use_mask=bool(use_mask),
+                max_iters=int(max_iters), term_slack=_resolve_slack(term_slack, codec),
+                rerank=rerank, pool=pool, seeds=int(seeds), allow_fused=bool(allow_fused))
 
 
 def _device_mask(hnsw, g, filter):
@@ -453,15 +578,15 @@ def device_search_stream(hnsw, queries: np.ndarray, knbn: int, ef: int,
                          filter=None, pool: int | None = None, seeds: int = 4,
                          allow_fused: bool = True):
     """Pipelined serving over a host query stream: batch i+1 uploads and
-    batch i-1 comes back while batch i is searched. Returns (ids, dists) over
-    all queries (internal ids, -1 padded). ``query_dtype="f16"`` sends the
-    queries as float16 (all device math stays f32). ``allow_fused`` as in
-    ``beam_search_layer``."""
+    batch i-1 comes back while batch i is searched by the index's search
+    program (``Hnsw.device_program``: captured on the card, built for the
+    full and the tail batch before the stream's threads start). Returns (ids,
+    dists) over all queries (internal ids, -1 padded). ``query_dtype="f16"``
+    sends the queries as float16 (all device math stays f32). ``allow_fused``
+    as in ``beam_search_layer``."""
     from .stream import pipelined_stream, upload_batch, fetch_host
     from ..utils.profiling import PROFILER
 
-    if max_iters is None:
-        max_iters = max(8, int(ef) // int(expand) + 2)
     q = np.asarray(queries, np.float32)
     if q.ndim == 1:
         q = q[None, :]
@@ -472,23 +597,27 @@ def device_search_stream(hnsw, queries: np.ndarray, knbn: int, ef: int,
     nq = q.shape[0]
     g = hnsw.device_graph()
     codec = hnsw.device_codec()
-    slack = _resolve_slack(term_slack, codec)
     mask = _device_mask(hnsw, g, filter) if filter is not None else None
     out_i = np.full((nq, knbn), -1, np.int64)
     out_d = np.full((nq, knbn), np.inf, np.float32)
     work = [(s, min(s + batch, nq)) for s in range(0, nq, batch)]
     dev = g.vectors.device
+    # the programs of the full and the tail batch, built before the stream's
+    # threads start: a capture refuses the uploader's pinned copies
+    dtype = torch.from_numpy(q[:0]).dtype
+    static = serve_static(codec, ef=ef, knbn=knbn, expand=expand, max_iters=max_iters,
+                          term_slack=term_slack, rerank=rerank, pool=pool, seeds=seeds,
+                          allow_fused=allow_fused, use_mask=filter is not None)
+    programs = {we - ws: hnsw.device_program(we - ws, dtype, **static)
+                for ws, we in work}
 
     def _upload(w):
         ws, we = w
         return upload_batch(q[ws:we], dev)
 
     def _dispatch(w, staged):
-        return fetch_host(search_program(
-            g, staged.wait(), mask, ef=int(ef), knbn=int(knbn),
-            expand=int(expand), use_mask=filter is not None,
-            max_iters=max_iters, codec=codec, term_slack=slack, rerank=rerank,
-            pool=pool, seeds=seeds, allow_fused=allow_fused))
+        x = staged.wait()
+        return fetch_host(programs[x.shape[0]].run(x, mask))
 
     def _fetch(w, out):
         ws, we = w
@@ -509,9 +638,8 @@ def device_search_batch(hnsw, queries: np.ndarray, knbn: int, ef: int, filter=No
                         term_slack: float | None = None, pool: int | None = None,
                         seeds: int = 4, allow_fused: bool = True):
     """Host wrapper: snapshot the graph (cached), build the filter mask, run
-    the search, return numpy (internal ids [B,knbn] -1-padded, dists)."""
-    if max_iters is None:
-        max_iters = max(8, int(ef) // int(expand) + 2)
+    the index's search program for this batch (``Hnsw.device_program``),
+    return numpy (internal ids [B,knbn] -1-padded, dists)."""
     q = np.asarray(queries, np.float32)
     if q.ndim == 1:
         q = q[None, :]
@@ -521,12 +649,11 @@ def device_search_batch(hnsw, queries: np.ndarray, knbn: int, ef: int, filter=No
     g = hnsw.device_graph()
     codec = hnsw.device_codec()
     mask = _device_mask(hnsw, g, filter) if filter is not None else None
-    ids, dists = search_program(
-        g, torch.as_tensor(q, device=g.vectors.device), mask, ef=int(ef),
-        knbn=int(knbn), expand=int(expand), use_mask=filter is not None,
-        max_iters=max_iters, codec=codec,
-        term_slack=_resolve_slack(term_slack, codec), pool=pool, seeds=seeds,
-        allow_fused=allow_fused)
+    prog = hnsw.device_program(q.shape[0], torch.float32, **serve_static(
+        codec, ef=ef, knbn=knbn, expand=expand, max_iters=max_iters,
+        term_slack=term_slack, pool=pool, seeds=seeds, allow_fused=allow_fused,
+        use_mask=filter is not None))
+    ids, dists = prog.run(torch.as_tensor(q, device=g.vectors.device), mask)
     ids = ids.cpu().numpy().astype(np.int64)
     dists = dists.cpu().numpy()
     ids[~np.isfinite(dists)] = -1

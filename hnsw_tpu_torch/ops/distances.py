@@ -332,7 +332,10 @@ class UserMetric(Metric):
     ``matmul_scores`` (``[B,d] x [N,d] (+ sqnorms) -> [B,N]``), which the exact
     engine and the pivot entry use. Without ``scores`` the index runs the
     serial host path (``mode="auto"``). Names must be unique per process when
-    a torch form is attached."""
+    a torch form is attached. On the card the search replays ``scores`` (and
+    the pivot entry ``matmul_scores``) inside a captured CUDA graph
+    (``ops/program.py``): a form must stay on the device, with no host read
+    and no tensor made from host data on each call, or the capture raises."""
 
     def __init__(self, fn: Callable, name: str = "DistPtr",
                  scores: Optional[Callable] = None,

@@ -1,0 +1,325 @@
+"""The search as one device program: ``search_program`` captured in CUDA
+graphs, the counterpart of ``jax.jit(search_program)``
+(``hnsw_tpu/ops/beam_search.py:632``).
+
+A ``SearchProgram`` is built once per static key (``program_key``), as
+``jax.jit`` compiles once per set of static arguments and shapes: the index's
+device state (its version and the identity of its ``GraphArrays`` and
+``BeamCodec``), the batch and query dtype, every static argument of
+``search_program`` and the device. Its shape follows the reference's own gate
+(``beam_search.py:353-358``):
+
+  * ``max_iters <= UNROLL_MAX``: one graph holds the entry, every beam
+    iteration (each at its static index, so the history ring's slot is a
+    static slice) and the exact rerank; no host read happens inside. This is
+    the reference's unrolled loop.
+  * above: a head graph (entry and beam set-up), one graph per chunk of
+    ``CHUNK`` iterations and a tail graph (finish and rerank). The host reads
+    ``done.all()`` once per chunk and skips the chunks left once every query
+    is done: the reference's ``lax.while_loop`` at chunk granularity.
+
+An iteration after every query is done changes no output (``beam_step``), so
+a program answers bit for bit what the eager ``search_program`` answers.
+
+Building runs the pieces once on a side stream (the warm-up: it builds the
+kernels with nvcc at first use and sets the kernels' cached launch plans),
+then captures each graph into the program's own memory pool. A capture
+launches nothing, so the launch counters (``kernel_lib.LAUNCHES``) are put
+back after it and the launches it recorded are added on every replay. A
+failed capture raises: nothing falls back to the eager search on the card.
+
+A call copies the caller's queries (and filter mask) into the program's
+static inputs on the current stream, replays the graphs there and clones the
+outputs right after, so the next replay cannot overwrite a batch that a
+fetcher thread is still copying.
+
+On the CPU the same pieces run in the same order on every call, without
+capture, so the CPU tests exercise the program's structure.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import gc
+from collections import OrderedDict
+from typing import Optional
+
+import torch
+
+from . import kernel_lib
+from .beam_search import BeamState, beam_step, search_begin, search_end, search_iters
+
+# The reference unrolls the beam loop up to this many iterations and takes
+# its while_loop above (beam_search.py:353-358); the program follows the same
+# gate: one graph up to it, chunk graphs above.
+UNROLL_MAX = 48
+# Beam iterations per chunk graph. The chunked form serves the sharded search,
+# whose cap (4*ef//E + 32: 128 at ef 96) is about 4x the ~30 iterations a batch
+# needs: chunks of 8 stop at most 7 iterations past the last query's end (a
+# quarter of the work needed) for one host read per 8 iterations.
+CHUNK = 8
+# Programs an index keeps, least recently used dropped first. Each holds its
+# graphs' memory pool, the eager search's peak, until dropped: 1.1-1.9 GB at
+# B=16384 on 200k rows, several GB at 1M (the entry's sort of [B, pivots]).
+MAX_PROGRAMS = 8
+# The share of a card's memory one index's programs may hold; past it the
+# least recently used are dropped (before a build, room is kept for one more
+# program as large as the largest held).
+POOL_SHARE = 0.25
+
+
+class Piece:
+    """One piece of a program. With a ``graph``, ``fn`` is captured into it
+    once (inside ``capture(graph)``) and ``replay`` replays the graph and adds
+    the launches the capture counted, which the capture itself leaves
+    uncounted. Without one (the CPU), ``replay`` runs ``fn``. A captured
+    piece keeps no ``fn`` (a method of its program), so a dropped program is
+    freed at once, not by the cycle collector."""
+
+    def __init__(self, fn, graph=None, capture=None):
+        self.fn, self.graph, self.launches = fn, graph, {}
+        if graph is None:
+            return
+        before = dict(kernel_lib.LAUNCHES)
+        try:
+            with capture(graph):
+                fn()
+        finally:
+            counted = dict(kernel_lib.LAUNCHES)
+            kernel_lib.LAUNCHES.update(before)
+        self.fn = None
+        self.launches = {k: v - before[k] for k, v in counted.items() if v != before[k]}
+
+    def replay(self):
+        if self.graph is None:
+            self.fn()
+            return
+        self.graph.replay()
+        for k, v in self.launches.items():
+            kernel_lib.LAUNCHES[k] += v
+
+
+def program_key(g, codec, batch: int, dtype, device, **static) -> tuple:
+    """What a program is built for: the device state's identity, the batch
+    shape and dtype, the static arguments and the device. The program holds
+    ``g`` and ``codec``, so their ids are not reused while it lives."""
+    return (id(g), id(codec), int(batch), str(dtype), str(torch.device(device)),
+            tuple(sorted(static.items())))
+
+
+class SearchProgram:
+    """``search_program`` for one static key, as CUDA graphs on the card (the
+    pieces alone on the CPU). ``run(q, mask)`` answers one batch;
+    ``start``/``step``/``finished``/``result`` let a caller interleave several
+    programs chunk by chunk (the sharded search).
+
+    ``graph_factory`` and ``capture`` stand in for ``torch.cuda.CUDAGraph``
+    and ``torch.cuda.graph`` (the tests pass stubs)."""
+
+    def __init__(self, g, codec, batch: int, dtype, device, *, ef: int, knbn: int,
+                 expand: int, use_mask: bool, max_iters=None, term_slack: float = 1.0,
+                 rerank: Optional[int] = None, pool: Optional[int] = None,
+                 seeds: int = 1, allow_fused: bool = True,
+                 graph_factory=None, capture=None):
+        dev = torch.device(device)
+        self.g, self.codec, self.device = g, codec, dev
+        self.kw = dict(ef=int(ef), knbn=int(knbn), expand=int(expand),
+                       use_mask=bool(use_mask), max_iters=max_iters, codec=codec,
+                       term_slack=term_slack, rerank=rerank, pool=pool, seeds=int(seeds),
+                       allow_fused=bool(allow_fused))
+        self.iters = search_iters(ef, knbn, expand, max_iters, pool)
+        self.unrolled = self.iters <= UNROLL_MAX
+        self.q = torch.zeros((int(batch), g.vectors.shape[1]), dtype=dtype, device=dev)
+        self.mask = (torch.zeros((g.cap1,), dtype=torch.bool, device=dev)
+                     if use_mask else None)
+        self._state = self._carry = self._out = None
+        spans = ([(0, self.iters)] if self.unrolled else
+                 [(lo, min(lo + CHUNK, self.iters)) for lo in range(0, self.iters, CHUNK)])
+        self._flags = [None] * len(spans)
+        if self.unrolled:
+            fns = [self._whole]
+        else:
+            fns = ([self._begin]
+                   + [functools.partial(self._chunk, j, lo, hi)
+                      for j, (lo, hi) in enumerate(spans)]
+                   + [self._end])
+        self.pool_bytes = 0
+        if dev.type == "cuda" or graph_factory is not None:
+            pieces = self._capture_all(fns, graph_factory, capture)
+        else:
+            pieces = [Piece(fn) for fn in fns]
+        if self.unrolled:
+            self._head, self._chunks, self._tail = pieces[0], [], None
+        else:
+            self._head, self._chunks, self._tail = pieces[0], pieces[1:-1], pieces[-1]
+
+    # -- the pieces (each reads and writes the program's attributes, so a
+    #    captured piece and a piece run on every call see the same state)
+
+    def _begin(self):
+        self._state = search_begin(self.g, self.q, self.mask, **self.kw)
+        if not self.unrolled:
+            beam = self._state.beam
+            self._carry = {f: getattr(beam, f) for f in BeamState.CARRY
+                           if getattr(beam, f) is not None}
+
+    def _iterate(self, lo: int, hi: int):
+        for it in range(lo, hi):
+            beam_step(self._state.beam, it)
+
+    def _chunk(self, j: int, lo: int, hi: int):
+        self._iterate(lo, hi)
+        beam = self._state.beam
+        for f, buf in self._carry.items():  # back into the head's buffers
+            buf.copy_(getattr(beam, f))
+            setattr(beam, f, buf)
+        self._flags[j] = beam.done.all()
+
+    def _end(self):
+        # copied, so that the tail graph is never empty (without a codec or
+        # a pool the outputs are views of the beam)
+        self._out = tuple(t.clone() for t in search_end(self._state))
+
+    def _whole(self):
+        self._begin()
+        self._iterate(0, self.iters)
+        self._end()
+
+    # -- building
+
+    def _capture_all(self, fns, graph_factory, capture):
+        on_card = self.device.type == "cuda"
+        if graph_factory is None:
+            graph_factory = torch.cuda.CUDAGraph
+        ctx = torch.cuda.device(self.device) if on_card else contextlib.nullcontext()
+        with ctx:
+            side = None
+            if on_card:
+                cur = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(self.device)  # warm-up and capture stream
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):  # the warm-up
+                    for fn in fns:
+                        fn()
+                cur.wait_stream(side)
+                self._state = self._carry = self._out = None
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(self.device)
+            pool = []
+
+            @contextlib.contextmanager
+            def in_pool(graph):
+                with torch.cuda.graph(graph, pool=pool[0] if pool else None, stream=side):
+                    yield
+                if not pool:
+                    pool.append(graph.pool())
+
+            # the cycle collector stays off while capturing: a collection
+            # could destroy another program's graph, which CUDA refuses while
+            # a stream captures
+            gc.collect()
+            gc.disable()
+            try:
+                pieces = [Piece(fn, graph_factory(), capture or in_pool) for fn in fns]
+            finally:
+                gc.enable()
+            if on_card:
+                self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        return pieces
+
+    # -- running
+
+    def start(self, q, mask=None):
+        """Copy the batch (and mask) into the static inputs; replay the head."""
+        self.q.copy_(q)
+        if self.mask is not None:
+            self.mask.copy_(mask)
+        self._head.replay()
+
+    @property
+    def n_chunks(self) -> int:
+        return len(self._chunks)
+
+    def step(self, j: int):
+        self._chunks[j].replay()
+
+    def finished(self, j: int) -> bool:
+        """Whether every query was done after chunk ``j`` (a host read)."""
+        return bool(self._flags[j])
+
+    def result(self):
+        """Replay the tail; (ids, dists) cloned out of the program's pool."""
+        if self._tail is not None:
+            self._tail.replay()
+        ids, dists = self._out
+        return ids.clone(), dists.clone()
+
+    def run(self, q, mask=None):
+        """One batch: (ids [B, knbn], dists [B, knbn]), as ``search_program``."""
+        self.start(q, mask)
+        for j in range(self.n_chunks):
+            self.step(j)
+            if self.finished(j):
+                break
+        return self.result()
+
+
+def search_fixed(g, q, mask, **kw):
+    """The program's pieces called directly, without capture: the entry,
+    every beam iteration up to the cap with no host read, the rerank
+    (``kw`` as ``search_program``'s). The replay's reference on the card."""
+    s = search_begin(g, q, mask, **kw)
+    for it in range(s.beam.max_iters):
+        beam_step(s.beam, it)
+    return search_end(s)
+
+
+class ProgramCache:
+    """The programs of one index, keyed by ``program_key``: at most
+    ``MAX_PROGRAMS``, holding at most ``share`` of a card's memory in their
+    pools, least recently used dropped first, all dropped when the index's
+    ``tag`` (its version) changes or on ``clear``. A captured graph holds raw
+    pointers to the tensors it was captured on, so a program of an older
+    device state must never replay."""
+
+    def __init__(self, share: float = POOL_SHARE):
+        self._progs: OrderedDict = OrderedDict()
+        self._tag = None
+        self.share = share
+
+    def get(self, tag, key, build) -> SearchProgram:
+        if tag != self._tag:
+            self.clear()
+            self._tag = tag
+        prog = self._progs.get(key)
+        if prog is not None:
+            self._progs.move_to_end(key)
+            return prog
+        room = max((p.pool_bytes for p in self._progs.values()), default=0)
+        self._drop_oldest(lambda: (len(self._progs) >= MAX_PROGRAMS
+                                   or self.pool_bytes() + room > self._budget()), keep=0)
+        prog = self._progs[key] = build()
+        self._drop_oldest(lambda: self.pool_bytes() > self._budget(), keep=1)
+        return prog
+
+    def _drop_oldest(self, over, keep: int):
+        while len(self._progs) > keep and over():
+            self._progs.popitem(last=False)
+
+    def _budget(self) -> float:
+        dev = next((p.device for p in self._progs.values() if p.device.type == "cuda"), None)
+        if dev is None:
+            return float("inf")
+        return self.share * torch.cuda.get_device_properties(dev).total_memory
+
+    def clear(self):
+        self._progs.clear()
+
+    def __len__(self):
+        return len(self._progs)
+
+    def pool_bytes(self) -> int:
+        """Bytes the cached programs' memory pools hold on the card."""
+        return sum(p.pool_bytes for p in self._progs.values())

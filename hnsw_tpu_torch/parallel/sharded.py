@@ -14,17 +14,21 @@ on one card, or on the CPU in the tests).
     shared geometry, subgraphs being independent;
   * **search**: every shard runs the single-card search program (the int8
     codec without id rows, so kernel B3 scores each beam iteration, then the
-    exact rerank); each shard's (local id, distance) rows are copied to
-    ``devices[0]`` and merged there by a stable sort, which takes the place of
-    the mesh's ``all_gather`` and replicated sort. External ids stay int64 on
-    the host and are mapped after the fetch;
+    exact rerank), captured per shard on its device (``ops/program.py``; the
+    chunked form, the cap being ``4*ef//E + 32``) and replayed chunk by chunk
+    across the shards, one host read of each shard's ``done`` per chunk;
+    each shard's (local id, distance) rows are copied to ``devices[0]`` and
+    merged there by a stable sort, which takes the place of the mesh's
+    ``all_gather`` and replicated sort. External ids stay int64 on the host
+    and are mapped after the fetch;
   * **exact search**: every shard scans its slice, through the packed exact
     scan (kernel B2) over a bf16 copy or a tiled running top-k, and the same
     merge follows.
 
 Left out, as TPU habits: the batch padding to a multiple of 8, ``pick_tn``
 (the scan takes the port's ``SCAN_TN``/``scan_acc`` geometry), the codec's
-M0 padding and width rounding to 8, and the program caches. Kept: stable
+M0 padding and width rounding to 8. The program cache is per shard
+(``ProgramCache``), dropped with a new graph version or codec. Kept: stable
 sorts (ties to the lower position) and the mesh build's use of the
 in-degree guarantee whatever ``HNSW_BUILD_PROTECT`` and ``HNSW_MIN_INDEG``
 say (a fault of the reference, ``sharded.py:209``, reproduced on purpose).
@@ -44,10 +48,11 @@ import torch
 from ..filter import filter_mask
 from ..io.hnswio import HnswIo
 from ..models.hnsw import Hnsw
-from ..ops.beam_search import _resolve_slack, search_program, smallest
+from ..ops.beam_search import _resolve_slack, smallest
 from ..ops.distances import get_metric
 from ..ops.graph_arrays import BeamCodec, _round_up
 from ..ops.insert_rounds import HostBuildState, RoundConfig, _next_pow2, round_step
+from ..ops.program import POOL_SHARE, ProgramCache, SearchProgram
 from ..ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk, refine_width, scan_acc
 from ..ops.stream import fetch_host, pipelined_stream, upload_batch
 from ..utils.device import resolve_device
@@ -121,6 +126,10 @@ class ShardedHnsw:
         self._codec_width = None
         self._codec_state = None
         self._scan_state = None
+        # per shard: its captured search programs (ops/program.py), the
+        # shards of one card sharing an index's share of its memory
+        self._programs = [ProgramCache(POOL_SHARE / self.devices.count(d))
+                          for d in self.devices]
         self._placement = None  # lazy {external id: shard}; rebuilt after inserts
         self._mesh_rounds = 0  # steps of the last mesh build
 
@@ -147,6 +156,8 @@ class ShardedHnsw:
         self._codec_kind = kind
         self._codec_width = width
         self._codec_state = None
+        for c in self._programs:
+            c.clear()
 
     # ----------------------------------------------------------------- build -----
 
@@ -368,25 +379,45 @@ class ShardedHnsw:
     # ---------------------------------------------------------------- search -----
 
     def _search_fn(self, knbn, ef, filter, expand, rerank):
+        """The sharded search for these arguments: ``(st, programs, run)``,
+        where ``programs(batch, dtype)`` builds (or finds) every shard's
+        search program for a batch shape and ``run(q)`` answers a batch."""
         st = self._build_state()
         codec = self.device_codec_arrays()
-        tail = []
         if codec is not None:
             blocks, bsq, scale, M0, dim = codec
-            tail = [blocks, bsq, scale]
         else:
             M0 = dim = 0
-        if filter is not None:
-            tail.append(self._masks(filter, st))
+        masks = self._masks(filter, st) if filter is not None else [None] * self.n_shards
         cfg = _SearchCfg(num_layers=st.num_layers, layer_nonempty=st.layer_nonempty,
                          cap1=st.cap1, entry_level=st.entry_level,
                          metric=self.shards[0].metric.name, ef=int(ef), knbn=int(knbn),
                          expand=int(expand), use_codec=codec is not None, codec_M0=M0,
                          codec_dim=dim, use_mask=filter is not None,
                          rerank=None if rerank is None else int(rerank))
-        fn = _sharded_search_fn(self.devices, cfg)
-        fixed = [st.vectors, st.sqnorms, st.n_live, st.layer_ids, st.entry]
-        return st, (lambda q: fn(*fixed, q, *tail))
+        tag = (tuple(s._version for s in self.shards), self._codec_kind, self._codec_width)
+
+        def build(s, batch, dtype):
+            g = _GA(vectors=st.vectors[s], sqnorms=st.sqnorms[s], levels=None,
+                    layer_ids=st.layer_ids[s], layer_dists=(), entry=st.entry[s],
+                    n=cfg.cap1 - 1, cap1=cfg.cap1, entry_level=cfg.entry_level,
+                    layer_nonempty=cfg.layer_nonempty, metric_name=cfg.metric,
+                    num_layers=cfg.num_layers)
+            c = (BeamCodec(blocks=blocks[s], blocks_sq=bsq[s], scale=scale[s], M0=M0,
+                           dim=dim, metric_name=cfg.metric) if codec is not None else None)
+            return SearchProgram(g, c, batch, dtype, self.devices[s], ef=cfg.ef,
+                                 knbn=cfg.knbn, expand=cfg.expand, use_mask=cfg.use_mask,
+                                 term_slack=_resolve_slack(None, c), rerank=cfg.rerank)
+
+        def programs(batch, dtype):
+            return [self._programs[s].get(tag, (int(batch), str(dtype), cfg),
+                                          lambda s=s: build(s, batch, dtype))
+                    for s in range(self.n_shards)]
+
+        def run(q):
+            return _sharded_search(self.devices, programs(q.shape[0], q.dtype),
+                                   st.n_live, q, masks, cfg.knbn)
+        return st, programs, run
 
     def search_batch(self, queries, knbn: int, ef: int, filter=None,
                      expand: int = 4, rerank: Optional[int] = None):
@@ -397,7 +428,7 @@ class ShardedHnsw:
         q = np.asarray(queries, np.float32)
         if q.ndim == 1:
             q = q[None]
-        st, run = self._search_fn(knbn, ef, filter, expand, rerank)
+        st, _, run = self._search_fn(knbn, ef, filter, expand, rerank)
         return self._to_external(st, *run(torch.as_tensor(q, device=self.devices[0])))
 
     def _scan_arrays(self, tn: int):
@@ -438,10 +469,13 @@ class ShardedHnsw:
         elif query_dtype not in (None, "f32", "float32", np.float32):
             raise ValueError(f"unsupported query_dtype {query_dtype!r}")
         nq = q.shape[0]
-        st, run = self._search_fn(knbn, ef, filter, expand, rerank)
+        st, programs, run = self._search_fn(knbn, ef, filter, expand, rerank)
         out_i = np.full((nq, knbn), -1, np.int64)
         out_d = np.full((nq, knbn), np.inf, np.float32)
         work = [(s, min(s + int(batch), nq)) for s in range(0, nq, int(batch))]
+        dtype = torch.from_numpy(q[:0]).dtype
+        for size in {we - ws for ws, we in work}:  # built before the threads start
+            programs(size, dtype)
 
         def _upload(w):
             return upload_batch(q[w[0]:w[1]], self.devices[0])
@@ -722,44 +756,36 @@ class _GA:
     pivot_ids: object = None
 
 
-def _sharded_search_fn(devices, cfg: _SearchCfg):
-    """The sharded search: the single-card search program on every shard —
-    the blocked int8 codec (kernel B3 on the card), the exact f32 rerank and
-    the in-search filter mask — then the merge on ``devices[0]``."""
-
-    def local_search(vectors, sqnorms, n_live, layer_ids, entry, q, codec, mask):
-        g = _GA(vectors=vectors, sqnorms=sqnorms, levels=None, layer_ids=layer_ids,
-                layer_dists=(), entry=entry, n=cfg.cap1 - 1, cap1=cfg.cap1,
-                entry_level=cfg.entry_level, layer_nonempty=cfg.layer_nonempty,
-                metric_name=cfg.metric, num_layers=cfg.num_layers)
-        ids, dists = search_program(
-            g, q, mask, ef=cfg.ef, knbn=cfg.knbn, expand=cfg.expand,
-            use_mask=cfg.use_mask, codec=codec,
-            term_slack=_resolve_slack(None, codec), rerank=cfg.rerank)
-        # an empty or padded shard can answer a valid-looking id (the entry
-        # against zero padding): mask by the live count before the merge (with
-        # a codec, the rerank has already restored exact f32 distances, so the
-        # merge compares exact values across the shards' scales)
-        valid = (ids >= 0) & (ids < n_live)
-        return torch.where(valid, ids, -1), torch.where(valid, dists, INF)
-
-    def search(vectors, sqnorms, n_live, layer_ids, entry, q, *opt):
-        opt = list(opt)
-        codecs = [None] * len(devices)
-        if cfg.use_codec:
-            blocks, bsq, scale = opt[:3]
-            opt = opt[3:]
-            codecs = [BeamCodec(blocks=blocks[s], blocks_sq=bsq[s], scale=scale[s],
-                                M0=cfg.codec_M0, dim=cfg.codec_dim, metric_name=cfg.metric)
-                      for s in range(len(devices))]
-        masks = opt.pop(0) if cfg.use_mask else [None] * len(devices)
-        qs = _per_device(q, devices)
-        ids, dists = [], []
-        for s, dev in enumerate(devices):
-            with _on(dev):
-                i, d = local_search(vectors[s], sqnorms[s], n_live[s], layer_ids[s],
-                                    entry[s], qs[s], codecs[s], masks[s])
-            ids.append(i)
-            dists.append(d)
-        return _merge_shard_topk(ids, dists, cfg.knbn, devices[0])
-    return search
+def _sharded_search(devices, programs, n_live, q, masks, knbn):
+    """The sharded search: every shard's search program (the blocked int8
+    codec, kernel B3 on the card, the exact f32 rerank and the in-search
+    filter mask) on its device, chunk by chunk: chunk j on every shard still
+    running, then one host read of each one's ``done``, so no shard's
+    launches wait on another's read (the point of the reference's
+    ``shard_map``). Then the merge on ``devices[0]``, which waits on the
+    shards' streams, not on the host."""
+    qs = _per_device(q, devices)
+    for p, dev, qq, m in zip(programs, devices, qs, masks):
+        with _on(dev):
+            p.start(qq, m)
+    live = list(range(len(programs)))
+    for j in range(programs[0].n_chunks):
+        for s in live:
+            with _on(devices[s]):
+                programs[s].step(j)
+        live = [s for s in live if not programs[s].finished(j)]
+        if not live:
+            break
+    ids, dists = [], []
+    for p, dev, n in zip(programs, devices, n_live):
+        with _on(dev):
+            i, d = p.result()
+            # an empty or padded shard can answer a valid-looking id (the entry
+            # against zero padding): mask by the live count before the merge
+            # (with a codec, the rerank has already restored exact f32
+            # distances, so the merge compares exact values across the
+            # shards' scales)
+            valid = (i >= 0) & (i < n)
+            ids.append(torch.where(valid, i, -1))
+            dists.append(torch.where(valid, d, INF))
+    return _merge_shard_topk(ids, dists, knbn, devices[0])
