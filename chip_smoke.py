@@ -19,6 +19,18 @@ Phases, each printing one JSON line. Path 1 (build and serve):
            (``hnsw_tpu_torch.bench.make_dataset``, rounded to float32)
   gt       BruteForceIndex (kernel B2) top-64 pool + fp64 host refine over
            4096 queries; exact-scan recall@10
+  exact_program  the exact engine as a captured program (``ScanProgram``,
+           ``ops/program.py``) on gt's BruteForceIndex, batch 2048: the k=10
+           replay bit-equal to a direct ``l2_topk`` call and one B2 launch
+           ("wgmma") a replay; one 2048-query batch through ``search_batch``
+           against the eager form (the same pipeline with ``l2_topk`` called
+           op by op): wall median of 3 in turns, device busy from one profiler
+           window each, and the same for the program alone on a resident
+           batch; 65,536 f32 queries streamed through ``search_batch``, both
+           forms, median QPS over 5 blocks and spread; a filtered search (the
+           even ids) equal to the eager one, every id passing; below the scan
+           (20k rows, L2 and Cosine) the matmul route's program (``TopkProgram``)
+           equal to its direct call; the pools
   serve    device_search_stream (batch 16384, expand 4, int8 codec, pivots)
            at ef 32/64/96, k=10: recall@10 scored in fp64, streamed QPS; B1
            launches a batch read on a warmed call (the first call for a
@@ -54,7 +66,9 @@ Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
            warmed call); each search's program replay equal to a direct call
            of its pieces on one batch; (c) exact
            k=100 over 4096 queries with ``packed=False`` (kernel B5) against
-           ``packed=True`` (B2): id sets, recall@100; streamed QPS of each
+           ``packed=True`` (B2): id sets, recall@100; streamed QPS of each;
+           each one's scan program replayed against the direct call, one
+           launch of its kernel ("wgmma") a replay
 
   kernels  B1, B3 and B4 against their plain versions on the codec the serve
            phases read (its M0 and id rows), B=16384, L2/Dot/Cosine: B1 and
@@ -97,8 +111,15 @@ must equal ``search_batch``'s on the same f16-rounded queries);
 ``AutoIndex("L2")`` must choose the scan, launch B2 (every launch of its
 search through the tensor-core entry) and answer as ``BruteForceIndex``;
 ``AutoIndex("Cosine")`` must choose IVF (recall@10 at nprobe 32 against exact
-cosine). After path 4's counts are read, B2 against its plain version at the
-exact engine's shape there (the shuffled 1M corpus in bf16, B=2048) and where
+cosine). The IVF search and the scan replay captured programs (``IvfProgram``,
+``ScanProgram``): at nprobe 16/32/64 the 512-query program's replay must equal
+a direct call of its pieces and ``search_batch``'s ids and recall the eager
+form's; one 4096-query batch at nprobe 32, program against eager (wall and
+busy); a filtered search equal to the eager one; ``AutoIndex("L2")``'s scan
+program replay equal to its direct call, one B2 a replay; every engine's
+pools, released before the next path. After path 4's counts are read, B2
+against its plain version at the exact engine's shape there (the shuffled 1M
+corpus in bf16, B=2048) and where
 the exact scan's misses come from: the engine's recall through the kernel,
 the plain version, an f32 scan and a wider overfetch.
 
@@ -108,7 +129,9 @@ built with ``mode="mesh"``; ``search_stream`` with the per-shard int8 codec (no
 id rows: kernel B3) at ef 64 and 96 (k=10, batch 16384), ``search_batch`` on
 2048 queries (ids equal to the stream's), ``exact_search_batch`` in ``auto`` mode
 (the packed scan, kernel B2, on every shard) against path 1's exact engine and
-in ``tiled`` mode, and the manifest dump reloaded onto the card (equal ids);
+in ``tiled`` mode (each shard's scan a captured program: its replay equal to
+a direct call, one B2 a replay in the packed mode, B2 once a shard on a warmed
+call), and the manifest dump reloaded onto the card (equal ids);
 one warmed batch at ef 96 through the per-shard programs (chunked: B3
 launches, wall ms, each shard's replay equal to a direct call of its pieces).
 After path 5's counts are read, B3 against its plain version on shard 0's
@@ -126,10 +149,12 @@ and a second build with torch.profiler (device time by kernel, the device's
 idle share of the window); a window whose kernel time exceeds its wall time
 fails the run.
 
-The launch counters are set to 0 just before each path and read just after
-it: B1 and B2 must have run on path 1, B4, B5 (and B1, B2) on path 2, B2 on
-path 4 (path 3 runs no kernel of the repo's: its metrics have no TPU kernel),
-B3 and B2 and no other kernel on path 5, the two scans through their
+The B2 and B5 rows also carry ``launches_per_replay``: the launches one replay
+of each exact program counted, by path (one scan launch each, or the run fails). The launch counters are set to 0 just
+before each path and read just after it: B1 and B2 must have run on path 1,
+B4, B5 (and B1, B2) on path 2, B2 on path 4 (path 3 runs no kernel of the
+repo's: its metrics have no TPU kernel), B3 and B2 and no other kernel on
+path 5, the two scans through their
 tensor-core entry, B1 and B3 through "bulk" and B4 through "stream" on every
 launch, and the comparison launches fall outside the windows. The kernels line
 (``{"kernels": [...]}``, all five kernels; ``launches`` is the count on the
@@ -911,6 +936,203 @@ def phase_program(torch, h, Q, k=10):
     return failures
 
 
+EXACT_BATCH = 2048           # the exact engine's batch (BENCH_SCANB)
+EXACT_STREAM_QUERIES = 65_536
+EXACT_STREAM_BLOCKS = 5
+EXACT_BLOCK_S = 0.5
+SMALL_N = 20_000             # below BruteForceIndex.SCAN_MIN_POINTS: the matmul route
+
+
+def call_replay_equals_direct(torch, prog, *xs):
+    """A ``CallProgram``'s replay against a direct call of its function (the
+    same pieces, no capture) on the card: (outputs equal bit for bit, the
+    launches the replay counted by counter)."""
+    from hnsw_tpu_torch.ops import kernel_lib
+
+    before = dict(kernel_lib.LAUNCHES)
+    out_r = prog.run(*xs)
+    launches = {c: v - before[c] for c, v in kernel_lib.LAUNCHES.items() if v != before[c]}
+    out_d = prog.fn(*xs)
+    return all(torch.equal(a, b) for a, b in zip(out_r, out_d)), launches
+
+
+def one_scan_launch(counter):
+    """What one replay of an exact-scan program launches: the kernel once,
+    through its tensor-core entry."""
+    return {counter: 1, f"{counter}.wgmma": 1}
+
+
+def eager_exact_search(bf, queries, knbn, filter=None):
+    """``BruteForceIndex.search_batch`` on its scan as it ran before its
+    programs: the same batches and pipeline (``l2_topk_stream``'s), each
+    batch through ``l2_topk`` called op by op. The eager form the programs
+    are held against and timed beside."""
+    from hnsw_tpu_torch.ops.scan_topk import l2_topk
+    from hnsw_tpu_torch.ops.stream import fetch_host, pipelined_stream, upload_batch
+
+    Xd, xsq, Xscan, perm, acc, _ = bf._scan_device()
+    q = np.atleast_2d(np.asarray(queries, np.float32))
+    nq, kf = len(q), bf._fetch_width(knbn, filter)
+    batch = min(EXACT_BATCH, max(256, nq))
+    out_d = np.empty((nq, kf), np.float32)
+    out_i = np.empty((nq, kf), np.int64)
+
+    def upload(s):
+        qb = q[s:s + batch]
+        if len(qb) < batch:
+            qb = np.concatenate([qb, np.repeat(qb[-1:], batch - len(qb), 0)])
+        return upload_batch(qb, Xd.device)
+
+    def dispatch(s, staged):
+        return fetch_host(l2_topk(staged.wait(), Xd, xsq, kf, Xscan=Xscan,
+                                  overfetch=bf.SCAN_OVERFETCH, acc=acc))
+
+    def fetch(s, out):
+        dd, ii = out.get()
+        n = min(batch, nq - s)
+        out_d[s:s + n], out_i[s:s + n] = dd[:n], ii[:n]
+
+    pipelined_stream(range(0, nq, batch), upload, dispatch, fetch)
+    return bf._finish(out_d, perm[np.clip(out_i, 0, len(perm) - 1)], knbn, filter)
+
+
+def eager_ivf_search(ix, queries, knbn, nprobe, filter=None, chunk=512):
+    """``IvfFlatIndex.search_batch`` as it ran before its programs: each
+    512-query chunk through ``ivf_search`` (route, probe, refine) called op by
+    op and read back to the host."""
+    import torch
+    from hnsw_tpu_torch.models.ivf import ivf_search
+
+    np_eff, kf = ix._probe_plan(knbn, 0, nprobe, filter)
+    q = ix._queries(queries)
+    rows, dists = [], []
+    for s in range(0, len(q), chunk):
+        qs = torch.as_tensor(q[s:s + chunk], device=ix.device)
+        r, d = ivf_search(qs, *ix._built[:5], nprobe=np_eff, kf=kf, metric=ix.metric.name)
+        rows.append(r.cpu().numpy())
+        dists.append(d.cpu().numpy())
+    return ix._finish(np.concatenate(rows), np.concatenate(dists), knbn, filter)
+
+
+def forms_timed(torch, forms, rounds=PROGRAM_ROUNDS):
+    """Each form (name -> fn) timed in turns: wall ms (host clock to the
+    device's end) median of ``rounds``, then one torch.profiler window each
+    (device busy ms, idle share, kernels by time)."""
+    walls = {name: [] for name in forms}
+    for _ in range(rounds):
+        for name, fn in forms.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append((time.time() - t0) * 1e3)
+    out = {}
+    for name, fn in forms.items():
+        w = trace_window(torch, fn)
+        out[name] = {"wall_ms": float(np.median(walls[name])), "wall_ms_all": walls[name],
+                     "traced_wall_ms": w["wall_ms"], "device_busy_ms": w["device_busy_ms"],
+                     "idle_share": w["idle_share"], "top": w["top"][:5]}
+    return out
+
+
+def answers_equal(a, b):
+    return bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+
+
+def even_ids_filter(n):
+    """An id filter keeping about half the corpus: the even external ids."""
+    from hnsw_tpu_torch.filter import SortedIdFilter
+
+    return SortedIdFilter(np.arange(0, n, 2))
+
+
+def filtered_ok(ids, k):
+    """Every returned id passes ``even_ids_filter`` and every row is full."""
+    return bool((ids >= 0).all() and (ids % 2 == 0).all() and ids.shape[1] == k)
+
+
+def phase_exact_program(torch, bf, X, Q, k=10):
+    """The exact engine as a captured program on path 1's ``BruteForceIndex``
+    (200k x 128, kernel B2, batch 2048): the replay of the k=10 key bit-equal
+    to a direct ``l2_topk`` call and one B2 launch (``wgmma``) per replay;
+    one 2048-query batch through ``search_batch`` against the eager form
+    (wall median of 3 in turns, device busy from one profiler window each),
+    and the program alone against its direct call on a resident batch; the
+    stream of 65,536 f32 queries through ``search_batch`` against the eager
+    form (median QPS over 5 blocks, spread; one more pass each with the
+    stream's upload/dispatch/fetch spans); a filtered search (even ids)
+    equal to the eager one, every id passing; below the scan, the matmul
+    route's program (L2 and Cosine on 20k rows) equal to its direct
+    ``_bf_topk`` call; the pools. Returns (failures, the replay's launches)."""
+    from hnsw_tpu_torch import PROFILER, BruteForceIndex, bench
+    from hnsw_tpu_torch.ops.scan_topk import SCAN_GROUP, SCAN_TN, scan_program
+
+    failures = []
+    Xd, xsq, Xscan, perm, acc, programs = bf._scan_device()
+    held = len(programs)
+    prog = scan_program(programs, Xd, xsq, EXACT_BATCH, torch.float32, Xscan=Xscan, k=k,
+                        tn=SCAN_TN, group=SCAN_GROUP, acc=acc,
+                        overfetch=bf.SCAN_OVERFETCH, packed=True)
+    q = torch.as_tensor(Q[:EXACT_BATCH], device="cuda")
+    direct, launches = call_replay_equals_direct(torch, prog, q)
+    if not direct:
+        failures.append("exact program k=10: the replay differs from the direct l2_topk call")
+    if launches != one_scan_launch("scan_topk"):
+        failures.append(f"exact program k=10: a replay launched {launches}, not one B2 "
+                        "through wgmma")
+    Q1 = Q[:EXACT_BATCH]
+    same = answers_equal(bf.search_batch(Q1, k), eager_exact_search(bf, Q1, k))
+    if not same:
+        failures.append("exact program: search_batch differs from the eager search")
+    one_batch = forms_timed(torch, {"program": lambda: bf.search_batch(Q1, k),
+                                    "eager": lambda: eager_exact_search(bf, Q1, k)})
+    resident = forms_timed(torch, {"program": lambda: prog.run(q), "eager": lambda: prog.fn(q)})
+    Qs = np.tile(Q, (-(-EXACT_STREAM_QUERIES // len(Q)), 1))[:EXACT_STREAM_QUERIES]
+    stream = {}
+    for name, fn in (("program", lambda: bf.search_batch(Qs, k)),
+                     ("eager", lambda: eager_exact_search(bf, Qs, k))):
+        qps, spread, blocks, disc = bench.median_blocks(fn, len(Qs), EXACT_STREAM_BLOCKS,
+                                                        EXACT_BLOCK_S)
+        # where one pass's host time goes: the stream's three stages (threads)
+        PROFILER.reset()
+        t0 = time.time()
+        fn()
+        stream[name] = {"qps": qps, "spread": spread, "blocks": blocks, "discarded": disc,
+                        "pass_s": time.time() - t0, "spans": PROFILER.report()}
+    flt = even_ids_filter(len(X))
+    got = bf.search_batch(Q1, k, filter=flt)
+    filtered = {"equal_eager": answers_equal(got, eager_exact_search(bf, Q1, k, filter=flt)),
+                "ids_pass": filtered_ok(got[0], k)}
+    if not all(filtered.values()):
+        failures.append(f"exact program, filtered: {filtered}")
+    # below the scan: the matmul route's program (TopkProgram) on the first
+    # SMALL_N rows, L2 and Cosine
+    matmul_route = {}
+    for metric in ("L2", "Cosine"):
+        small = BruteForceIndex(dist=metric, device="cuda")
+        small.parallel_insert(X[:SMALL_N])
+        small.search_batch(Q1, k)
+        (p,) = small._programs._progs.values()
+        equal_m, launches_m = call_replay_equals_direct(torch, p, q)
+        matmul_route[metric] = {"replay_equals_direct": equal_m, "launches": launches_m,
+                                "pool_bytes": p.pool_bytes}
+        if not equal_m or launches_m or small._use_scan():
+            failures.append(f"exact program below the scan, {metric}: {matmul_route[metric]}")
+        small.drop_programs()
+    emit({"phase": "exact_program", "batch": EXACT_BATCH, "k": k, "packed": True,
+          "programs_before": held, "replay_equals_direct": direct,
+          "launches_per_replay": launches, "search_batch_equals_eager": same,
+          "one_batch": one_batch, "resident_batch": resident,
+          "stream": {"queries": len(Qs), "query_dtype": "f32", **stream},
+          "filtered": filtered, "matmul_route": matmul_route, "programs": len(programs),
+          "pool_bytes": programs.pool_bytes(),
+          "pools": [{"k": p.kw["k"], "batch": p.inputs[0].shape[0],
+                     "dtype": str(p.inputs[0].dtype), "pool_bytes": p.pool_bytes}
+                    for p in programs._progs.values()],
+          "failures": failures})
+    return failures, launches
+
+
 def phase_bench(torch, h, build_s, bf, X, Q, kth):
     """The port's benchmark (``hnsw_tpu_torch.bench``) on path 1's
     index, queries and truth, with no second build: its ef sweep, the exact
@@ -1109,7 +1331,7 @@ def phase_serve2(torch, h, h2, bf, X, Q, kth10):
     """Recall-critical serving from the reloaded index ``h2``."""
     from hnsw_tpu_torch.ops import kernel_lib
     from hnsw_tpu_torch.ops.beam_search import device_search_stream
-    from hnsw_tpu_torch.ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk_stream
+    from hnsw_tpu_torch.ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk_stream, scan_program
 
     failures = []
     Qs = np.concatenate([Q, Q])
@@ -1177,19 +1399,32 @@ def phase_serve2(torch, h, h2, bf, X, Q, kth10):
         failures.append(f"B4 launches per batch {out['unfused']['launches_per_batch']} "
                         f"outside (0, {MAX_ITERS_EF256}]")
     # (c) exact k=100, unpacked (B5) against packed (B2), on the exact
-    # engine's padded corpus
-    Xd, xsq, Xscan, perm, acc = bf._scan_device()
+    # engine's padded corpus, each a replay of its program from the engine's
+    # cache (built by the first call); each program's replay against the
+    # direct l2_topk call, and its launches
+    Xd, xsq, Xscan, perm, acc, programs = bf._scan_device()
     nq = 4096
-    exact = {}
+    exact, replays = {}, {}
+    q2 = torch.as_tensor(Q[:EXACT_BATCH], device="cuda")
     for name, packed in (("unpacked", False), ("packed", True)):
-        kw = dict(tn=SCAN_TN, group=SCAN_GROUP, Xscan=Xscan, acc=acc,
-                  overfetch=bf.SCAN_OVERFETCH, batch=2048, packed=packed)
-        _, idx = l2_topk_stream(Q[:nq], Xd, xsq, 100, **kw)
+        kw = dict(tn=SCAN_TN, group=SCAN_GROUP, acc=acc, overfetch=bf.SCAN_OVERFETCH,
+                  packed=packed)
+        _, idx = l2_topk_stream(Q[:nq], Xd, xsq, 100, Xscan=Xscan, batch=EXACT_BATCH,
+                                programs=programs, **kw)
         torch.cuda.synchronize()
         t0 = time.time()
-        l2_topk_stream(Q[:nq], Xd, xsq, 100, **kw)
+        l2_topk_stream(Q[:nq], Xd, xsq, 100, Xscan=Xscan, batch=EXACT_BATCH,
+                       programs=programs, **kw)
         qps = nq / (time.time() - t0)
         exact[name] = (idx, qps)
+        prog = scan_program(programs, Xd, xsq, EXACT_BATCH, torch.float32, Xscan=Xscan,
+                            k=100, **kw)
+        equal, launches = call_replay_equals_direct(torch, prog, q2)
+        replays[name] = {"replay_equals_direct": equal, "launches_per_replay": launches}
+        counter = "scan_topk" if packed else "scan_topk_unpacked"
+        if not equal or launches != one_scan_launch(counter):
+            failures.append(f"exact k=100 {name}: replay equals direct {equal}, launches "
+                            f"a replay {launches}")
     same = float((np.sort(exact["unpacked"][0], 1) == np.sort(exact["packed"][0], 1))
                  .all(1).mean())
     r_exact = recall_fp64(X, Q, kth100, bf._ids[perm[exact["unpacked"][0]]], 100)
@@ -1200,7 +1435,7 @@ def phase_serve2(torch, h, h2, bf, X, Q, kth10):
     out["exact_k100"] = {"queries": nq, "set_equal_frac": same,
                          "unpacked_recall_at_100": r_exact,
                          "unpacked_qps": exact["unpacked"][1],
-                         "packed_qps": exact["packed"][1]}
+                         "packed_qps": exact["packed"][1], "programs": replays}
     emit({"phase": "serve2", "batch": 16384, "stream_queries": len(Qs), **out,
           "failures": failures})
     return out, failures
@@ -1526,6 +1761,7 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
     index, the queries), (the exact engine, corpus, queries, k-th distances))."""
     from hnsw_tpu_torch import AutoIndex, BruteForceIndex, IvfFlatIndex
     from hnsw_tpu_torch.ops import kernel_lib
+    from hnsw_tpu_torch.ops.scan_topk import SCAN_GROUP, SCAN_TN, scan_program
 
     failures = []
     t0 = time.time()
@@ -1563,6 +1799,33 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
         ix.search_batch(Q, k, nprobe=nprobe)
         by_np[nprobe] = {"recall_at_10": recall_fp64(X, Q, kth, ids, k),
                          "qps": nq / (time.time() - t0)}
+    # the IVF search as a captured program: each nprobe's 512-query program
+    # replayed against a direct call of its pieces (no kernel of the repo's
+    # runs in it), and the whole search_batch against the eager form (the
+    # same chunks through the pieces called op by op): ids and recall equal
+    ivf_programs = {}
+    qd = torch.as_tensor(ix._queries(Q[:512]), device="cuda")
+    for nprobe in (16, 32, 64):
+        prog = ix._program(512, torch.float32, *ix._probe_plan(k, 0, nprobe))
+        equal, launches = call_replay_equals_direct(torch, prog, qd)
+        ids_e, _ = eager_ivf_search(ix, Q, k, nprobe)
+        r_e = recall_fp64(X, Q, kth, ids_e, k)
+        ids_p, _ = ix.search_batch(Q, k, nprobe=nprobe)
+        ivf_programs[nprobe] = {"replay_equals_direct": equal, "launches_per_replay": launches,
+                                "ids_equal_eager": bool(np.array_equal(ids_p, ids_e)),
+                                "eager_recall_at_10": r_e}
+        if not (equal and not launches and ivf_programs[nprobe]["ids_equal_eager"]
+                and r_e == by_np[nprobe]["recall_at_10"]):
+            failures.append(f"ivf program nprobe={nprobe}: {ivf_programs[nprobe]}, recall "
+                            f"{by_np[nprobe]['recall_at_10']}")
+    ivf_one = forms_timed(torch, {"program": lambda: ix.search_batch(Q, k, nprobe=32),
+                                  "eager": lambda: eager_ivf_search(ix, Q, k, 32)})
+    flt = even_ids_filter(n)
+    got = ix.search_batch(Q, k, nprobe=32, filter=flt)
+    ivf_filtered = {"equal_eager": answers_equal(got, eager_ivf_search(ix, Q, k, 32, flt)),
+                    "ids_pass": filtered_ok(got[0], k)}
+    if not all(ivf_filtered.values()):
+        failures.append(f"ivf program, filtered: {ivf_filtered}")
     r = [by_np[p]["recall_at_10"] for p in (16, 32, 64)]
     if not r[0] <= r[1] <= r[2]:
         failures.append(f"ivf recall@10 decreases with nprobe: {r}")
@@ -1596,6 +1859,15 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
         failures.append(f"AutoIndex('L2') chose {eng_l2!r}, not 'scan'")
     if not np.array_equal(ids_a, ids_bf):
         failures.append("AutoIndex('L2') ids differ from BruteForceIndex's")
+    Xa, xsqa, Xsa, _, acca, pa = a.engine._scan_device()
+    prog = scan_program(pa, Xa, xsqa, EXACT_BATCH, torch.float32, Xscan=Xsa, k=k,
+                        tn=SCAN_TN, group=SCAN_GROUP, acc=acca,
+                        overfetch=a.engine.SCAN_OVERFETCH, packed=True)
+    auto_equal, auto_launches = call_replay_equals_direct(
+        torch, prog, torch.as_tensor(Q[:EXACT_BATCH], device="cuda"))
+    if not auto_equal or auto_launches != one_scan_launch("scan_topk"):
+        failures.append(f"AutoIndex('L2')'s scan program: replay equals direct {auto_equal}, "
+                        f"launches a replay {auto_launches}")
     # AutoIndex: clustered Cosine -> IVF
     c = AutoIndex("Cosine", device="cuda")
     t0 = time.time()
@@ -1617,21 +1889,31 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
     for name, eng in (("ivf", ix), ("auto L2", a.engine), ("auto Cosine", c.engine)):
         if eng.device.type != "cuda":
             failures.append(f"{name}: the engine is not on the card")
+    # every engine's programs and their pools, released before the next path
+    pools = {name: {"programs": len(eng._programs), "pool_bytes": eng._programs.pool_bytes()}
+             for name, eng in (("exact", bf), ("ivf", ix), ("auto L2", a.engine),
+                               ("auto Cosine", c.engine))}
+    for eng in (bf, ix, a.engine, c.engine):
+        eng.drop_programs()
     emit({"phase": "ivf", "n": n, "d": 128, "queries": nq, "data_s": data_s,
           "truth": "f32 matmul top-64 on the card, refined in fp64",
           "exact_recall_at_10": exact_recall, "exact_qps": exact_qps,
           "ivf": {"build_s": build_s, "lists": L, "cap": cap,
                   "padding_share": 1.0 - n / (L * cap), "by_nprobe": by_np,
+                  "programs": ivf_programs, "one_batch_nprobe32": ivf_one,
+                  "filtered": ivf_filtered,
                   "stream": {"nprobe": 32, "batch": 8192, "qps": stream_qps,
                              "ids_equal_search_batch": stream_equal,
                              "ids_equal_f32_batch_frac": float(
                                  (ids_s == ix.search_batch(Q, k, nprobe=32)[0]).all(1).mean())}},
           "auto_l2": {"engine": eng_l2, "insert_build_s": auto_l2_s, "b2_launches": auto_b2,
-                      "ids_equal_bruteforce": bool(np.array_equal(ids_a, ids_bf))},
+                      "ids_equal_bruteforce": bool(np.array_equal(ids_a, ids_bf)),
+                      "replay_equals_direct": auto_equal,
+                      "launches_per_replay": auto_launches},
           "auto_cosine": {"engine": eng_cos, "insert_build_s": auto_cos_s,
                           "lists": c.engine.n_lists, "recall_at_10_nprobe32": r_cos},
-          "failures": failures})
-    return failures, (ix, Q), (bf, X, Q, kth)
+          "pools": pools, "failures": failures})
+    return failures, (ix, Q), (bf, X, Q, kth), auto_launches
 
 
 def scan_on_clustered(torch, bf, X, Q, kth, k=10):
@@ -1646,7 +1928,7 @@ def scan_on_clustered(torch, bf, X, Q, kth, k=10):
     from hnsw_tpu_torch.ops import scan_topk as st
 
     failures = []
-    Xd, xsq, Xs, perm, acc = bf._scan_device()
+    Xd, xsq, Xs, perm, acc, _ = bf._scan_device()
     Bq = 2048
     qs = torch.as_tensor(Q[:Bq], device="cuda").to(torch.bfloat16)
     check = compare_scans(torch, st, kernel_lib, qs, Xs, xsq, acc,
@@ -1689,7 +1971,8 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     """Path 5: ``ShardedHnsw`` with four shards on one card, path 1's corpus
     and graph settings, the mesh build and the per-shard int8 codec (B3), the
     exact search (B2 on every shard), the manifest dump and reload. Returns
-    (failures, the index)."""
+    (failures, the index, each shard's B2 launches a replay of its exact
+    program)."""
     from hnsw_tpu_torch import ShardedHnsw
     from hnsw_tpu_torch.ops import kernel_lib
 
@@ -1743,7 +2026,10 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     batch_equal = bool(np.array_equal(ids_b, stream_ids[:2048]))
     if not batch_equal:
         failures.append("sharded search_batch ids differ from search_stream's")
-    # exact: auto must take the packed scan (B2) on every shard
+    # exact: auto must take the packed scan (B2) on every shard, once a shard
+    # on a warmed call (the first builds every shard's program: a warm-up run
+    # and a capture)
+    sh.exact_search_batch(Q[:nq], k)
     before = kernel_lib.LAUNCHES["scan_topk"]
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1751,7 +2037,8 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     exact_s = time.time() - t0
     b2 = kernel_lib.LAUNCHES["scan_topk"] - before
     if b2 != N_SHARDS:
-        failures.append(f"exact_search_batch(auto) launched B2 {b2} times, not once a shard")
+        failures.append(f"exact_search_batch(auto) launched B2 {b2} times on a warmed "
+                        "call, not once a shard")
     r_exact = recall_fp64(X, Q, kth, ids_e, k)
     eq_bf = float((np.sort(ids_e, 1) == np.sort(ids_bf[:nq], 1)).all(1).mean())
     if r_exact < RECALL_EXACT or eq_bf < SET_EQUAL_EXACT:
@@ -1762,6 +2049,21 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     eq_tiled = float((np.sort(ids_t, 1) == np.sort(ids_e[:2048], 1)).all(1).mean())
     if eq_tiled < SET_EQUAL_EXACT:
         failures.append(f"sharded exact tiled vs auto: set-equal on {eq_tiled:.5f}")
+    # each shard's exact program in both modes: the replay against a direct
+    # call of its scan; B2 once a replay in the packed mode, nothing in the
+    # tiled one (matmuls and sorts)
+    exact_programs = {}
+    for mode, nb, want in (("pallas", nq, one_scan_launch("scan_topk")), ("tiled", 2048, {})):
+        qd = torch.as_tensor(Q[:nb], device="cuda")
+        progs = [next(p for key, p in c._progs.items() if key[:3] == ("exact", mode, nb))
+                 for c in sh._programs]
+        res = [call_replay_equals_direct(torch, p, qd) for p in progs]
+        exact_programs[mode] = {"batch": nb, "replay_equals_direct": [e for e, _ in res],
+                                "launches_per_replay": [l for _, l in res],
+                                "pool_bytes": [p.pool_bytes for p in progs]}
+        if not all(e and l == want for e, l in res):
+            failures.append(f"sharded exact {mode}: a shard's program replay differs from "
+                            f"its direct call or launched other than {want}: {res}")
     # the manifest dump, reloaded onto the card
     from hnsw_tpu_torch.io import hnswio
     routes0 = dict(hnswio.ROUTES)
@@ -1793,11 +2095,11 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
           "by_ef": by_ef, "one_batch_ef96": one_batch, "batch_ids_equal_stream": batch_equal,
           "exact": {"queries": nq, "b2_launches": b2, "recall_at_10": r_exact,
                     "qps": nq / exact_s, "set_equal_bruteforce_frac": eq_bf,
-                    "tiled_set_equal_frac": eq_tiled},
+                    "tiled_set_equal_frac": eq_tiled, "programs": exact_programs},
           "persist": {"file_dump_s": dump_s, "load_s": load_s, "routes": routes,
                       "ids_equal": reload_equal},
           "failures": failures})
-    return failures, sh
+    return failures, sh, exact_programs["pallas"]["launches_per_replay"]
 
 
 def profiled(torch, label, fn, top=12, warm=True):
@@ -1819,8 +2121,8 @@ def profiled(torch, label, fn, top=12, warm=True):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="env,kernels,build,gt,serve,program,bench,persist,serve2,"
-                            "native,metrics,ivf,sharded")
+                    default="env,kernels,build,gt,exact_program,serve,program,bench,persist,"
+                            "serve2,native,metrics,ivf,sharded")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, trace one served batch per operating "
@@ -1851,10 +2153,14 @@ def main():
     kernel_lib.reset_launch_counts()
     h, build_s = phase_build(torch, X) if "build" in phases else (None, None)
     kth = bf = ids_bf = None
+    replays = {}  # B2/B5 launches a replay of an exact program, by path
     if "gt" in phases:
         kth, exact, bf, ids_bf = phase_gt(torch, X, Q)
         if exact < RECALL_EXACT:
             failures.append(f"exact-scan recall@10 {exact:.4f} < {RECALL_EXACT}")
+    if bf is not None and "exact_program" in phases:
+        f, replays["path1 k=10 packed"] = phase_exact_program(torch, bf, X, Q)
+        failures += f
     if h is not None and kth is not None and "serve" in phases:
         by_ef = phase_serve(torch, h, X, Q, kth)
         if by_ef[96]["recall_at_10"] < RECALL_EF96:
@@ -1872,8 +2178,10 @@ def main():
         h2, _, f = phase_persist(torch, h)
         failures += f
     if h2 is not None and kth is not None and "serve2" in phases:
-        _, f = phase_serve2(torch, h, h2, bf, X, Q, kth)
+        out2, f = phase_serve2(torch, h, h2, bf, X, Q, kth)
         failures += f
+        for name, r in out2["exact_k100"]["programs"].items():
+            replays[f"path2 k=100 {name}"] = r["launches_per_replay"]
     path2 = dict(kernel_lib.LAUNCHES)
     if h is not None and kth is not None and "native" in phases:
         failures += phase_native(torch, h, X, Q, kth)
@@ -1894,9 +2202,9 @@ def main():
     # released before the other paths
     emit({"phase": "programs", "held": {
         name: {"programs": len(x._programs), "pool_bytes": x._programs.pool_bytes()}
-        for name, x in (("path1", h), ("path2", h2))
+        for name, x in (("path1", h), ("path2", h2), ("exact", bf))
         if x is not None and x._programs is not None}})
-    for x in (h, h2):
+    for x in (h, h2, bf):
         if x is not None:
             x.drop_programs()
     h2 = bf = None
@@ -1913,7 +2221,7 @@ def main():
     kernel_lib.reset_launch_counts()
     scan4 = None
     if "ivf" in phases:
-        f, ivf, scan4 = phase_ivf(torch, args.seed)
+        f, ivf, scan4, replays["path4 AutoIndex scan"] = phase_ivf(torch, args.seed)
         failures += f
     path4 = dict(kernel_lib.LAUNCHES)
     if scan4 is not None:
@@ -1928,8 +2236,10 @@ def main():
     kernel_lib.reset_launch_counts()
     sh = None
     if kth is not None and "sharded" in phases:
-        f, sh = phase_sharded(torch, X, Q, kth, ids_bf)
+        f, sh, per_shard = phase_sharded(torch, X, Q, kth, ids_bf)
         failures += f
+        for s, launches in enumerate(per_shard):
+            replays[f"path5 shard {s}"] = launches
     path5 = dict(kernel_lib.LAUNCHES)
     if sh is not None and "kernels" in phases:
         blocks, _, scale, _, _ = sh.device_codec_arrays()
@@ -1955,14 +2265,14 @@ def main():
             from hnsw_tpu_torch.ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk_stream
             bf = BruteForceIndex(dist="L2", device="cuda")
             bf.parallel_insert(X)
-            Xd, xsq, Xscan, _, acc = bf._scan_device()
+            Xd, xsq, Xscan, _, acc, programs = bf._scan_device()
             windows.append(("exact k=10 packed, one 2048-query batch",
                             lambda: bf.search_batch(Q[:2048], 10)))
             windows.append(("exact k=100 unpacked, one 2048-query batch",
                             lambda: l2_topk_stream(
                                 Q[:2048], Xd, xsq, 100, tn=SCAN_TN, group=SCAN_GROUP,
                                 Xscan=Xscan, acc=acc, overfetch=bf.SCAN_OVERFETCH,
-                                batch=2048, packed=False)))
+                                batch=2048, packed=False, programs=programs)))
         if ham:
             hh, qc = ham
             windows.append(("hamming serve ef=128, one 4096-query batch",
@@ -2002,8 +2312,16 @@ def main():
                                        "scan_topk_unpacked") if path5[c]}
         if other:
             failures.append(f"path 5 launched kernels other than B3 and B2: {other}")
+    for label, launches in replays.items():
+        scans = launches.get("scan_topk", 0) + launches.get("scan_topk_unpacked", 0)
+        if scans != 1:
+            failures.append(f"{label}: a replay of its exact program launched {scans} "
+                            "scans, not one")
     for r in rows:
         c = r.pop("counter")
+        if r["name"] in ("B2", "B5"):
+            r["launches_per_replay"] = {w: l.get(c, 0) for w, l in replays.items()
+                                        if l.get(c, 0) or r["name"] == "B2"}
         r["launches_by_path"] = {p: cnt[c] for p, cnt in paths.items()}
         r["launches"] = path1[c] or path2[c] or path4[c] or path5[c]
         # every launch of the paths by the entry the comparison went through:

@@ -13,7 +13,8 @@ benchmark) with its method, environment knobs, defaults and JSON keys:
     min(BENCH_QBATCH, 4096) queries, from a top-max(64, 4k) pool of the exact
     scan (f32 queries, bf16 scan, f32 refine; kernel B2) re-scored in fp64 on
     the host, or the full host fp64 oracle (BENCH_GT=host);
-  * the exact engine's median QPS over timed blocks (``median_blocks``);
+  * the exact engine's median QPS over timed blocks (``median_blocks``),
+    each scan batch a replay of its captured program (``ScanProgram``);
   * recall scored in fp64 with a relative 1e-6 tie margin (``recall_fp64``);
   * the build on the device (``Hnsw.parallel_insert(mode="device")``), on the
     host's native core (BENCH_BUILD=native) or a reload (BENCH_LOAD);
@@ -62,6 +63,7 @@ import numpy as np
 import torch
 
 from .ops import kernel_lib
+from .ops.program import ProgramCache
 from .ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk_stream, pad_corpus, scan_acc
 from .utils.device import resolve_device
 
@@ -229,21 +231,24 @@ def device_info(device) -> dict:
 
 def scan_corpus(X: np.ndarray, device):
     """The exact engine's corpus on ``device``: ``(X, |x|^2, bf16 copy, perm,
-    acc)``, the tuple of ``BruteForceIndex._scan_device`` (shuffled padded
-    rows; ``perm`` maps scan row -> row of ``X``)."""
+    acc, programs)``, the tuple of ``BruteForceIndex._scan_device`` (shuffled
+    padded rows; ``perm`` maps scan row -> row of ``X``; ``programs`` the
+    ``ProgramCache`` of the scan's captured programs, one per k and query
+    dtype)."""
     Xp, xsq, perm = pad_corpus(X, tn=SCAN_TN)
     Xd = torch.as_tensor(Xp, device=device)
     return (Xd, torch.as_tensor(xsq, device=device), Xd.to(torch.bfloat16), perm,
-            scan_acc(Xp.shape[0]))
+            scan_acc(Xp.shape[0]), ProgramCache())
 
 
 def exact_ids(scan, queries, k: int, batch: int, query_dtype=None) -> np.ndarray:
     """Row ids of ``X`` of the exact top-``k`` (bf16 scan, kernel B2, then the
-    f32 refine), streamed in batches of ``batch``."""
-    Xd, xsq, Xscan, perm, acc = scan
+    f32 refine), streamed in batches of ``batch``, each batch a replay of the
+    scan's program (the root ``bench.py`` runs the jitted ``pallas_l2_topk``)."""
+    Xd, xsq, Xscan, perm, acc, programs = scan
     _, ids = l2_topk_stream(queries, Xd, xsq, k, tn=SCAN_TN, group=SCAN_GROUP,
                             Xscan=Xscan, overfetch=EXACT_OVERFETCH, acc=acc,
-                            batch=batch, query_dtype=query_dtype)
+                            batch=batch, query_dtype=query_dtype, programs=programs)
     return perm[np.clip(ids, 0, len(perm) - 1)]
 
 
@@ -619,6 +624,8 @@ def main(cfg: Optional[Config] = None) -> dict:
         log(f"[bench] ground truth: exact-scan pool (top-{pool}) + fp64 host refine ...")
         kth = pool_kth(scan, X, Q[:nq_gt], cfg.k, pool, cfg.scanb)
     exact = measure_exact(cfg, scan, X, Q, kth)
+    log(f"[bench] exact programs: {len(scan[5])}, pools "
+        f"{scan[5].pool_bytes() / 2**30:.2f} GiB (released before the build)")
     del scan
     if device.type == "cuda":
         torch.cuda.empty_cache()

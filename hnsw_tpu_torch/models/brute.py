@@ -8,6 +8,11 @@ re-scored in f32. Smaller corpora and metrics with a
 matmul form (L1, Dot, Cosine, user metrics with ``matmul_scores``) take one
 matmul + top-k (``_bf_topk``); the others score the broadcast corpus through
 their gathered form, a chunk of queries at a time.
+
+Both routes replay captured programs (``ops/program.py``: ``ScanProgram``
+and ``TopkProgram``, CUDA graphs on the card), kept in the index's
+``ProgramCache`` and dropped on every insert, as the JAX package runs
+``pallas_l2_topk`` and ``_bf_topk`` jitted.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from ..ops.beam_search import scores_gathered, smallest
 from ..ops.distances import get_metric
+from ..ops.program import ProgramCache, TopkProgram, call_key
 from ..utils.device import resolve_device
 
 # elements of one [queries, N, d] broadcast block of the gathered fallback
@@ -57,6 +63,7 @@ class BruteForceIndex:
         self._ids: Optional[np.ndarray] = None
         self._dev = None
         self._dev_scan = None
+        self._programs = ProgramCache()  # both routes' programs, keyed by call_key
 
     def __len__(self):
         return 0 if self._X is None else len(self._X)
@@ -68,7 +75,16 @@ class BruteForceIndex:
         self._X = v if self._X is None else np.concatenate([self._X, v])
         i = np.array([origin_id], np.int64)
         self._ids = i if self._ids is None else np.concatenate([self._ids, i])
+        self._reset_device()
+
+    def _reset_device(self):
+        # a captured graph holds raw pointers to the tensors it read
         self._dev = self._dev_scan = None
+        self.drop_programs()
+
+    def drop_programs(self):
+        """Release the captured programs and their memory pools."""
+        self._programs.clear()
 
     def parallel_insert(self, data_with_ids, **kw):
         """Add ``(vector, id)`` pairs, a 2-D array (ids = arange), or an
@@ -85,7 +101,7 @@ class BruteForceIndex:
             ids = np.array([int(i) for _, i in data_with_ids], np.int64)
         self._X = X if self._X is None else np.concatenate([self._X, X])
         self._ids = ids if self._ids is None else np.concatenate([self._ids, ids])
-        self._dev = self._dev_scan = None
+        self._reset_device()
 
     def _device(self):
         if self._dev is None:
@@ -105,34 +121,48 @@ class BruteForceIndex:
             Xd = torch.as_tensor(Xp, device=self.device)
             Xscan = None if self.SCAN_DTYPE is None else Xd.to(self.SCAN_DTYPE)
             self._dev_scan = (Xd, torch.as_tensor(xsq, device=self.device),
-                              Xscan, perm, scan_acc(Xp.shape[0]))
+                              Xscan, perm, scan_acc(Xp.shape[0]), self._programs)
         return self._dev_scan
 
     def search_batch(self, queries, knbn: int, ef: int = 0, filter=None):
-        if self._X is None:
+        if self._X is None or len(np.atleast_2d(queries)) == 0:  # no program to run
             q = np.atleast_2d(queries)
             return (np.full((len(q), knbn), -1, np.int64),
                     np.full((len(q), knbn), np.inf, np.float32))
         q = np.atleast_2d(np.asarray(queries, np.float32))
+        kf = self._fetch_width(knbn, filter)
+        if self._use_scan():
+            from ..ops.scan_topk import l2_topk_stream
+            Xd, xsq, Xscan, perm, acc, programs = self._scan_device()
+            d, idx = l2_topk_stream(q, Xd, xsq, kf, Xscan=Xscan,
+                                    overfetch=self.SCAN_OVERFETCH, acc=acc,
+                                    batch=min(2048, max(256, len(q))), programs=programs)
+            idx = perm[np.clip(idx, 0, len(perm) - 1)]
+        else:
+            Xd, xsq = self._device()
+            prog = self._programs.get(
+                None, call_key((Xd, xsq), len(q), torch.float32, self.device, k=kf,
+                               metric=self.metric.name),
+                lambda: TopkProgram(Xd, xsq, len(q), self.device, k=kf,
+                                    metric=self.metric.name))
+            dj, ij = prog.run(torch.as_tensor(q, device=self.device))
+            d = dj.cpu().numpy()
+            idx = ij.cpu().numpy()
+        return self._finish(d, idx, knbn, filter)
+
+    def _fetch_width(self, knbn: int, filter=None) -> int:
+        """Candidates a search fetches: ``k``, or ``kf`` under a filter."""
         k = min(knbn, len(self._X))
         # a filter post-masks the fetched candidates, on both routes: fetch kf
         # so the filtered answer still holds k survivors at moderate
         # selectivity (the JAX package overfetches on its scan only and gives
         # its matmul route k, which leaves filtered rows short)
-        kf = k if filter is None else min(len(self._X), ((4 * k + 63) // 32) * 32)
-        if self._use_scan():
-            from ..ops.scan_topk import l2_topk_stream
-            Xd, xsq, Xscan, perm, acc = self._scan_device()
-            d, idx = l2_topk_stream(q, Xd, xsq, kf, Xscan=Xscan,
-                                    overfetch=self.SCAN_OVERFETCH, acc=acc,
-                                    batch=min(2048, max(256, len(q))))
-            idx = perm[np.clip(idx, 0, len(perm) - 1)]
-        else:
-            Xd, xsq = self._device()
-            dj, ij = _bf_topk(torch.as_tensor(q, device=self.device), Xd, xsq, kf,
-                              self.metric.name)
-            d = dj.cpu().numpy()
-            idx = ij.cpu().numpy()
+        return k if filter is None else min(len(self._X), ((4 * k + 63) // 32) * 32)
+
+    def _finish(self, d, idx, knbn: int, filter=None):
+        """Rows of the corpus and their distances, [B, kf] -> external ids and
+        distances [B, knbn]: the filter's host-side post-mask, then -1/inf
+        padding."""
         ids = self._ids[idx]
         if filter is not None:
             from ..filter import filter_mask
@@ -146,8 +176,8 @@ class BruteForceIndex:
         d = d[:, :knbn]
         if ids.shape[1] < knbn:
             pad = knbn - ids.shape[1]
-            ids = np.concatenate([ids, np.full((len(q), pad), -1, np.int64)], 1)
-            d = np.concatenate([d, np.full((len(q), pad), np.inf, np.float32)], 1)
+            ids = np.concatenate([ids, np.full((len(ids), pad), -1, np.int64)], 1)
+            d = np.concatenate([d, np.full((len(d), pad), np.inf, np.float32)], 1)
         return ids, d
 
     def search(self, data, knbn: int, ef: int = 0, filter=None):

@@ -20,7 +20,12 @@ does; ``index_add_`` on CUDA accumulates with atomics, so centroids may differ
 in their last bits from run to run there. The probe is a Python loop over the
 ``nprobe`` steps: one ``[B, cap, d]`` slab per query per step, merged into a
 running top-``kf``. None of this is a kernel in the JAX package either (plain
-``jnp`` programs), so none is one here.
+``jnp`` programs), so none is one here. The search (route, probe, refine:
+``ivf_search``) replays a captured program (``ops/program.py::IvfProgram``,
+one CUDA graph on the card with the probe steps unrolled), built once per
+batch shape, query dtype, ``nprobe`` and ``kf`` as the reference jits its
+three pieces, kept in the index's ``ProgramCache`` and dropped when the lists
+change.
 
 API-compatible subset of ``Hnsw`` (insert / parallel_insert / search /
 search_batch / parallel_search with filters), for the inner-product metrics
@@ -37,6 +42,7 @@ import torch
 
 from ..ops.beam_search import scores_gathered, scores_matmul, smallest
 from ..ops.distances import get_metric
+from ..ops.program import IvfProgram, ProgramCache, call_key
 from ..utils.device import resolve_device
 
 _IP_METRICS = ("L2", "DistL2", "Dot", "DistDot", "Cosine", "DistCosine")
@@ -176,6 +182,14 @@ def _exact_refine(q, Xf3, xsq3, rows, metric: str):
     return torch.gather(rows, 1, o), dd
 
 
+def ivf_search(q, cent, csq, Xs3, Xf3, xsq3, nprobe: int, kf: int, metric: str):
+    """One batch through route, probe and refine: (packed rows [B, kf],
+    dists [B, kf]). What ``IvfProgram`` captures, and the replay's reference."""
+    pcT = _ivf_route(q, cent, csq, nprobe, metric)
+    rows, _ = _ivf_probe(q, Xs3, xsq3, pcT, kf, metric)
+    return _exact_refine(q, Xf3, xsq3, rows, metric)
+
+
 class IvfFlatIndex:
     """Inverted-file flat index (see the module docstring). API-compatible
     subset of ``Hnsw``; L2, Dot and Cosine. Runs on ``device`` (default
@@ -200,6 +214,7 @@ class IvfFlatIndex:
         self._X: Optional[np.ndarray] = None
         self._ids: Optional[np.ndarray] = None
         self._built = None  # (cent, csq, Xpk_scan, Xpk_f32, xsq, row2idx, cap)
+        self._programs = ProgramCache()  # the search's programs on ``_built``
 
     def __len__(self):
         return 0 if self._X is None else len(self._X)
@@ -212,7 +227,7 @@ class IvfFlatIndex:
         self._X = v if self._X is None else np.concatenate([self._X, v])
         i = np.array([origin_id], np.int64)
         self._ids = i if self._ids is None else np.concatenate([self._ids, i])
-        self._built = None
+        self._set_unbuilt()
 
     def parallel_insert(self, data_with_ids, **kw):
         """Add ``(vector, id)`` pairs, a 2-D array (ids = arange), or an
@@ -229,7 +244,16 @@ class IvfFlatIndex:
             ids = np.array([int(i) for _, i in data_with_ids], np.int64)
         self._X = X if self._X is None else np.concatenate([self._X, X])
         self._ids = ids if self._ids is None else np.concatenate([self._ids, ids])
+        self._set_unbuilt()
+
+    def _set_unbuilt(self):
+        # a captured graph holds raw pointers to the lists it read
         self._built = None
+        self.drop_programs()
+
+    def drop_programs(self):
+        """Release the captured search programs and their memory pools."""
+        self._programs.clear()
 
     # -------------------------------------------------------------- build ----
     def build(self):
@@ -271,6 +295,7 @@ class IvfFlatIndex:
         scan = _DTYPES[self.SCAN_DTYPE]
         Xs3 = Xf3 if scan is None else Xf3.to(scan)
         xsq3 = torch.as_tensor(np.asarray(xsq, np.float32), device=dev).reshape(L, cap)
+        self.drop_programs()
         self._built = (cd, (cd * cd).sum(-1), Xs3, Xf3, xsq3,
                        np.asarray(row2idx, np.int64), int(cap))
 
@@ -286,41 +311,56 @@ class IvfFlatIndex:
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
         return q
 
+    def _program(self, batch: int, dtype, np_eff: int, kf: int) -> IvfProgram:
+        """The search's program for a batch shape and query dtype (built at
+        first use)."""
+        lists = self._built[:5]
+        static = dict(nprobe=int(np_eff), kf=int(kf), metric=self.metric.name)
+        return self._programs.get(None, call_key(lists, batch, dtype, self.device, **static),
+                                  lambda: IvfProgram(lists, batch, dtype, self.device,
+                                                     **static))
+
     def _dispatch(self, qs, np_eff: int, kf: int):
-        cent, csq, Xs, Xf, xsq, _, _ = self._built
-        mname = self.metric.name
-        pcT = _ivf_route(qs, cent, csq, np_eff, mname)
-        rows, _ = _ivf_probe(qs, Xs, xsq, pcT, kf, mname)
-        return _exact_refine(qs, Xf, xsq, rows, mname)
+        """(packed rows, dists) of one batch on the device, replayed."""
+        return self._program(qs.shape[0], qs.dtype, np_eff, kf).run(qs)
 
     def search_batch(self, queries, knbn: int, ef: int = 0, filter=None,
                      nprobe: Optional[int] = None, chunk: int = 512):
         """Batched search. ``nprobe`` overrides the instance default; ``ef``,
         the graph engine's knob, widens nprobe to at least ``ef / cap`` lists."""
-        if self._X is None:
+        if self._X is None or len(np.atleast_2d(queries)) == 0:  # no program to run
             q = np.atleast_2d(queries)
             return (np.full((len(q), knbn), -1, np.int64),
                     np.full((len(q), knbn), np.inf, np.float32))
         self.build()
-        cent, row2idx, cap = self._built[0], self._built[5], self._built[6]
-        C = cent.shape[0]
+        np_eff, kf = self._probe_plan(knbn, ef, nprobe, filter)
+        q = self._queries(queries)
+        qd = torch.as_tensor(q, device=self.device)
+        outs = [self._dispatch(qd[s:s + chunk], np_eff, kf) for s in range(0, len(q), chunk)]
+        rn = torch.cat([r for r, _ in outs]).cpu().numpy()
+        out_d = torch.cat([dd for _, dd in outs]).cpu().numpy()
+        return self._finish(rn, out_d, knbn, filter)
+
+    def _probe_plan(self, knbn: int, ef: int = 0, nprobe: Optional[int] = None,
+                    filter=None):
+        """``search_batch``'s (nprobe, kf): ``ef`` widens nprobe to at least
+        ``ef / cap`` lists; ``kf`` overfetches for the bf16 probe's rank noise,
+        and further under a filter."""
+        cent, cap = self._built[0], self._built[6]
         np_eff = int(nprobe or self.nprobe)
         if ef:  # ef ~ candidate budget: match nprobe to it
             np_eff = max(np_eff, -(-int(ef) // cap))
-        np_eff = min(np_eff, C)
-        q = self._queries(queries)
+        np_eff = min(np_eff, cent.shape[0])
         k = min(knbn, len(self._X))
-        # overfetch for bf16 rank noise; widen further under a filter
         kf = k + self.OVERFETCH if filter is None else 4 * k + self.OVERFETCH
-        kf = min(-(-kf // 32) * 32, np_eff * cap)
-        out_i = np.empty((len(q), kf), np.int64)
-        out_d = np.empty((len(q), kf), np.float32)
-        for s in range(0, len(q), chunk):
-            qs = torch.as_tensor(q[s:s + chunk], device=self.device)
-            rows, dd = self._dispatch(qs, np_eff, kf)
-            rn = rows.cpu().numpy()
-            out_i[s:s + chunk] = np.where(rn >= 0, row2idx[rn], -1)
-            out_d[s:s + chunk] = dd.cpu().numpy()
+        return np_eff, min(-(-kf // 32) * 32, np_eff * cap)
+
+    def _finish(self, rn, out_d, knbn: int, filter=None):
+        """Packed rows and their distances, [B, kf] -> external ids and
+        distances [B, knbn]: the filter's host-side post-mask, then -1/inf
+        padding."""
+        row2idx = self._built[5]
+        out_i = np.where(rn >= 0, row2idx[rn], -1)
         ids = np.where(out_i >= 0, self._ids[np.clip(out_i, 0, len(self._ids) - 1)], -1)
         d = np.where(out_i >= 0, out_d, np.inf)
         if filter is not None:
@@ -334,8 +374,8 @@ class IvfFlatIndex:
         ids, d = ids[:, :knbn], d[:, :knbn]
         if ids.shape[1] < knbn:
             pad = knbn - ids.shape[1]
-            ids = np.concatenate([ids, np.full((len(q), pad), -1, np.int64)], 1)
-            d = np.concatenate([d, np.full((len(q), pad), np.inf, np.float32)], 1)
+            ids = np.concatenate([ids, np.full((len(ids), pad), -1, np.int64)], 1)
+            d = np.concatenate([d, np.full((len(d), pad), np.inf, np.float32)], 1)
         return ids, d
 
     def search_stream(self, queries, knbn: int, nprobe: Optional[int] = None,
@@ -347,15 +387,19 @@ class IvfFlatIndex:
         from ..ops.stream import fetch_host, pipelined_stream, upload_batch
 
         self.build()
-        cent, row2idx, cap = self._built[0], self._built[5], self._built[6]
-        np_eff = min(int(nprobe or self.nprobe), cent.shape[0])
+        row2idx = self._built[5]
+        np_eff, kf = self._probe_plan(knbn, 0, nprobe)
         q = self._queries(queries)
         nq = len(q)
         k = min(knbn, len(self._X))
-        kf = min(-(-(k + self.OVERFETCH) // 32) * 32, np_eff * cap)
         out_i = np.full((nq, knbn), -1, np.int64)
         out_d = np.full((nq, knbn), np.inf, np.float32)
         qd = np.dtype(query_dtype) if query_dtype else np.float32
+        # every batch shape's program is built before the threads start: a
+        # capture must not overlap their copies
+        dtype = torch.from_numpy(np.empty(0, qd)).dtype
+        for size in {min(batch, nq - s) for s in range(0, nq, batch)}:
+            self._program(size, dtype, np_eff, kf)
 
         def upload(s):
             return upload_batch(q[s:s + batch].astype(qd), self.device)

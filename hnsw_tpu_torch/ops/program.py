@@ -1,6 +1,12 @@
-"""The search as one device program: ``search_program`` captured in CUDA
-graphs, the counterpart of ``jax.jit(search_program)``
-(``hnsw_tpu/ops/beam_search.py:632``).
+"""The serving programs as CUDA graphs, the counterparts of the JAX
+package's jitted programs: ``search_program`` (``SearchProgram``;
+``jax.jit(search_program)``, ``hnsw_tpu/ops/beam_search.py:632``), the exact
+scan ``l2_topk`` (``ScanProgram``; ``jax.jit(pallas_l2_topk)``,
+``hnsw_tpu/ops/pallas_topk.py:160``), the exact matmul route ``_bf_topk``
+(``TopkProgram``; ``hnsw_tpu/models/brute.py:23``) and the IVF search
+(``IvfProgram``; ``_ivf_route``, ``_ivf_probe``, ``_exact_refine``,
+``hnsw_tpu/models/ivf.py:188,150,196``). ``Program`` holds what they share:
+the warm-up, the capture into one memory pool per program and its bytes.
 
 A ``SearchProgram`` is built once per static key (``program_key``), as
 ``jax.jit`` compiles once per set of static arguments and shapes: the index's
@@ -35,6 +41,12 @@ fetcher thread is still copying.
 
 On the CPU the same pieces run in the same order on every call, without
 capture, so the CPU tests exercise the program's structure.
+
+The other three are one graph each (``CallProgram``): one call of a
+function on static inputs, none of which reads the host, so a whole batch
+replays with no host read. ``IvfProgram`` unrolls its ``nprobe`` probe steps
+into the graph, as ``lax.scan`` with a static length compiles to one
+program; ``TopkProgram``'s chunk loop has a static trip count.
 """
 
 from __future__ import annotations
@@ -108,22 +120,94 @@ def program_key(g, codec, batch: int, dtype, device, **static) -> tuple:
             tuple(sorted(static.items())))
 
 
-class SearchProgram:
-    """``search_program`` for one static key, as CUDA graphs on the card (the
-    pieces alone on the CPU). ``run(q, mask)`` answers one batch;
-    ``start``/``step``/``finished``/``result`` let a caller interleave several
-    programs chunk by chunk (the sharded search).
+def call_key(held, batch: int, dtype, device, **static) -> tuple:
+    """``program_key`` for a ``CallProgram``: the identity of every tensor in
+    ``held`` (the program holds them all), the batch, dtype, device and the
+    static arguments."""
+    return (tuple(id(x) for x in held), int(batch), str(dtype),
+            str(torch.device(device)), tuple(sorted(static.items())))
+
+
+class Program:
+    """What every program shares: its device, the warm-up and capture of its
+    pieces into one memory pool, and the bytes that pool holds
+    (``pool_bytes``). A subclass defines its pieces (functions of no
+    argument that read and write the program's attributes) and ``_release``,
+    which drops what a warm-up left on the program before the capture.
 
     ``graph_factory`` and ``capture`` stand in for ``torch.cuda.CUDAGraph``
     and ``torch.cuda.graph`` (the tests pass stubs)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool_bytes = 0
+
+    def _release(self):
+        pass
+
+    def _pieces(self, fns, graph_factory=None, capture=None) -> list:
+        """Captured pieces on the card (or with a stub graph); on the CPU
+        pieces that run their function on every replay."""
+        if self.device.type == "cuda" or graph_factory is not None:
+            return self._capture_all(fns, graph_factory, capture)
+        return [Piece(fn) for fn in fns]
+
+    def _capture_all(self, fns, graph_factory, capture):
+        on_card = self.device.type == "cuda"
+        if graph_factory is None:
+            graph_factory = torch.cuda.CUDAGraph
+        ctx = torch.cuda.device(self.device) if on_card else contextlib.nullcontext()
+        with ctx:
+            side = None
+            if on_card:
+                cur = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(self.device)  # warm-up and capture stream
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):  # the warm-up
+                    for fn in fns:
+                        fn()
+                cur.wait_stream(side)
+                self._release()
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(self.device)
+            pool = []
+
+            @contextlib.contextmanager
+            def in_pool(graph):
+                with torch.cuda.graph(graph, pool=pool[0] if pool else None, stream=side):
+                    yield
+                if not pool:
+                    pool.append(graph.pool())
+
+            # the cycle collector stays off while capturing: a collection
+            # could destroy another program's graph, which CUDA refuses while
+            # a stream captures
+            gc.collect()
+            gc.disable()
+            try:
+                pieces = [Piece(fn, graph_factory(), capture or in_pool) for fn in fns]
+            finally:
+                gc.enable()
+            if on_card:
+                self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        return pieces
+
+
+class SearchProgram(Program):
+    """``search_program`` for one static key, as CUDA graphs on the card (the
+    pieces alone on the CPU). ``run(q, mask)`` answers one batch;
+    ``start``/``step``/``finished``/``result`` let a caller interleave several
+    programs chunk by chunk (the sharded search)."""
 
     def __init__(self, g, codec, batch: int, dtype, device, *, ef: int, knbn: int,
                  expand: int, use_mask: bool, max_iters=None, term_slack: float = 1.0,
                  rerank: Optional[int] = None, pool: Optional[int] = None,
                  seeds: int = 1, allow_fused: bool = True,
                  graph_factory=None, capture=None):
-        dev = torch.device(device)
-        self.g, self.codec, self.device = g, codec, dev
+        super().__init__(device)
+        dev = self.device
+        self.g, self.codec = g, codec
         self.kw = dict(ef=int(ef), knbn=int(knbn), expand=int(expand),
                        use_mask=bool(use_mask), max_iters=max_iters, codec=codec,
                        term_slack=term_slack, rerank=rerank, pool=pool, seeds=int(seeds),
@@ -144,11 +228,7 @@ class SearchProgram:
                    + [functools.partial(self._chunk, j, lo, hi)
                       for j, (lo, hi) in enumerate(spans)]
                    + [self._end])
-        self.pool_bytes = 0
-        if dev.type == "cuda" or graph_factory is not None:
-            pieces = self._capture_all(fns, graph_factory, capture)
-        else:
-            pieces = [Piece(fn) for fn in fns]
+        pieces = self._pieces(fns, graph_factory, capture)
         if self.unrolled:
             self._head, self._chunks, self._tail = pieces[0], [], None
         else:
@@ -186,48 +266,8 @@ class SearchProgram:
         self._iterate(0, self.iters)
         self._end()
 
-    # -- building
-
-    def _capture_all(self, fns, graph_factory, capture):
-        on_card = self.device.type == "cuda"
-        if graph_factory is None:
-            graph_factory = torch.cuda.CUDAGraph
-        ctx = torch.cuda.device(self.device) if on_card else contextlib.nullcontext()
-        with ctx:
-            side = None
-            if on_card:
-                cur = torch.cuda.current_stream(self.device)
-                side = torch.cuda.Stream(self.device)  # warm-up and capture stream
-                side.wait_stream(cur)
-                with torch.cuda.stream(side):  # the warm-up
-                    for fn in fns:
-                        fn()
-                cur.wait_stream(side)
-                self._state = self._carry = self._out = None
-                torch.cuda.synchronize(self.device)
-                torch.cuda.empty_cache()
-                reserved = torch.cuda.memory_reserved(self.device)
-            pool = []
-
-            @contextlib.contextmanager
-            def in_pool(graph):
-                with torch.cuda.graph(graph, pool=pool[0] if pool else None, stream=side):
-                    yield
-                if not pool:
-                    pool.append(graph.pool())
-
-            # the cycle collector stays off while capturing: a collection
-            # could destroy another program's graph, which CUDA refuses while
-            # a stream captures
-            gc.collect()
-            gc.disable()
-            try:
-                pieces = [Piece(fn, graph_factory(), capture or in_pool) for fn in fns]
-            finally:
-                gc.enable()
-            if on_card:
-                self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        return pieces
+    def _release(self):
+        self._state = self._carry = self._out = None
 
     # -- running
 
@@ -266,6 +306,82 @@ class SearchProgram:
         return self.result()
 
 
+class CallProgram(Program):
+    """One call of ``fn`` on static inputs, as one CUDA graph on the card (on
+    the CPU, ``fn`` on every run). ``inputs`` gives each static input's
+    (shape, dtype); ``fn`` holds every other tensor the graph reads, so they
+    live as long as the program. ``run(*xs)`` copies ``xs`` into the static
+    inputs on the current stream, replays, and clones the outputs out of the
+    pool, so the next replay cannot overwrite a batch a fetcher thread is
+    still copying. A failed capture raises."""
+
+    def __init__(self, fn, inputs, device, graph_factory=None, capture=None):
+        super().__init__(device)
+        self.fn = fn
+        self.inputs = [torch.zeros(shape, dtype=dtype, device=self.device)
+                       for shape, dtype in inputs]
+        self._out = None
+        (self._piece,) = self._pieces([self._call], graph_factory, capture)
+
+    def _call(self):
+        self._out = self.fn(*self.inputs)
+
+    def _release(self):
+        self._out = None
+
+    def run(self, *xs):
+        for buf, x in zip(self.inputs, xs):
+            buf.copy_(x)
+        self._piece.replay()
+        return tuple(t.clone() for t in self._out)
+
+
+class ScanProgram(CallProgram):
+    """The exact scan ``l2_topk`` (kernel B2, or B5 with ``packed=False``)
+    for one key: the corpus tensors, the batch and query dtype, ``k, tn,
+    group, acc, overfetch, refine, packed`` and the device; the counterpart
+    of ``jax.jit(pallas_l2_topk)``. ``run(q)`` -> (dists [B, k], ids [B, k])."""
+
+    def __init__(self, X, xsq, batch: int, dtype, device, *, k: int, tn: int, group: int,
+                 acc: int, overfetch: int, refine: bool = True, packed: bool = True,
+                 Xscan=None, graph_factory=None, capture=None):
+        from .scan_topk import l2_topk
+        self.kw = dict(k=int(k), tn=int(tn), group=int(group), acc=int(acc),
+                       overfetch=int(overfetch), refine=bool(refine), packed=bool(packed))
+        fn = functools.partial(l2_topk, X=X, xsq=xsq, Xscan=Xscan, **self.kw)
+        super().__init__(fn, [((int(batch), X.shape[1]), dtype)], device,
+                         graph_factory, capture)
+
+
+class TopkProgram(CallProgram):
+    """The exact matmul route ``_bf_topk`` (``models/brute.py``) for one key:
+    the corpus, the batch, ``k``, the metric and the device.
+    ``run(q)`` -> (scores [B, k], positions [B, k])."""
+
+    def __init__(self, X, xsq, batch: int, device, *, k: int, metric: str,
+                 graph_factory=None, capture=None):
+        from ..models.brute import _bf_topk
+        fn = functools.partial(_bf_topk, X=X, xsq=xsq, k=int(k), metric=metric)
+        super().__init__(fn, [((int(batch), X.shape[1]), torch.float32)], device,
+                         graph_factory, capture)
+
+
+class IvfProgram(CallProgram):
+    """The IVF search (``models/ivf.py::ivf_search``: route, the ``nprobe``
+    probe steps, refine) for one key: the built lists, the batch and query
+    dtype, ``nprobe``, ``kf``, the metric and the device.
+    ``run(q)`` -> (packed rows [B, kf], dists [B, kf])."""
+
+    def __init__(self, lists, batch: int, dtype, device, *, nprobe: int, kf: int,
+                 metric: str, graph_factory=None, capture=None):
+        from ..models.ivf import ivf_search
+        cent, csq, Xs3, Xf3, xsq3 = lists
+        fn = functools.partial(ivf_search, cent=cent, csq=csq, Xs3=Xs3, Xf3=Xf3,
+                               xsq3=xsq3, nprobe=int(nprobe), kf=int(kf), metric=metric)
+        super().__init__(fn, [((int(batch), cent.shape[1]), dtype)], device,
+                         graph_factory, capture)
+
+
 def search_fixed(g, q, mask, **kw):
     """The program's pieces called directly, without capture: the entry,
     every beam iteration up to the cap with no host read, the rerank
@@ -277,7 +393,7 @@ def search_fixed(g, q, mask, **kw):
 
 
 class ProgramCache:
-    """The programs of one index, keyed by ``program_key``: at most
+    """The programs of one index, keyed by ``program_key`` (or ``call_key``): at most
     ``MAX_PROGRAMS``, holding at most ``share`` of a card's memory in their
     pools, least recently used dropped first, all dropped when the index's
     ``tag`` (its version) changes or on ``clear``. A captured graph holds raw
@@ -289,7 +405,7 @@ class ProgramCache:
         self._tag = None
         self.share = share
 
-    def get(self, tag, key, build) -> SearchProgram:
+    def get(self, tag, key, build) -> Program:
         if tag != self._tag:
             self.clear()
             self._tag = tag

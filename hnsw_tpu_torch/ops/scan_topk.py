@@ -6,7 +6,8 @@ packed Pallas tile kernel (``_tile_kernel_packed``, reached through
 (``_tile_kernel``, ``packed=False``), ``l2_topk`` replaces ``pallas_l2_topk``
 (the decode, overfetch and f32 refine around either kernel), ``pad_corpus``
 is the same permuted padding, and ``l2_topk_stream`` replaces
-``pallas_l2_topk_stream``.
+``pallas_l2_topk_stream`` (replaying ``l2_topk`` as a captured program,
+``ops/program.py::ScanProgram``, as the reference runs it jitted).
 
 The scan keeps, per (span of ``acc`` tiles, query, lane group), the two
 smallest packed distances: the candidate's local row offset rides in the low
@@ -328,14 +329,32 @@ def pad_corpus(X: np.ndarray, tn: int = SCAN_TN, shuffle: bool | None = None,
     return Xp, xsq, perm
 
 
+def scan_program(programs, X, xsq, batch: int, dtype, *, Xscan=None, **static):
+    """The ``ScanProgram`` of ``l2_topk`` for a batch of ``batch`` queries of
+    ``dtype`` over this corpus and these static arguments (``k, tn, group,
+    acc, overfetch, packed``), found in or built into the ``ProgramCache``
+    ``programs``."""
+    from .program import ScanProgram, call_key
+
+    return programs.get(None, call_key((X, xsq, Xscan), batch, dtype, X.device, **static),
+                        lambda: ScanProgram(X, xsq, batch, dtype, X.device, Xscan=Xscan,
+                                            **static))
+
+
 def l2_topk_stream(queries: np.ndarray, X, xsq, k: int, *, tn: int = SCAN_TN,
                    group: int = SCAN_GROUP, Xscan=None, overfetch: int = 8,
                    acc: int = 8, batch: int = 2048, query_dtype=None,
-                   packed: bool = True):
+                   packed: bool = True, programs=None):
     """Pipelined exact-scan serving over a host query stream (upload of batch
     i+1 and fetch of batch i-1 overlap the scan of batch i; see
-    ``ops/stream.py``). ``packed`` as in ``l2_topk``. Returns (dists [nq, k]
-    f32, ids [nq, k] int64 — scan row indices)."""
+    ``ops/stream.py``). ``packed`` as in ``l2_topk``. Each batch replays the
+    scan's program (``ops/program.py::ScanProgram``, a CUDA graph on the
+    card) found in, or built into, the ``ProgramCache`` ``programs``;
+    without one, a program is built for this call and dropped after it. The
+    tail batch is padded to the batch shape, so one program serves the
+    stream. Returns (dists [nq, k] f32, ids [nq, k] int64 — scan row
+    indices)."""
+    from .program import ProgramCache
     from .stream import pipelined_stream, upload_batch, fetch_host
 
     q = np.asarray(queries, np.float32)
@@ -350,6 +369,11 @@ def l2_topk_stream(queries: np.ndarray, X, xsq, k: int, *, tn: int = SCAN_TN,
     out_i = np.empty((nq, k), np.int64)
     work = [(s, min(s + batch, nq)) for s in range(0, nq, batch)]
     dev = X.device
+    # built before the stream's threads start: a capture must not overlap
+    # their copies
+    prog = scan_program(ProgramCache() if programs is None else programs, X, xsq, batch,
+                        torch.from_numpy(q[:0]).dtype, k=k, tn=tn, group=group, Xscan=Xscan,
+                        overfetch=overfetch, acc=acc, packed=packed)
 
     def _upload(w):
         ws, we = w
@@ -359,9 +383,7 @@ def l2_topk_stream(queries: np.ndarray, X, xsq, k: int, *, tn: int = SCAN_TN,
         return upload_batch(qb, dev)
 
     def _dispatch(w, staged):
-        dd, ii = l2_topk(staged.wait(), X, xsq, k, tn=tn, group=group,
-                         Xscan=Xscan, overfetch=overfetch, acc=acc, packed=packed)
-        return fetch_host((dd, ii))
+        return fetch_host(prog.run(staged.wait()))
 
     def _fetch(w, out):
         ws, we = w

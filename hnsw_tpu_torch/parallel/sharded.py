@@ -22,7 +22,8 @@ on one card, or on the CPU in the tests).
     ``all_gather`` and replicated sort. External ids stay int64 on the host
     and are mapped after the fetch;
   * **exact search**: every shard scans its slice, through the packed exact
-    scan (kernel B2) over a bf16 copy or a tiled running top-k, and the same
+    scan (kernel B2) over a bf16 copy or a tiled running top-k, each shard's
+    scan a captured program in its cache (``CallProgram``), and the same
     merge follows.
 
 Left out, as TPU habits: the batch padding to a multiple of 8, ``pick_tn``
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 from typing import Optional, Sequence
@@ -52,7 +54,7 @@ from ..ops.beam_search import _resolve_slack, smallest
 from ..ops.distances import get_metric
 from ..ops.graph_arrays import BeamCodec, _round_up
 from ..ops.insert_rounds import HostBuildState, RoundConfig, _next_pow2, round_step
-from ..ops.program import POOL_SHARE, ProgramCache, SearchProgram
+from ..ops.program import POOL_SHARE, CallProgram, ProgramCache, SearchProgram
 from ..ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk, refine_width, scan_acc
 from ..ops.stream import fetch_host, pipelined_stream, upload_batch
 from ..utils.device import resolve_device
@@ -395,7 +397,7 @@ class ShardedHnsw:
                          expand=int(expand), use_codec=codec is not None, codec_M0=M0,
                          codec_dim=dim, use_mask=filter is not None,
                          rerank=None if rerank is None else int(rerank))
-        tag = (tuple(s._version for s in self.shards), self._codec_kind, self._codec_width)
+        tag = self._program_tag()
 
         def build(s, batch, dtype):
             g = _GA(vectors=st.vectors[s], sqnorms=st.sqnorms[s], levels=None,
@@ -418,6 +420,11 @@ class ShardedHnsw:
             return _sharded_search(self.devices, programs(q.shape[0], q.dtype),
                                    st.n_live, q, masks, cfg.knbn)
         return st, programs, run
+
+    def _program_tag(self):
+        """The device state every shard's programs were captured on: the graph
+        versions and the codec (``ProgramCache``'s tag)."""
+        return (tuple(s._version for s in self.shards), self._codec_kind, self._codec_width)
 
     def search_batch(self, queries, knbn: int, ef: int, filter=None,
                      expand: int = 4, rerank: Optional[int] = None):
@@ -503,7 +510,11 @@ class ShardedHnsw:
           * ``"tiled"``: a loop over ``tile``-row slices with a running
             top-k ([B, tile] of workspace); any metric with a matmul form,
             filters.
-          * ``"auto"``: ``"pallas"`` where it applies, else ``"tiled"``."""
+          * ``"auto"``: ``"pallas"`` where it applies, else ``"tiled"``.
+
+        Each shard's scan replays a captured program (``CallProgram``, a
+        CUDA graph on the card) kept in the shard's ``ProgramCache``; the
+        merge follows on ``devices[0]``."""
         metric = self.shards[0].metric.name
         if get_metric(metric).matmul_scores is None:
             raise ValueError(f"exact sharded scan needs a matmul-form metric, got {metric!r}")
@@ -516,21 +527,38 @@ class ShardedHnsw:
             q = q[None]
         qd = torch.as_tensor(q, device=self.devices[0])
         k = int(min(knbn, st.cap1))
+        masks = None
         if mode == "pallas":
             if metric not in ("L2", "DistL2") or filter is not None:
                 raise ValueError("pallas sharded scan is L2-only, unfiltered")
             Xp, xsqp, Np = self._scan_arrays(SCAN_TN)
-            fn = _sharded_scan_pallas_fn(self.devices, k, SCAN_TN, Np, st.cap1)
-            local, shard, dists = fn(st.vectors, st.n_live, Xp, xsqp, qd)
+            local_scan = _sharded_scan_pallas_fn(k, SCAN_TN, Np, st.cap1)
+            held = list(zip(st.vectors, st.n_live, Xp, xsqp))
+            tile = None
         elif mode == "tiled":
-            args = [st.vectors, st.sqnorms, st.n_live, qd]
+            tile = int(min(tile, st.cap1))
+            local_scan = _sharded_scan_fn(metric, k, tile)
+            held = list(zip(st.vectors, st.sqnorms, st.n_live))
             if filter is not None:
-                args.append(self._masks(filter, st))
-            fn = _sharded_scan_fn(self.devices, metric, k, filter is not None,
-                                  int(min(tile, st.cap1)))
-            local, shard, dists = fn(*args)
+                masks = self._masks(filter, st)
         else:
             raise ValueError(f"unknown exact mode {mode!r}")
+        inputs = [(tuple(qd.shape), torch.float32)]
+        if masks is not None:
+            inputs.append(((st.cap1,), torch.bool))
+        key = ("exact", mode, int(qd.shape[0]), k, tile, masks is not None)
+        qs = _per_device(qd, self.devices)
+        ids, dists = [], []
+        for s, dev in enumerate(self.devices):
+            prog = self._programs[s].get(
+                self._program_tag(), key,
+                lambda s=s: CallProgram(functools.partial(local_scan, *held[s]), inputs,
+                                        self.devices[s]))
+            with _on(dev):
+                i, d = prog.run(qs[s], *(() if masks is None else (masks[s],)))
+            ids.append(i)
+            dists.append(d)
+        local, shard, dists = _merge_shard_topk(ids, dists, k, self.devices[0])
         ids, dists = self._to_external(st, local, shard, dists)
         if ids.shape[1] < knbn:
             pad = knbn - ids.shape[1]
@@ -641,14 +669,16 @@ def _merge_shard_topk(ids, dists, k, device):
     return torch.gather(flat_ids, 1, order), (order // k_).to(torch.int32), v
 
 
-def _sharded_scan_fn(devices, metric: str, k: int, use_mask: bool, tile: int):
-    """The tiled exact scan of every shard: a loop over ``tile``-row slices
-    with a running top-k, so the workspace is [B, tile]. The last slice's
-    start clamps into range; rows an earlier slice covered are masked by their
-    index, so duplicates never displace results."""
+def _sharded_scan_fn(metric: str, k: int, tile: int):
+    """The tiled exact scan of one shard, ``local_scan(v, xsq, n_live, qf[,
+    mask])`` -> (local ids [B, k] int32, dists [B, k]): a loop over
+    ``tile``-row slices (a static trip count) with a running top-k, so the
+    workspace is [B, tile]. The last slice's start clamps into range; rows an
+    earlier slice covered are masked by their index, so duplicates never
+    displace results."""
     m = get_metric(metric)
 
-    def local_scan(v, xsq, n_live, qf, mask_full):
+    def local_scan(v, xsq, n_live, qf, mask_full=None):
         cap1, d = v.shape
         TN = min(tile, cap1)
         B = qf.shape[0]
@@ -669,26 +699,15 @@ def _sharded_scan_fn(devices, metric: str, k: int, use_mask: bool, tile: int):
             bi = torch.gather(ci, 1, pos)
         fin = torch.isfinite(bd)
         return torch.where(fin, bi, -1), torch.where(fin, bd, INF)
-
-    def scan(vectors, sqnorms, n_live, q, *opt):
-        masks = opt[0] if use_mask else [None] * len(devices)
-        qs = _per_device(q.to(torch.float32), devices)
-        ids, dists = [], []
-        for s, dev in enumerate(devices):
-            with _on(dev):
-                i, d = local_scan(vectors[s], sqnorms[s], n_live[s], qs[s], masks[s])
-            ids.append(i)
-            dists.append(d)
-        return _merge_shard_topk(ids, dists, k, devices[0])
-    return scan
+    return local_scan
 
 
-def _sharded_scan_pallas_fn(devices, k: int, tn: int, Np: int, cap1: int):
-    """The exact scan of every shard through the packed scan kernel (B2 on
-    the card, ``ops/scan_topk.py``): each shard's bf16 copy keeps
+def _sharded_scan_pallas_fn(k: int, tn: int, Np: int, cap1: int):
+    """The exact scan of one shard through the packed scan kernel (B2 on the
+    card, ``ops/scan_topk.py``), ``local_scan(v, n_live, Xp, xsqp, qf)`` ->
+    (local ids [B, k] int32, dists [B, k]): the shard's bf16 copy keeps
     ``refine_width(k, 8)`` candidates (the reference's 32-aligned count), which
-    are re-scored in f32 direct form against the shard's vectors; the merge
-    follows."""
+    are re-scored in f32 direct form against the shard's vectors."""
     acc = scan_acc(Np, tn)
     n_blocks = -(-(Np // tn) // acc)
     cand_w = n_blocks * 2 * (tn // SCAN_GROUP)
@@ -705,17 +724,7 @@ def _sharded_scan_pallas_fn(devices, k: int, tn: int, Np: int, cap1: int):
         dists = torch.sqrt(torch.clamp_min(v2, 0.0))  # inf stays inf for misses
         out = torch.where(torch.isfinite(dists), torch.gather(safe, 1, pos), -1)
         return out.to(torch.int32), dists
-
-    def scan(vectors, n_live, Xp, xsqp, q):
-        qs = _per_device(q.to(torch.float32), devices)
-        ids, dists = [], []
-        for s, dev in enumerate(devices):
-            with _on(dev):
-                i, d = local_scan(vectors[s], n_live[s], Xp[s], xsqp[s], qs[s])
-            ids.append(i)
-            dists.append(d)
-        return _merge_shard_topk(ids, dists, k, devices[0])
-    return scan
+    return local_scan
 
 
 @dataclasses.dataclass(frozen=True)
