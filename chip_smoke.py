@@ -13,10 +13,26 @@ Phases, each printing one JSON line. Path 1 (build and serve):
            the tensor-core entry at 200k x 128 with B=2048 and at a ragged
            shape, through the f32-FMA entry on a small f32 case; then the ids
            and distances after the refine
-  build    Hnsw(M=24, efC=400, L2) with level scale 0.5 and kept pruned
-           links, ``parallel_insert(mode="device", batch_size=16384,
+  build    First the ``build_extend`` line: the widen pass
+           (``set_extend_candidates(True)``) on 20k of the rows, M=8, batch
+           2048, at efC 16 (every round widens) and 48 (steady rounds
+           keep): each program build bit-equal to its eager build, and the
+           captured widen (16) or keep (48) piece replayed (these small
+           builds also take the process's first use of the card off the
+           timed ones). Then Hnsw(M=24, efC=400, L2) with level scale 0.5
+           and kept pruned links, ``parallel_insert(mode="device", batch_size=16384,
            build_max_iters=96)`` on the 200k x 128 gauss corpus of bench.py
-           (``hnsw_tpu_torch.bench.make_dataset``, rounded to float32)
+           (``hnsw_tpu_torch.bench.make_dataset``, rounded to float32),
+           every round through the round programs (``BuildPrograms``): the
+           line holds their counts (rounds, rounds replayed, keys, captures,
+           chunk graphs, capture seconds, pool bytes by part), peak device
+           memory, each round's ms between synchronizes and round 20 in one
+           profiler window (device busy, idle share); ``build_s`` leaves out
+           the profiler's own start and stop. Gate: a round replayed, no part
+           uncaptured outside the first sighting of its key. Then the
+           ``build_program`` line: the eager build (``round_step``) of the
+           same corpus, timed and traced the same way, its tables and
+           in-degrees bit-equal to the program build's on every real row
   gt       BruteForceIndex (kernel B2) top-64 pool + fp64 host refine over
            4096 queries; exact-scan recall@10
   exact_program  the exact engine as a captured program (``ScanProgram``,
@@ -31,6 +47,9 @@ Phases, each printing one JSON line. Path 1 (build and serve):
            even ids) equal to the eager one, every id passing; below the scan
            (20k rows, L2 and Cosine) the matmul route's program (``TopkProgram``)
            equal to its direct call; the pools
+  codec    (with serve) the traversal codec built in row chunks: its build's
+           own peak device memory against a one-shot gather's, and its blocks
+           byte-equal to that gather's
   serve    device_search_stream (batch 16384, expand 4, int8 codec, pivots)
            at ef 32/64/96, k=10: recall@10 scored in fp64, streamed QPS; B1
            launches a batch read on a warmed call (the first call for a
@@ -111,7 +130,10 @@ must equal ``search_batch``'s on the same f16-rounded queries);
 ``AutoIndex("L2")`` must choose the scan, launch B2 (every launch of its
 search through the tensor-core entry) and answer as ``BruteForceIndex``;
 ``AutoIndex("Cosine")`` must choose IVF (recall@10 at nprobe 32 against exact
-cosine). The IVF search and the scan replay captured programs (``IvfProgram``,
+cosine). The IVF build's k-means steps replay ``KmeansProgram``s (one replay at
+the full chunk shape held against its direct call: assignments and alternates
+equal, partial sums within 1e-5 of their largest, float atomics). The IVF
+search and the scan replay captured programs (``IvfProgram``,
 ``ScanProgram``): at nprobe 16/32/64 the 512-query program's replay must equal
 a direct call of its pieces and ``search_batch``'s ids and recall the eager
 form's; one 4096-query batch at nprobe 32, program against eager (wall and
@@ -125,7 +147,9 @@ the plain version, an f32 scan and a wider overfetch.
 
 Path 5 (``sharded``; ``ShardedHnsw`` on one card): four shards of path 1's
 200k x 128 corpus on ``cuda:0`` with path 1's graph settings on every shard,
-built with ``mode="mesh"``; ``search_stream`` with the per-shard int8 codec (no
+built with ``mode="mesh"`` through every shard's round programs (a round
+replayed on every shard; before it, the same build of 4 x 5k rows at batch 512
+held bit-equal to an eager mesh build); ``search_stream`` with the per-shard int8 codec (no
 id rows: kernel B3) at ef 64 and 96 (k=10, batch 16384), ``search_batch`` on
 2048 queries (ids equal to the stream's), ``exact_search_batch`` in ``auto`` mode
 (the packed scan, kernel B2, on every shard) against path 1's exact engine and
@@ -167,6 +191,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -284,16 +309,27 @@ def phase_env(torch, kernel_lib):
         fn()
         return time.time() - t0
 
-    # the native tier's g++ build runs beside the kernels' nvcc builds
-    with ThreadPoolExecutor(1) as ex:
-        native = ex.submit(timed, native_lib)
-        build_s = timed(kernel_lib.build_all)
-        native_s = native.result()
+    # the native tier's g++ build runs beside the kernels' nvcc builds and
+    # the phases up to its first use (``native_ready``)
+    ex = ThreadPoolExecutor(1)
+    NATIVE_BUILD.append(ex.submit(timed, native_lib))
+    ex.shutdown(wait=False)
+    build_s = timed(kernel_lib.build_all)
     emit({"phase": "env", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "cpu_count": os.cpu_count(), "kernel_build_s": build_s,
-          "native_build_s": native_s, "ptxas": kernel_lib.ptxas_report()})
+          "ptxas": kernel_lib.ptxas_report()})
     return card
+
+
+NATIVE_BUILD = []           # the g++ build of the native tier, started by env
+
+
+def native_ready():
+    """Wait for the native tier's g++ build (before the phases that dump,
+    reload or search through it) and print its seconds once."""
+    if NATIVE_BUILD:
+        emit({"phase": "native_build", "native_build_s": NATIVE_BUILD.pop().result()})
 
 
 def codec_rows(torch, Q, seed, codec=None, n=None, names=("B1", "B3"), b3=None):
@@ -726,10 +762,14 @@ def scan_rows(torch, X, Q):
     return rows, failures
 
 
-def phase_build(torch, X):
+def build_path1(torch, X):
+    """Path 1's build of ``X`` (M=24, efC=400, level scale 0.5, kept pruned
+    links, batch 16384, cap 96): (index, seconds to a synchronize, peak
+    device memory of the build in GB, allocated and reserved)."""
     from hnsw_tpu_torch import Hnsw, PROFILER
 
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     PROFILER.reset()
     t0 = time.time()
@@ -739,14 +779,240 @@ def phase_build(torch, X):
     h.modify_level_scale(0.5)
     h.parallel_insert(X, mode="device", batch_size=16384, build_max_iters=96)
     torch.cuda.synchronize()
-    build_s = time.time() - t0
-    emit({"phase": "build", "n": len(X), "d": X.shape[1], "build_s": build_s,
-          "points_per_s": len(X) / build_s, "repair": h._repair_stats,
+    return h, time.time() - t0, {"peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                 "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+
+
+def round_faults(label, stats):
+    """The build's round programs must have replayed at least one round and
+    run no part uncaptured outside the first sighting of its key."""
+    if stats["rounds_replayed"] < 1 or stats["first_runs"] != stats["keys"]:
+        return [f"{label}: round programs {stats}: a round must replay, and no part may "
+                "run uncaptured outside the first sighting of its key"]
+    return []
+
+
+def phase_build(torch, X):
+    """Path 1's build, through the round programs: each round between two
+    synchronizes, round BUILD_TRACE_ROUND in one profiler window (device
+    activity only), the device tables held for ``phase_build_program``.
+    Returns (index, seconds less the profiler's own, failures, tables)."""
+    from hnsw_tpu_torch import PROFILER
+    from hnsw_tpu_torch.ops import program
+
+    with watched_rounds(torch, program.BuildPrograms, "round", BUILD_TRACE_ROUND,
+                        lambda args, out: (args[1].tables(), args[1].indeg0)) as rec:
+        h, build_s, peaks = build_path1(torch, X)
+    line = round_form(torch, rec, build_s, peaks, h._round_stats)
+    emit({"phase": "build", "n": len(X), "d": X.shape[1],
+          "points_per_s": len(X) / line["build_s"], "repair": h._repair_stats,
           "layer0_width": int(h._layers[0].width),
-          "max_level": h.get_max_level_observed(),
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "spans": PROFILER.report()})
-    return h, build_s
+          "max_level": h.get_max_level_observed(), **line, "spans": PROFILER.report()})
+    return h, line["build_s"], round_faults("build", h._round_stats), rec["held"]
+
+
+BUILD_TRACE_ROUND = 20      # a steady round of path 1's build: B=16384, every key replayed
+STEADY_FROM = 13            # rounds 11 and 12 are the first two at B=16384
+
+
+@contextlib.contextmanager
+def watched_rounds(torch, owner, name, trace_at, keep):
+    """Patch the round function ``owner.name`` for one build: each call runs
+    between two synchronizes and is timed on the host clock, call
+    ``trace_at`` (from 0) runs inside one profiler window, and ``keep(args,
+    result)`` gives what the build holds after the call (its tables)."""
+    real = getattr(owner, name)
+    rec = {"walls_ms": [], "trace": None, "held": None}
+
+    def watched(*args, **kwargs):
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if len(rec["walls_ms"]) == trace_at:
+            rec["trace"] = trace_window(torch, lambda: out.append(real(*args, **kwargs)),
+                                        host_ops=False)
+        else:
+            out.append(real(*args, **kwargs))
+        torch.cuda.synchronize()
+        rec["walls_ms"].append((time.time() - t0) * 1e3)
+        rec["held"] = keep(args, out[0])
+        return out[0]
+
+    setattr(owner, name, watched)
+    try:
+        yield rec
+    finally:
+        setattr(owner, name, real)
+
+
+@contextlib.contextmanager
+def eager_rounds():
+    """Builds in this scope run the eager ``round_step`` on the card (the
+    reference the round programs are held to)."""
+    from hnsw_tpu_torch.ops import program
+
+    real = program.round_programs
+    program.round_programs = lambda device, share=program.POOL_SHARE: None
+    try:
+        yield
+    finally:
+        program.round_programs = real
+
+
+def tables_equal(torch, a, b, n):
+    """Every layer's ids and dists and the layer-0 in-degree of two builds'
+    device state (``(tables, indeg0)``), bit for bit on rows [0, n) (the
+    sink row takes repeated writes in both): (equal, the first difference)."""
+    (ta, ia), (tb, ib) = a, b
+    if len(ta) != len(tb):
+        return False, f"{len(ta)} layers against {len(tb)}"
+    for l, ((xi, xd), (yi, yd)) in enumerate(zip(ta, tb)):
+        if not (torch.equal(xi[:n], yi[:n]) and torch.equal(xd[:n], yd[:n])):
+            rows = int(((xi[:n] != yi[:n]).any(1) | (xd[:n] != yd[:n]).any(1)).sum())
+            return False, f"layer {l}: {rows} rows differ"
+    if not torch.equal(ia[:n], ib[:n]):
+        return False, f"indeg0: {int((ia[:n] != ib[:n]).sum())} rows differ"
+    return True, None
+
+
+def round_form(torch, rec, build_s, peaks, stats):
+    """One build's line for ``phase_build`` and ``phase_build_program``: its
+    seconds less the profiler's own (the start and stop around round
+    BUILD_TRACE_ROUND's window, which no build does), each round's ms
+    (between synchronizes), the steady rounds and the traced round."""
+    tr = rec["trace"]
+    profiler_s = rec["walls_ms"][BUILD_TRACE_ROUND] / 1e3 - tr["wall_ms"] / 1e3
+    steady = [ms for r, ms in enumerate(rec["walls_ms"]) if r >= STEADY_FROM
+              and r != BUILD_TRACE_ROUND]
+    return {"build_s": build_s - profiler_s, "build_s_with_profiler": build_s,
+            "profiler_s": profiler_s, **peaks, "rounds": len(rec["walls_ms"]),
+            "round_ms": rec["walls_ms"], "steady_round_ms_median": float(np.median(steady)),
+            "rounds_s_less_profiler": sum(rec["walls_ms"]) / 1e3 - profiler_s,
+            "traced_round": {"round": BUILD_TRACE_ROUND, "wall_ms": tr["wall_ms"],
+                             "device_busy_ms": tr["device_busy_ms"],
+                             "idle_share": tr["idle_share"], "top": tr["top"][:6]},
+            "round_programs": stats}
+
+
+def phase_build_program(torch, X, program_tables, program_build_s):
+    """Path 1's build through the round programs (its device tables
+    ``program_tables``, its seconds ``program_build_s``) against the eager
+    build (``round_step``, one host read per beam iteration and descent hop)
+    of the same corpus with the same parameters, in this process: every
+    layer's ids and dists and ``indeg0`` bit-equal on every real row; the
+    eager build's seconds, rounds and traced round as the program build's
+    line has them. Returns the failures."""
+    from hnsw_tpu_torch import PROFILER
+    from hnsw_tpu_torch.ops import insert_rounds
+
+    with eager_rounds(), watched_rounds(torch, insert_rounds, "round_step",
+                                        BUILD_TRACE_ROUND,
+                                        lambda args, out: (tuple(args[3]), args[7])) as rec:
+        _, build_s, peaks = build_path1(torch, X)
+    eager = round_form(torch, rec, build_s, peaks, None)
+    eager["spans"] = PROFILER.report()
+    equal, diff = tables_equal(torch, program_tables, rec["held"], len(X))
+    failures = [] if equal else [
+        f"build_program: the program build differs from the eager one: {diff}"]
+    emit({"phase": "build_program", "n": len(X), "tables_equal_eager": equal,
+          "first_difference": diff, "program_build_s": program_build_s,
+          "eager": eager, "failures": failures})
+    return failures
+
+
+def phase_build_extend(torch, X, n=20_000, batch=2048):
+    """The widen pass (``set_extend_candidates(True)``, which every index
+    loaded from the reference's format has) on the card: two builds of
+    ``X[:n]`` (M=8, batch ``batch``) through the round programs, each
+    bit-equal to its eager build on every real row. At ef_construction 16
+    every beam returns at most 2M = 16 candidates, so every round widens and
+    the captured widen piece replays; at 48 the steady rounds keep, and the
+    captured keep piece replays. Returns the failures."""
+    from hnsw_tpu_torch import Hnsw
+    from hnsw_tpu_torch.ops import insert_rounds, program
+
+    def build(efc):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        h = Hnsw(max_nb_connection=8, max_elements=n, ef_construction=efc, dist="L2",
+                 device="cuda")
+        h.set_extend_candidates(True)
+        h.parallel_insert(X[:n], mode="device", batch_size=batch)
+        torch.cuda.synchronize()
+        return h, time.time() - t0
+
+    failures, builds = [], {}
+    for efc, branch in ((16, "widen"), (48, "keep")):
+        with watched_rounds(torch, program.BuildPrograms, "round", -1,
+                            lambda args, out: (args[1].tables(), args[1].indeg0)) as rec:
+            h, program_s = build(efc)
+        stats, held = h._round_stats, rec["held"]
+        with eager_rounds(), watched_rounds(torch, insert_rounds, "round_step", -1,
+                                            lambda args, out: (tuple(args[3]), args[7])) as rec:
+            _, eager_s = build(efc)
+        equal, diff = tables_equal(torch, held, rec["held"], n)
+        held = h = rec = None
+        label = f"build_extend efC={efc}"
+        if not equal:
+            failures.append(f"{label}: the program build differs from the eager one: {diff}")
+        if stats[f"{branch}_replays"] < 1:
+            failures.append(f"{label}: the captured {branch} piece never replayed")
+        failures += round_faults(label, stats)
+        builds[efc] = {"tables_equal_eager": equal, "first_difference": diff,
+                       "program_s": program_s, "eager_s": eager_s,
+                       "widen_replays": stats["widen_replays"],
+                       "keep_replays": stats["keep_replays"], "round_programs": stats}
+    emit({"phase": "build_extend", "n": n, "d": X.shape[1], "M": 8, "batch": batch,
+          "by_efc": builds, "failures": failures})
+    return failures
+
+
+def one_shot_blocks(torch, g, codec):
+    """The codec's blocks as one gather (the form the chunked build
+    replaced): the int8 rows of each node's table and its id rows."""
+    tbl = g.layer_ids[0][:, :codec.M0]
+    cap1, M0 = tbl.shape
+    d = codec.dim
+    v = g.vectors.to(torch.float32)
+    amax = torch.clamp_min(v.abs().max(), 1e-12)
+    vq = torch.clamp(torch.round(v * (127.0 / amax)), -127, 127).to(torch.int8)
+    blocks = vq[torch.clamp(tbl, 0, cap1 - 1).long()]
+    if codec.id_rows:
+        idp = torch.full((cap1, codec.id_rows * d // 4), -1, dtype=torch.int32,
+                         device=v.device)
+        idp[:, :M0] = tbl
+        blocks = torch.cat([blocks, idp.view(torch.int8).reshape(cap1, codec.id_rows, d)], 1)
+    return blocks.contiguous()
+
+
+def phase_codec(torch, h):
+    """Path 1's codec, built in row chunks (``BeamCodec._build``): its build's
+    own peak device memory (above what was allocated before it) against a
+    one-shot gather's, and its blocks byte-equal to that gather's. Returns
+    the failures."""
+    g = h.device_graph()
+    peaks = {}
+    for form in ("chunked", "one_shot"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = h.device_codec() if form == "chunked" else one_shot_blocks(torch, g, codec)
+        torch.cuda.synchronize()
+        peaks[form] = {"s": time.time() - t0,
+                       "peak_above_base_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        if form == "chunked":
+            codec = out
+        else:
+            want = out
+    equal = bool(torch.equal(codec.blocks, want))
+    del want
+    failures = [] if equal else ["codec: the chunked blocks differ from the one-shot gather"]
+    emit({"phase": "codec", "cap1": g.cap1, "M0": codec.M0, "id_rows": codec.id_rows,
+          "blocks_gb": codec.blocks.numel() / 1e9, "byte_equal_one_shot": equal,
+          **peaks, "failures": failures})
+    return failures
 
 
 def kth_fp64(bf, X, Q, nq, k, pool):
@@ -839,27 +1105,44 @@ def replay_equals_direct(torch, prog, q, mask=None):
     return bool(torch.equal(ids_r, ids_d) and torch.equal(d_r, d_d))
 
 
-def trace_window(torch, fn):
+def trace_window(torch, fn, host_ops=True):
     """``fn`` once under torch.profiler: wall ms to the device's end, device
-    busy ms (the kernels' summed time) and the idle share, and the kernels by
-    time."""
+    busy ms (the device activities' summed time: kernels, copies, sets) and
+    the idle share, the device activities by time, and the seconds the
+    profiler took to stop and hand over its records. ``host_ops=False`` (a
+    build round) records the device activity alone and reads the records
+    raw: a round's tens of thousands of host ops, and ``key_averages()``'s
+    event tree over its device records, would take the profiler seconds.
+    Both forms sum the same device records."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if host_ops else []
+    prof = profile(activities=acts + [ProfilerActivity.CUDA])
+    with prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    # kernel-level events only: op-level rows repeat their kernels' time
-    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0
-          and e.device_type == torch.autograd.DeviceType.CUDA]
-    ev.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    by_name = {}
+    if host_ops:
+        # kernel-level rows only: op-level rows repeat their kernels' time
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.key] = [e.count, e.self_device_time_total * 1e3]
+    else:
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+                calls_ns = by_name.setdefault(e.name(), [0, 0])
+                calls_ns[0] += 1
+                calls_ns[1] += e.duration_ns()
+    profiler_s = time.time() - t0 - wall_ms / 1e3
+    busy_ms = sum(ns for _, ns in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms,
-            "top": [{"name": e.key[:80], "calls": e.count,
-                     "device_ms": e.self_device_time_total / 1e3} for e in ev]}
+            "idle_share": 1 - busy_ms / wall_ms, "profiler_s": profiler_s,
+            "top": [{"name": name[:80], "calls": c, "device_ms": ns / 1e6}
+                    for name, (c, ns) in top]}
 
 
 def phase_program(torch, h, Q, k=10):
@@ -1782,14 +2065,20 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
     if exact_recall < RECALL_EXACT_CLUSTERED:
         failures.append(f"exact-scan recall@10 on the clustered corpus {exact_recall:.5f} "
                         f"< {RECALL_EXACT_CLUSTERED}")
-    # the IVF engine at its defaults
+    # the IVF engine at its defaults; its k-means steps replay programs
     ix = IvfFlatIndex("L2", device="cuda")
     ix.parallel_insert(X)
     torch.cuda.synchronize()
+    kmeans = kmeans_check(torch, X)
+    failures += kmeans.pop("failures")
     t0 = time.time()
-    ix.build()
+    with counted_kmeans_programs() as made:
+        ix.build()
     torch.cuda.synchronize()
     build_s = time.time() - t0
+    kmeans["build_programs_rows"] = made
+    if not made:
+        failures.append("ivf: the k-means steps of the build ran no program")
     L, cap = ix.n_lists, ix._built[6]
     by_np = {}
     for nprobe in (16, 32, 64):
@@ -1898,6 +2187,7 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
     emit({"phase": "ivf", "n": n, "d": 128, "queries": nq, "data_s": data_s,
           "truth": "f32 matmul top-64 on the card, refined in fp64",
           "exact_recall_at_10": exact_recall, "exact_qps": exact_qps,
+          "kmeans": kmeans,
           "ivf": {"build_s": build_s, "lists": L, "cap": cap,
                   "padding_share": 1.0 - n / (L * cap), "by_nprobe": by_np,
                   "programs": ivf_programs, "one_batch_nprobe32": ivf_one,
@@ -1914,6 +2204,49 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
                           "lists": c.engine.n_lists, "recall_at_10_nprobe32": r_cos},
           "pools": pools, "failures": failures})
     return failures, (ix, Q), (bf, X, Q, kth), auto_launches
+
+
+KMEANS_CHUNK = 65536         # the IVF build's k-means chunk rows (``_kmeans``)
+KMEANS_PSUM_RTOL = 1e-5      # the partial sums' float atomics add in any order
+
+
+@contextlib.contextmanager
+def counted_kmeans_programs():
+    """The chunk rows of every k-means program built in this scope."""
+    from hnsw_tpu_torch.models import ivf
+
+    real, made = ivf.KmeansProgram, []
+    ivf.KmeansProgram = lambda rows, C, d, device: made.append(rows) or real(rows, C, d, device)
+    try:
+        yield made
+    finally:
+        ivf.KmeansProgram = real
+
+
+def kmeans_check(torch, X):
+    """The IVF build's k-means step as a program at its full chunk shape
+    (65536 rows, the build's C, d=128): one replay against a direct call on
+    the same static inputs, assignments and alternates equal, partial sums
+    within KMEANS_PSUM_RTOL of their largest magnitude, counts equal."""
+    from hnsw_tpu_torch.ops.program import KmeansProgram
+
+    n, d = X.shape
+    C = int(np.clip(2 * np.sqrt(n), 16, 4096))
+    Xc = torch.as_tensor(X[:KMEANS_CHUNK], device="cuda")
+    cent = torch.as_tensor(X[::n // C][:C], device="cuda")
+    csq = (cent * cent).sum(-1)
+    prog = KmeansProgram(KMEANS_CHUNK, C, d, "cuda")
+    got = prog.run(Xc, cent, csq)
+    want = prog.fn(Xc, cent, csq)
+    psum_err = float((got[2] - want[2]).abs().max() / want[2].abs().max())
+    out = {"rows": KMEANS_CHUNK, "C": C, "pool_bytes": prog.pool_bytes,
+           "assign_equal": bool(torch.equal(got[0], want[0])),
+           "top4_equal": bool(torch.equal(got[1], want[1])),
+           "psum_rel_err": psum_err, "pcnt_equal": bool(torch.equal(got[3], want[3]))}
+    out["failures"] = [] if (out["assign_equal"] and out["top4_equal"] and out["pcnt_equal"]
+                            and psum_err <= KMEANS_PSUM_RTOL) else [
+        f"ivf: the k-means program's replay differs from its direct call: {out}"]
+    return out
 
 
 def scan_on_clustered(torch, bf, X, Q, kth, k=10):
@@ -1963,8 +2296,87 @@ def scan_on_clustered(torch, bf, X, Q, kth, k=10):
 # ------------------------------------------------------------------ path 5 ----
 
 N_SHARDS = 4
+MESH_CHECK_ROWS = 20_000     # the program mesh build held against an eager one: 4 x 5k
+MESH_CHECK_BATCH = 512       # rounds enough at one batch size to replay
 RECALL_SHARDED_EF96 = 0.97
 SET_EQUAL_EXACT = 0.999
+
+
+def sharded_index(n):
+    """Path 5's ``ShardedHnsw`` for ``n`` rows: four shards on the card,
+    path 1's graph settings on every shard."""
+    from hnsw_tpu_torch import ShardedHnsw
+
+    sh = ShardedHnsw(n_shards=N_SHARDS, max_nb_connection=24, max_elements=n // N_SHARDS + 8,
+                     ef_construction=400, dist="L2")
+    for s in sh.shards:
+        s.set_keeping_pruned(True)
+        s.modify_level_scale(0.5)
+    return sh
+
+
+@contextlib.contextmanager
+def held_mesh_rounds(form):
+    """Record, in the returned dict's ``tables``, every shard's (tables,
+    in-degrees) of the mesh builds in this scope: through the round programs
+    (``form="program"``) or the eager rounds, which the scope then runs."""
+    from hnsw_tpu_torch.parallel import sharded
+
+    held = {}
+    real_round, real_fn = sharded.sharded_program_round, sharded.sharded_insert_round_fn
+
+    def program_round(devices, programs, bts, *args):
+        held["tables"] = [(bt.tables(), bt.indeg0) for bt in bts]
+        return real_round(devices, programs, bts, *args)
+
+    def eager_fn(devices, cfg):
+        step = real_fn(devices, cfg)
+
+        def recorded(*args):
+            tables, indeg = step(*args)
+            held["tables"] = [(tuple(t), i) for t, i in zip(tables, indeg)]
+            return tables, indeg
+        return recorded
+
+    ctx = eager_rounds() if form == "eager" else contextlib.nullcontext()
+    sharded.sharded_program_round, sharded.sharded_insert_round_fn = program_round, eager_fn
+    try:
+        with ctx:
+            yield held
+    finally:
+        sharded.sharded_program_round, sharded.sharded_insert_round_fn = real_round, real_fn
+
+
+def mesh_build_check(torch, X):
+    """The mesh build through the shards' round programs against the eager
+    mesh build (``round_step`` per shard) on the first MESH_CHECK_ROWS rows
+    (4 shards x 5k) at batch MESH_CHECK_BATCH, so that rounds repeat their
+    keys: every shard's tables and in-degrees bit-equal on its real rows,
+    rounds replayed on every shard, both forms' seconds. Returns the line's
+    dict (with its failures)."""
+    Xs = X[:MESH_CHECK_ROWS]
+    out, tables = {"rows": len(Xs), "shards": N_SHARDS, "batch": MESH_CHECK_BATCH}, {}
+    for form in ("program", "eager"):
+        with held_mesh_rounds(form) as held:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            sh = sharded_index(len(Xs))
+            sh.parallel_insert(Xs, mode="mesh", batch_size=MESH_CHECK_BATCH)
+            torch.cuda.synchronize()
+        out[form] = {"build_s": time.time() - t0, "rounds": sh._mesh_rounds}
+        tables[form] = held["tables"]
+        if form == "program":
+            out[form]["round_programs"] = sh._round_stats
+            sizes = [s._nb_point for s in sh.shards]
+    diffs = [tables_equal(torch, a, b, nb)
+             for a, b, nb in zip(tables["program"], tables["eager"], sizes)]
+    out["tables_equal_eager"] = all(e for e, _ in diffs)
+    out["first_difference"] = next((d for e, d in diffs if not e), None)
+    out["failures"] = [] if out["tables_equal_eager"] else [
+        f"sharded: the program mesh build differs from the eager one: {out['first_difference']}"]
+    for s, stats in enumerate(out["program"]["round_programs"]):
+        out["failures"] += round_faults(f"sharded check shard {s}", stats)
+    return out
 
 
 def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
@@ -1978,17 +2390,20 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
 
     failures = []
     n, nq = len(X), len(kth)
+    mesh_check = mesh_build_check(torch, X)
+    failures += mesh_check.pop("failures")
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    sh = ShardedHnsw(n_shards=N_SHARDS, max_nb_connection=24, max_elements=n // N_SHARDS + 8,
-                     ef_construction=400, dist="L2")
-    for s in sh.shards:
-        s.set_keeping_pruned(True)
-        s.modify_level_scale(0.5)
+    sh = sharded_index(n)
     sh.set_traversal_codec("i8")
     sh.parallel_insert(X, mode="mesh")
     torch.cuda.synchronize()
     build_s = time.time() - t0
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for s, stats in enumerate(sh._round_stats):
+        failures += round_faults(f"sharded shard {s}", stats)
     if any(d != torch.device("cuda", 0) for d in sh.devices):
         failures.append(f"path 5's shards are not all on cuda:0: {sh.devices}")
     blocks, _, scale, M0, _ = sh.device_codec_arrays()
@@ -2087,6 +2502,8 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     del r
     emit({"phase": "sharded", "n": n, "shards": N_SHARDS,
           "devices": [str(d) for d in sh.devices], "build_s": build_s,
+          "build_peak_mem_gb": build_peak_gb, "round_programs": sh._round_stats,
+          "mesh_build_check": mesh_check,
           "rounds": sh._mesh_rounds, "layer0_widths": [int(s._layers[0].width)
                                                        for s in sh.shards],
           "shard_sizes": [s._nb_point for s in sh.shards],
@@ -2151,7 +2568,15 @@ def main():
         failures += f
     # ---- path 1: counts run from zero over build, gt and serve ----
     kernel_lib.reset_launch_counts()
-    h, build_s = phase_build(torch, X) if "build" in phases else (None, None)
+    h = build_s = None
+    if "build" in phases:
+        # the widen pass's small builds first: they also take the process's
+        # first use of the card off the timed builds
+        failures += phase_build_extend(torch, X)
+        h, build_s, f, tables = phase_build(torch, X)
+        failures += f
+        failures += phase_build_program(torch, X, tables, build_s)
+        tables = None
     kth = bf = ids_bf = None
     replays = {}  # B2/B5 launches a replay of an exact program, by path
     if "gt" in phases:
@@ -2162,6 +2587,7 @@ def main():
         f, replays["path1 k=10 packed"] = phase_exact_program(torch, bf, X, Q)
         failures += f
     if h is not None and kth is not None and "serve" in phases:
+        failures += phase_codec(torch, h)
         by_ef = phase_serve(torch, h, X, Q, kth)
         if by_ef[96]["recall_at_10"] < RECALL_EF96:
             failures.append(f"recall@10 at ef=96 {by_ef[96]['recall_at_10']:.4f} "
@@ -2175,6 +2601,7 @@ def main():
     kernel_lib.reset_launch_counts()
     h2 = None
     if h is not None and "persist" in phases:
+        native_ready()
         h2, _, f = phase_persist(torch, h)
         failures += f
     if h2 is not None and kth is not None and "serve2" in phases:
@@ -2184,6 +2611,7 @@ def main():
             replays[f"path2 k=100 {name}"] = r["launches_per_replay"]
     path2 = dict(kernel_lib.LAUNCHES)
     if h is not None and kth is not None and "native" in phases:
+        native_ready()
         failures += phase_native(torch, h, X, Q, kth)
     if "kernels" in phases:
         # after the paths, on the codec the serve phases read (B3 on path
@@ -2236,6 +2664,7 @@ def main():
     kernel_lib.reset_launch_counts()
     sh = None
     if kth is not None and "sharded" in phases:
+        native_ready()
         f, sh, per_shard = phase_sharded(torch, X, Q, kth, ids_bf)
         failures += f
         for s, launches in enumerate(per_shard):
@@ -2287,7 +2716,7 @@ def main():
             windows.append(("sharded search_stream ef=96, 4 shards, one 16384-query batch",
                             lambda: sh.search_stream(Q, 10, 96, batch=16384)))
         windows.append(("build (a second, traced build of the same index)",
-                        lambda: phase_build(torch, X)))
+                        lambda: build_path1(torch, X)))
         for label, fn in windows:
             f = profiled(torch, label, fn, warm=not label.startswith("build"))
             if f:

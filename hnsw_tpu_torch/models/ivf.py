@@ -15,9 +15,11 @@ neighbours it cannot reach:
 
 k-means runs its assignment on the index's device (the routing matmul, the
 four nearest centroids through ``smallest`` and the partial sums through
-``index_add_``) and the Lloyd update on the host in fp64, as the JAX package
-does; ``index_add_`` on CUDA accumulates with atomics, so centroids may differ
-in their last bits from run to run there. The probe is a Python loop over the
+``index_add_``), replayed as a captured program per chunk shape
+(``ops/program.py::KmeansProgram``; the reference jits it), and the Lloyd
+update on the host in fp64, as the JAX package does; ``index_add_`` on CUDA
+accumulates with atomics, so centroids may differ in their last bits from run
+to run there. The probe is a Python loop over the
 ``nprobe`` steps: one ``[B, cap, d]`` slab per query per step, merged into a
 running top-``kf``. None of this is a kernel in the JAX package either (plain
 ``jnp`` programs), so none is one here. The search (route, probe, refine:
@@ -42,7 +44,7 @@ import torch
 
 from ..ops.beam_search import scores_gathered, scores_matmul, smallest
 from ..ops.distances import get_metric
-from ..ops.program import IvfProgram, ProgramCache, call_key
+from ..ops.program import IvfProgram, KmeansProgram, ProgramCache, call_key
 from ..utils.device import resolve_device
 
 _IP_METRICS = ("L2", "DistL2", "Dot", "DistDot", "Cosine", "DistCosine")
@@ -65,7 +67,9 @@ def _kmeans_assign(Xc, cent, csq, C: int):
 
 def _kmeans(X: np.ndarray, C: int, iters: int, seed: int, chunk: int = 65536,
             device=None):
-    """Chunked k-means on ``device``. Returns (centroids[C,d] f32, top4[n,4] i32)."""
+    """Chunked k-means on ``device``, each chunk's assignment a replay of its
+    shape's ``KmeansProgram`` (the full chunks share one, the ragged tail has
+    its own). Returns (centroids[C,d] f32, top4[n,4] i32)."""
     n, d = X.shape
     rng = np.random.default_rng(seed)
     cent = X[rng.permutation(n)[:C]].astype(np.float32)
@@ -76,6 +80,7 @@ def _kmeans(X: np.ndarray, C: int, iters: int, seed: int, chunk: int = 65536,
     dev = resolve_device(device)
     Xd = [torch.as_tensor(X[s:s + chunk].astype(np.float32), device=dev)
           for s in range(0, n, chunk)]
+    programs = {rows: KmeansProgram(rows, C, d, dev) for rows in {len(x) for x in Xd}}
     top4 = np.zeros((n, min(4, C)), np.int32)
     for it in range(iters):
         cd = torch.as_tensor(cent, device=dev)
@@ -84,7 +89,7 @@ def _kmeans(X: np.ndarray, C: int, iters: int, seed: int, chunk: int = 65536,
         cnts = np.zeros(C, np.float64)
         ofs = 0
         for Xc in Xd:
-            _, t4, ps, pc, _ = _kmeans_assign(Xc, cd, csq, C)
+            _, t4, ps, pc, _ = programs[len(Xc)].run(Xc, cd, csq)
             if it == iters - 1:
                 top4[ofs:ofs + Xc.shape[0]] = t4.cpu().numpy()
             sums += ps.cpu().numpy().astype(np.float64)

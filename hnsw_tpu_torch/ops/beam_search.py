@@ -420,33 +420,39 @@ def greedy_scan_descent(metric_name, vectors, sqnorms, layer_ids, q, pivot, pivo
     return pivot, pivot_d
 
 
-def greedy_min_descent(metric_name, vectors, sqnorms, layer_ids, q, pivot, pivot_d,
-                       top_layer: int, stop_level, record_hook=None,
-                       max_hops: int = 64):
-    """Insert-path descent — an ef=1 ``search_layer`` per layer (reference
-    ``src/hnsw.rs:1114-1155``): hop to the best improving neighbour until a
-    local minimum. ``record_hook(layer, pivot, pivot_d, active)`` records the
-    reference's per-layer projection links."""
-    recs = []
-    for layer in range(top_layer, 0, -1):
-        if layer >= len(layer_ids):
-            continue
-        act0 = layer > stop_level
-        p, pd, improved = pivot, pivot_d, act0
-        for _ in range(max_hops):
-            if not bool(improved.any()):
-                break
-            best_d, best_i = _best_neighbour(metric_name, vectors, sqnorms,
-                                             layer_ids[layer], q, p, improved)
-            better = improved & (best_d < pd)
-            p = torch.where(better, best_i, p)
-            pd = torch.where(better, best_d, pd)
-            improved = better
-        pivot = torch.where(act0, p, pivot)
-        pivot_d = torch.where(act0, pd, pivot_d)
-        if record_hook is not None:
-            recs.append(record_hook(layer, pivot, pivot_d, act0))
-    return pivot, pivot_d, recs
+MAX_HOPS = 64  # hops of one layer's insert-path descent
+
+
+class DescentState:
+    """One layer of the insert-path descent between hops: each walker's
+    position ``p`` and distance ``pd``, whether it improved on its last hop,
+    and which walkers run (``act``). A hop updates them in place, so a
+    captured hop reads and writes the same buffers."""
+
+    def __init__(self, pivot, pivot_d, act):
+        self.p, self.pd = pivot.clone(), pivot_d.clone()
+        self.improved, self.act = act.clone(), act
+
+
+def descent_hop(ds: DescentState, metric_name, vectors, sqnorms, tbl, q):
+    """One hop to the best improving neighbour. Once no walker improved it
+    changes nothing (no walker is active, so no neighbour scores)."""
+    best_d, best_i = _best_neighbour(metric_name, vectors, sqnorms, tbl, q, ds.p,
+                                     ds.improved)
+    better = ds.improved & (best_d < ds.pd)
+    ds.p.copy_(torch.where(better, best_i, ds.p))
+    ds.pd.copy_(torch.where(better, best_d, ds.pd))
+    ds.improved.copy_(better)
+
+
+def descent_layer(ds: DescentState, metric_name, vectors, sqnorms, tbl, q,
+                  max_hops: int = MAX_HOPS):
+    """The eager hop loop of one layer: stops at the first hop in which no
+    walker improved (one host read a hop)."""
+    for _ in range(max_hops):
+        if not bool(ds.improved.any()):
+            break
+        descent_hop(ds, metric_name, vectors, sqnorms, tbl, q)
 
 
 # Termination slack with a quantized codec when the caller picks none.

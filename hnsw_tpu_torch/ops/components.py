@@ -4,14 +4,19 @@ Counterpart of ``hnsw_tpu/ops/components.py``. The diversity prune can
 fracture layer 0 into islands on clustered corpora; ``component_labels``
 finds them (label = smallest member row) and ``select_pivots`` spreads the
 search's entry pivots over every island. ``.at[].min`` becomes
-``scatter_reduce_(..., "amin")`` and ``lax.while_loop`` a Python loop that
-stops once a sweep changes nothing.
+``scatter_reduce_(..., "amin")`` and ``lax.while_loop`` a Python loop of
+sweeps that reads the host once per ``CHUNK`` sweeps and stops once the last
+sweep changed nothing: a sweep past the fixpoint changes nothing (min-label
+flooding is idempotent there), so the labels are the reference's. Nothing is
+captured: there is one call per snapshot.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .program import CHUNK
 
 
 def _label_prop(tbl, live, max_sweeps: int = 512):
@@ -27,17 +32,18 @@ def _label_prop(tbl, live, max_sweeps: int = 512):
     nbr_ok = tbl >= 0
     scat_idx = torch.where(nbr_ok, tbl, R).reshape(-1)
     safe = torch.clamp(tbl, 0, R - 1)
-    for _ in range(max_sweeps):
-        g = torch.where(nbr_ok, labels[safe], R)
-        fwd = torch.minimum(labels, g.min(dim=1).values)
-        fwd = torch.where(live, fwd, R)
-        pushed = torch.full((R + 1,), R, dtype=torch.int64, device=dev)
-        pushed.scatter_reduce_(0, scat_idx, fwd[:, None].expand_as(tbl).reshape(-1),
-                               reduce="amin")
-        nxt = torch.where(live, torch.minimum(fwd, pushed[:R]), R)
-        changed = bool((nxt != labels).any())
-        labels = nxt
-        if not changed:
+    for lo in range(0, max_sweeps, CHUNK):
+        for _ in range(lo, min(lo + CHUNK, max_sweeps)):
+            g = torch.where(nbr_ok, labels[safe], R)
+            fwd = torch.minimum(labels, g.min(dim=1).values)
+            fwd = torch.where(live, fwd, R)
+            pushed = torch.full((R + 1,), R, dtype=torch.int64, device=dev)
+            pushed.scatter_reduce_(0, scat_idx, fwd[:, None].expand_as(tbl).reshape(-1),
+                                   reduce="amin")
+            nxt = torch.where(live, torch.minimum(fwd, pushed[:R]), R)
+            changed = (nxt != labels).any()
+            labels = nxt
+        if not bool(changed):
             break
     return labels
 

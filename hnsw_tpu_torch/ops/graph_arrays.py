@@ -12,11 +12,14 @@ Counterpart of ``hnsw_tpu/ops/graph_arrays.py``. ``GraphArrays`` and
 ``BeamCodec`` keeps the JAX layout the parity tests pin: int8 scale
 ``amax/127``, blocks ``[cap1, M0 + id_rows, d]`` whose trailing ``id_rows``
 hold the node's int32 layer-0 ids as bytes (-1 padded, ``M0 + id_rows`` a
-multiple of 8 as in the JAX codec), and ``blocks_sq``. Dropped TPU habits: the
-chunked donated build (one gather here) and the padding of M0 to a multiple of
-8 (Mosaic tiling). The codec's M0 is the layer table's width; tables of width
-2*M are already 8-aligned whenever M % 4 == 0, where the two layouts agree
-byte for byte.
+multiple of 8 as in the JAX codec), and ``blocks_sq``. The blocks are built
+as the JAX codec builds them (``_gather_blocks``, ``graph_arrays.py:37-74``):
+allocated once and filled in row chunks of about ``CODEC_CHUNK_BYTES``, since
+a one-shot gather holds twice the final array at once (16.4 GB for 8.2 GB of
+blocks at 1M rows, M0 = 56, 8 id rows). Dropped TPU habit: the padding of M0
+to a multiple of 8 (Mosaic tiling). The codec's M0 is the layer table's
+width; tables of width 2*M are already 8-aligned whenever M % 4 == 0, where
+the two layouts agree byte for byte.
 """
 
 from __future__ import annotations
@@ -30,6 +33,10 @@ import torch
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+# Bytes of one row chunk of the codec's block build (the JAX codec's ~512 MB).
+CODEC_CHUNK_BYTES = 1 << 29
 
 
 @dataclasses.dataclass
@@ -74,7 +81,6 @@ class BeamCodec:
         if g.metric_name in ("Cosine", "DistCosine"):
             nrm = torch.sqrt(torch.clamp_min((v * v).sum(-1, keepdim=True), 1e-20))
             v = v / nrm
-        safe = torch.clamp(tbl, 0, cap1 - 1).long()
         if kind == "bf16":
             vq = v.to(torch.bfloat16)
             scale = torch.tensor(1.0, dtype=torch.float32, device=v.device)
@@ -91,16 +97,22 @@ class BeamCodec:
         # out): the node's M0 table ids as int32 bytes, -1 padded to whole
         # [r_id, d] rows with M0 + r_id a multiple of 8
         r_id = 0
-        blocks = vq[safe]  # [cap1, M0, d]
         if kind != "bf16" and d % 128 == 0:
             r_id = _round_up(M0 + max(1, -(-(M0 * 4) // d)), 8) - M0
-            idcap = r_id * d // 4
-            idp = torch.full((cap1, idcap), -1, dtype=torch.int32, device=v.device)
-            idp[:, :M0] = tbl
-            idbytes = idp.view(torch.int8).reshape(cap1, r_id, d)
-            blocks = torch.cat([blocks, idbytes], dim=1)
-        blocks_sq = qsq[safe]
-        return cls(blocks=blocks.contiguous(), blocks_sq=blocks_sq, scale=scale,
+        blocks = torch.empty((cap1, M0 + r_id, d), dtype=vq.dtype, device=v.device)
+        blocks_sq = torch.empty((cap1, M0), dtype=torch.float32, device=v.device)
+        chunk_rows = max(1, CODEC_CHUNK_BYTES // ((M0 + r_id) * d * vq.element_size()))
+        for s in range(0, cap1, chunk_rows):
+            e = min(s + chunk_rows, cap1)
+            safe = torch.clamp(tbl[s:e], 0, cap1 - 1).long()
+            blocks[s:e, :M0] = vq[safe]
+            blocks_sq[s:e] = qsq[safe]
+            if r_id:
+                idp = torch.full((e - s, r_id * d // 4), -1, dtype=torch.int32,
+                                 device=v.device)
+                idp[:, :M0] = tbl[s:e]
+                blocks[s:e, M0:] = idp.view(torch.int8).reshape(e - s, r_id, d)
+        return cls(blocks=blocks, blocks_sq=blocks_sq, scale=scale,
                    M0=M0, dim=d, metric_name=g.metric_name, id_rows=r_id)
 
     @property

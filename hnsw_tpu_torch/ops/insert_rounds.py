@@ -15,17 +15,28 @@ B points per round move through the whole insert pipeline together:
 Points within a round do not see each other; the result is deterministic
 given (data order, batch size). The rounds have no Pallas kernel in the JAX
 package either: they are sorts, gathers and scatters, written here as torch
-ops. Translation notes:
+ops. A round is a sequence of parts (``round_plan``: the head, each upper
+layer's descent, each layer's construction, the two merges), each a
+``RoundPart`` whose loop, if it has one, is a sequence of steps after which
+a device flag says that a further step changes nothing. ``round_step`` runs
+them eagerly (one host read per beam iteration and per descent hop, the
+reference's ``while_loop`` tests); ``ops/program.py::BuildPrograms`` captures
+the same parts as device programs, which write the same tables bit for bit.
+Translation notes:
 
   * ``lax.sort`` with ``num_keys=2`` is two chained stable sorts (minor key
     first); ``jnp.argsort`` (stable) is ``torch.sort(stable=True)``;
     ``lax.top_k`` is a stable ascending sort (ties to the lower index).
   * ``.at[].set`` with repeated indices only ever repeats the sink row, whose
-    contents no search reads; ``.at[].add`` is ``index_add_`` over the taken
-    entries (``_add_counts``).
+    contents no search reads; ``.at[].add`` is an ``index_add_`` of
+    ``value * take`` at a fixed shape (``_add_counts``).
   * ``bitcast_convert_type`` is ``Tensor.view(torch.int32)``; ``lax.cummax``
-    is ``torch.cummax``; ``lax.cond`` a Python ``if`` on ``need.any()``.
+    is ``torch.cummax``; ``lax.cond`` a host read of ``need.any()`` that picks
+    the widen pass or its pass-through.
   * The layer tables are updated in place (the JAX program donates them).
+  * The entry point is a one-element tensor in the round's state, as the
+    reference passes ``jnp.int32(entry)`` traced, so a promotion between
+    rounds of one key changes no program.
 """
 
 from __future__ import annotations
@@ -37,8 +48,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .beam_search import (scores_gathered, beam_search_layer, greedy_min_descent,
-                          smallest)
+from .beam_search import (MAX_HOPS, BeamState, DescentState, beam_finish, beam_iters,
+                          beam_run, beam_setup, beam_step, descent_hop, descent_layer,
+                          scores_gathered, smallest)
 
 INF = float("inf")
 
@@ -145,31 +157,44 @@ def select_neighbours_batched(metric: str, vectors, sqnorms, cand_ids, cand_d,
     return sel_ids, sel_d
 
 
-def extend_candidates_batched(metric: str, vectors, sqnorms, tbl0, q, cand_ids,
-                              cand_d, nb_conn: int, act, k_out: int):
-    """Layer-0 candidate-pool widening (reference ``src/hnsw.rs:1317-1362``):
-    a point whose beam returned <= ``nb_conn`` candidates adds the layer-0
-    neighbours of those candidates, scored against the query, deduped by id.
-    Rounds where no point triggers pass the candidates through.
-    Returns ([B, k_out] ids -1-padded, dists) ascending."""
+def extend_need(cand_ids, act, nb_conn: int):
+    """[B] bool: the points whose candidate pool the widen pass grows. The
+    round reads ``need.any()`` on the host and runs ``extend_widen`` or
+    ``extend_keep`` (the reference's ``lax.cond``)."""
+    return act & ((cand_ids >= 0).sum(1) <= nb_conn)
+
+
+def extend_keep(cand_ids, cand_d, k_out: int):
+    """The widen pass's other branch: the candidates, cut or -1/inf-padded to
+    ``k_out``."""
+    B, C = cand_ids.shape
+    dev = cand_ids.device
+    k = min(k_out, C)
+    ids = cand_ids[:, :k]
+    dd = cand_d[:, :k]
+    if k < k_out:
+        ids = torch.cat([ids, torch.full((B, k_out - k), -1, dtype=torch.int32, device=dev)], 1)
+        dd = torch.cat([dd, torch.full((B, k_out - k), INF, device=dev)], 1)
+    return ids, dd
+
+
+def extend_widen(metric: str, vectors, sqnorms, tbl0, q, cand_ids, cand_d,
+                 nb_conn: int, need, k_out: int):
+    """Layer-0 candidate-pool widening (reference ``src/hnsw.rs:1317-1362``)
+    for the points in ``need``: a point whose beam returned <= ``nb_conn``
+    candidates adds the layer-0 neighbours of those candidates, scored
+    against the query, deduped by id. Returns ([B, k_out] ids -1-padded,
+    dists) ascending."""
     B, C = cand_ids.shape
     cap1, M0 = tbl0.shape
     dev = cand_ids.device
     W = min(C, nb_conn)
     P = W * M0
-    n_valid = (cand_ids >= 0).sum(1)
-    need = act & (n_valid <= nb_conn)
-    if not bool(need.any()):
-        k = min(k_out, C)
-        ids = cand_ids[:, :k]
-        dd = cand_d[:, :k]
-        if k < k_out:
-            ids = torch.cat([ids, torch.full((B, k_out - k), -1, dtype=torch.int32, device=dev)], 1)
-            dd = torch.cat([dd, torch.full((B, k_out - k), INF, device=dev)], 1)
-        return ids, dd
     src = cand_ids[:, :W]
     nb = tbl0[torch.clamp(src, 0, cap1 - 1).long()].reshape(B, P)
-    ok = need[:, None] & (src >= 0).repeat_interleave(M0, dim=1) & (nb >= 0)
+    # an expand, not repeat_interleave, which may read its output size
+    # back to the host (a captured piece must not)
+    ok = need[:, None] & (src >= 0)[:, :, None].expand(B, W, M0).reshape(B, P) & (nb >= 0)
     chunk = max(M0, min(P, (1 << 21) // max(1, q.shape[1])))
     scs = []
     for s in range(0, P, chunk):
@@ -284,151 +309,385 @@ def _reverse_merge(tbl_ids, tbl_d, eq, esrc, ed, valid, width: int,
 
 def _add_counts(counts, idx, take, value: int):
     """counts[idx[take]] += value, in place (the ``.at[].add`` of the JAX
-    package). Only the taken entries are scattered: clamping the others onto
-    one row, as the JAX form does, makes an accumulating ``index_put_`` walk
-    that run of duplicates serially (11.9 s of a 24.9 s round of the 200k
-    build on an H100)."""
-    sel = idx[take].long()
-    counts.index_add_(0, sel, torch.full(sel.shape, value, dtype=counts.dtype,
-                                         device=counts.device))
+    package), at a fixed shape and with no host read, so a captured round
+    can run it: every entry adds ``value * take``, an untaken one 0 to a row
+    of its own (entry i to row i mod len(counts)). Clamping the untaken
+    entries onto one row, as the JAX form does, makes an accumulating
+    ``index_put_`` walk that run of duplicates serially (11.9 s of a 24.9 s
+    round of the 200k build on an H100). Integer adds are exact in any
+    order."""
+    flat = idx.reshape(-1).long()
+    tk = take.reshape(-1)
+    spread = torch.arange(flat.numel(), device=flat.device) % counts.shape[0]
+    counts.index_add_(0, torch.where(tk, flat, spread), tk.to(counts.dtype) * value)
 
 
 # ------------------------------------------------------------------- round step ------
 
-def round_step(vectors, sqnorms, levels, tables, batch_ids, entry,
-               vectors_lo=None, indeg0=None, *, cfg: RoundConfig):
-    """One synchronized insertion round. ``tables`` is a sequence of (ids,
-    dists) per layer, updated in place and returned. With ``indeg0`` (a
-    [cap1] int32 layer-0 in-degree array, also updated in place) the layer-0
-    merge protects in-degree and the return value is ``(tables, indeg0)``.
+class BuildTensors:
+    """What every round of one build reads and writes: the vectors, their
+    squared norms, the levels, each layer's (ids, dists) table and the
+    layer-0 in-degree (updated in place), the bf16 traversal copy, and a
+    table of no links for layers the descent passes through empty."""
 
-    ``vectors_lo``: optional bf16 copy used only for traversal scoring; the
-    candidates are re-scored in f32 before the neighbour selection."""
-    metric = cfg.metric
-    cap1 = cfg.cap1
-    sink = cap1 - 1
-    L = cfg.num_layers
-    dev = vectors.device
-    ids_t = [t[0] for t in tables]
-    d_t = [t[1] for t in tables]
-    vtrav = vectors_lo if vectors_lo is not None else vectors
-    batch_ids = batch_ids.to(device=dev, dtype=torch.int32)
-    bl = batch_ids.long()
-    q = vectors[bl]
+    def __init__(self, vectors, sqnorms, levels, tables, vectors_lo=None, indeg0=None):
+        self.vectors, self.sqnorms, self.levels = vectors, sqnorms, levels
+        self.ids = [t[0] for t in tables]
+        self.dists = [t[1] for t in tables]
+        self.vectors_lo, self.indeg0 = vectors_lo, indeg0
+        self.vtrav = vectors_lo if vectors_lo is not None else vectors
+        self.cap1 = int(vectors.shape[0])
+        self._empty = None
 
-    def rescore_exact(qv, cand_ids, cand_d):
-        if vectors_lo is None:
-            return cand_ids, cand_d
-        safe = torch.clamp(cand_ids, 0, cap1 - 1).long()
-        sc = scores_gathered(metric, qv, vectors[safe], sqnorms[safe])
-        sc = torch.where(cand_ids >= 0, sc, INF)
-        sd, o = torch.sort(sc, dim=1, stable=True)
-        return torch.gather(cand_ids, 1, o), sd
+    def empty(self):
+        if self._empty is None:
+            self._empty = torch.full((self.cap1, 1), -1, dtype=torch.int32,
+                                     device=self.vectors.device)
+        return self._empty
 
-    lv = levels[bl]
-    alive = lv >= 0
-    B = cfg.B
-    d0 = scores_gathered(metric, q, vectors[entry][None, None, :].expand(B, 1, q.shape[1]),
-                         sqnorms[entry].reshape(1, 1).expand(B, 1))[:, 0]
-    pivot = torch.full((B,), int(entry), dtype=torch.int32, device=dev)
+    def held(self) -> tuple:
+        """The identity of every tensor a round reads or writes (a captured
+        round holds raw pointers to them)."""
+        return tuple(id(t) for t in (self.vectors, self.sqnorms, self.levels,
+                                     self.vectors_lo, self.indeg0, *self.ids, *self.dists))
 
-    # 1. upper-layer ef=1 descent with projection recording
-    recs = []
+    def tables(self) -> tuple:
+        return tuple(zip(self.ids, self.dists))
 
-    def rec_hook(layer, p, dd, act):
-        recs.append((layer, p, dd, act))
 
-    empty = torch.full((cap1, 1), -1, dtype=torch.int32, device=dev)
-    desc_tables = [ids_t[l] if (l < L and cfg.nonempty[l]) else empty for l in range(L)]
-    pivot, d0, _ = greedy_min_descent(metric, vtrav, sqnorms, desc_tables, q, pivot, d0,
-                                      top_layer=cfg.max_obs, stop_level=lv,
-                                      record_hook=rec_hook)
-    for (layer, p, dd, act) in recs:
-        if layer >= L or not cfg.nonempty[layer]:
-            continue
-        a = act & alive
-        tgt = torch.where(a, batch_ids, sink).long()
-        ids_t[layer][tgt, 0] = torch.where(a, p, -1)
-        d_t[layer][tgt, 0] = torch.where(a, dd, INF)
+class RoundState:
+    """One round's tensors between its parts, for a batch of ``B``: the
+    static inputs (``batch_ids``, ``entry``), what the head derives (queries,
+    levels, liveness, the pivots and their distances) and each layer's
+    selection, which the merges read. A part reads and writes them in place,
+    so captured parts of different keys meet in the same buffers."""
 
-    # 2-4. construction, layers high..0: upper layers on the B1 prefix
-    B1 = cfg.B1
-    sel_upper = [None] * L
-    for l in range(L - 1, 0, -1):
-        if not cfg.nonempty[l] or B1 == 0:
-            continue
-        act_l = alive[:B1] & (lv[:B1] >= l)
-        cand_ids, cand_d = beam_search_layer(metric, vtrav, sqnorms, ids_t[l],
-                                             q[:B1], pivot[:B1], d0[:B1],
-                                             ef=cfg.efc, expand=cfg.expand,
-                                             active=act_l, max_iters=cfg.max_iters)
-        cand_ids, cand_d = rescore_exact(q[:B1], cand_ids, cand_d)
-        nb_conn = cfg.widths[l]
-        sel_ids, sel_d = select_neighbours_batched(metric, vectors, sqnorms, cand_ids,
-                                                   cand_d, nb_conn, cfg.keep_pruned)
-        tgt = torch.where(act_l, batch_ids[:B1], sink).long()
-        ids_t[l][tgt] = torch.where(act_l[:, None], sel_ids, -1)
-        d_t[l][tgt] = torch.where(act_l[:, None], sel_d, INF)
-        sel_upper[l] = (sel_ids, sel_d, act_l)
-        has = act_l & torch.isfinite(sel_d[:, 0])
-        pivot = torch.cat([torch.where(has, sel_ids[:, 0], pivot[:B1]), pivot[B1:]])
-        d0 = torch.cat([torch.where(has, sel_d[:, 0], d0[:B1]), d0[B1:]])
-    sel0 = None
-    if cfg.nonempty[0]:
-        act0 = alive
-        cand_ids, cand_d = beam_search_layer(metric, vtrav, sqnorms, ids_t[0], q,
-                                             pivot, d0, ef=cfg.efc, expand=cfg.expand,
-                                             active=act0, max_iters=cfg.max_iters)
-        cand_ids, cand_d = rescore_exact(q, cand_ids, cand_d)
-        nb_conn = cfg.widths[0]
-        if cfg.extend:
-            k_win = min(cand_ids.shape[1], max(2 * nb_conn, 128))
-            cand_ids, cand_d = extend_candidates_batched(
-                metric, vectors, sqnorms, ids_t[0], q, cand_ids, cand_d, nb_conn,
-                act0, k_out=k_win)
-        sel_ids, sel_d = select_neighbours_batched(metric, vectors, sqnorms, cand_ids,
-                                                   cand_d, nb_conn, cfg.keep_pruned)
-        tgt = torch.where(act0, batch_ids, sink).long()
-        ids_t[0][tgt] = torch.where(act0[:, None], sel_ids, -1)
-        d_t[0][tgt] = torch.where(act0[:, None], sel_d, INF)
-        sel0 = (sel_ids, sel_d, act0)
-        if indeg0 is not None:
-            _add_counts(indeg0, sel_ids, act0[:, None] & (sel_ids >= 0), 1)
+    def __init__(self, B: int, d: int, device):
+        def z(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        self.B = int(B)
+        self.batch_ids, self.entry = z(B), z(1)
+        self.q, self.d0 = z(B, d, dtype=torch.float32), z(B, dtype=torch.float32)
+        self.lv, self.pivot, self.alive = z(B), z(B), z(B, dtype=torch.bool)
+        self._sel = {}
 
-    # 5. reverse-link merge, grouped by target layer l_n = new point's level
-    if sel0 is not None:
-        sids, sd, act0 = sel0
-        ev0 = (sids >= 0) & act0[:, None] & (lv == 0)[:, None]
+    def start(self, batch_ids, entry):
+        """Copy a round's batch (its point ids, sink-padded) and entry point in."""
+        self.batch_ids.copy_(torch.as_tensor(batch_ids, dtype=torch.int32))
+        if torch.is_tensor(entry):
+            self.entry.copy_(entry.reshape(1))
+        else:
+            self.entry.fill_(int(entry))
+
+    def selection(self, layer: int, rows: int, width: int):
+        """(ids, dists) of layer ``layer``'s selection for the first ``rows``
+        points (the buffers the construction writes and the merges read)."""
+        key = (layer, rows, width)
+        if key not in self._sel:
+            dev = self.q.device
+            self._sel[key] = (torch.full((rows, width), -1, dtype=torch.int32, device=dev),
+                              torch.full((rows, width), INF, device=dev))
+        return self._sel[key]
+
+
+class RoundPart:
+    """One part of a round. ``begin``, then up to ``iters`` loop steps
+    (``step(it)``; ``finished()`` is a device flag after which a step changes
+    nothing), then ``end``; a part without a loop does all in ``begin``. With
+    ``branches``, ``need`` (a device flag set by ``end``) picks ``widen`` or
+    ``keep``, then ``after`` runs. ``loop`` is the eager loop, with its own
+    host reads. ``ops/program.py`` captures the same methods as the round's
+    device program."""
+
+    iters = 0
+    branches = False
+
+    def begin(self):
+        raise NotImplementedError
+
+    def step(self, it: int):
+        raise NotImplementedError
+
+    def carry(self):
+        """Put a loop's state back into the buffers ``begin`` made."""
+
+    def finished(self):
+        raise NotImplementedError
+
+    def loop(self):
+        pass
+
+    def end(self):
+        pass
+
+
+def run_part(part: RoundPart):
+    """A part with its eager loop (``round_step``'s form)."""
+    part.begin()
+    part.loop()
+    part.end()
+    if part.branches:
+        (part.widen if bool(part.need) else part.keep)()
+        part.after()
+
+
+class HeadPart(RoundPart):
+    """The batch's queries and levels, the entry's distance, the pivots."""
+
+    def __init__(self, bt: BuildTensors, st: RoundState, metric: str):
+        self.bt, self.st, self.metric = bt, st, metric
+
+    def begin(self):
+        bt, st = self.bt, self.st
+        bl = st.batch_ids.long()
+        st.q.copy_(bt.vectors[bl])
+        st.lv.copy_(bt.levels[bl])
+        st.alive.copy_(st.lv >= 0)
+        e = st.entry.long()
+        B, d = st.q.shape
+        st.d0.copy_(scores_gathered(self.metric, st.q, bt.vectors[e][None].expand(B, 1, d),
+                                    bt.sqnorms[e].reshape(1, 1).expand(B, 1))[:, 0])
+        st.pivot.copy_(st.entry.expand(B))
+
+
+class DescentPart(RoundPart):
+    """The ef=1 descent through layer ``layer`` (``MAX_HOPS`` hops at most),
+    then the pivots and the reference's projection link on that layer when
+    it holds links (``src/hnsw.rs:1114-1155``)."""
+
+    iters = MAX_HOPS
+
+    def __init__(self, bt: BuildTensors, st: RoundState, metric: str, layer: int,
+                 linked: bool):
+        self.bt, self.st, self.metric, self.layer, self.linked = bt, st, metric, layer, linked
+        self.tbl = bt.ids[layer] if linked else bt.empty()
+
+    def begin(self):
+        st = self.st
+        self.ds = DescentState(st.pivot, st.d0, self.layer > st.lv)
+
+    def step(self, it: int):
+        descent_hop(self.ds, self.metric, self.bt.vtrav, self.bt.sqnorms, self.tbl, self.st.q)
+
+    def finished(self):
+        return ~self.ds.improved.any()
+
+    def loop(self):
+        descent_layer(self.ds, self.metric, self.bt.vtrav, self.bt.sqnorms, self.tbl,
+                      self.st.q)
+
+    def end(self):
+        bt, st, ds = self.bt, self.st, self.ds
+        st.pivot.copy_(torch.where(ds.act, ds.p, st.pivot))
+        st.d0.copy_(torch.where(ds.act, ds.pd, st.d0))
+        if self.linked:
+            a = ds.act & st.alive
+            tgt = torch.where(a, st.batch_ids, bt.cap1 - 1).long()
+            bt.ids[self.layer][tgt, 0] = torch.where(a, st.pivot, -1)
+            bt.dists[self.layer][tgt, 0] = torch.where(a, st.d0, INF)
+
+
+class BuildPart(RoundPart):
+    """Construction on layer ``layer`` for the first ``rows`` points (the
+    B1 prefix on upper layers, the whole batch on layer 0): the
+    ef_construction beam, the exact re-score, on layer 0 with ``extend`` the
+    widen pass, the neighbour selection and the forward rows; then the
+    pivots (upper layers) or the forward in-degree (layer 0)."""
+
+    def __init__(self, bt: BuildTensors, st: RoundState, metric: str, layer: int,
+                 rows: int, width: int, efc: int, expand: int, max_iters, keep_pruned: bool,
+                 extend: bool = False, protect: bool = False):
+        self.bt, self.st, self.metric, self.layer, self.rows = bt, st, metric, layer, rows
+        self.width, self.efc, self.expand, self.max_iters = width, efc, expand, max_iters
+        self.keep_pruned, self.protect = keep_pruned, protect
+        self.branches = bool(extend) and layer == 0
+        self.iters = beam_iters(efc, expand, max_iters)
+        self.sel = st.selection(layer, rows, width)
+
+    def begin(self):
+        st, r = self.st, self.rows
+        self.act = st.alive if self.layer == 0 else st.alive[:r] & (st.lv[:r] >= self.layer)
+        self.beam = beam_setup(self.metric, self.bt.vtrav, self.bt.sqnorms,
+                               self.bt.ids[self.layer], st.q[:r], st.pivot[:r], st.d0[:r],
+                               ef=self.efc, expand=self.expand, active=self.act,
+                               max_iters=self.max_iters)
+        self._carry = {f: getattr(self.beam, f) for f in BeamState.CARRY
+                       if getattr(self.beam, f) is not None}
+
+    def step(self, it: int):
+        beam_step(self.beam, it)
+
+    def carry(self):
+        for f, buf in self._carry.items():
+            buf.copy_(getattr(self.beam, f))
+            setattr(self.beam, f, buf)
+
+    def finished(self):
+        return self.beam.done.all()
+
+    def loop(self):
+        beam_run(self.beam)
+
+    def end(self):
+        cand_ids, cand_d = _rescore_exact(self.bt, self.metric, self.st.q[:self.rows],
+                                          *beam_finish(self.beam))
+        if not self.branches:
+            self._select(cand_ids, cand_d)
+            return
+        self.k_win = min(cand_ids.shape[1], max(2 * self.width, 128))
+        self._cands = (cand_ids, cand_d)
+        self._need = extend_need(cand_ids, self.act, self.width)
+        self.need = self._need.any()
+        self._win = (torch.empty((self.rows, self.k_win), dtype=torch.int32,
+                                 device=cand_ids.device),
+                     torch.empty((self.rows, self.k_win), device=cand_ids.device))
+
+    def widen(self):
+        out = extend_widen(self.metric, self.bt.vectors, self.bt.sqnorms, self.bt.ids[0],
+                           self.st.q, *self._cands, self.width, self._need, self.k_win)
+        for buf, x in zip(self._win, out):
+            buf.copy_(x)
+
+    def keep(self):
+        for buf, x in zip(self._win, extend_keep(*self._cands, self.k_win)):
+            buf.copy_(x)
+
+    def after(self):
+        self._select(*self._win)
+
+    def _select(self, cand_ids, cand_d):
+        bt, st, l, r, act = self.bt, self.st, self.layer, self.rows, self.act
+        sel_ids, sel_d = select_neighbours_batched(self.metric, bt.vectors, bt.sqnorms,
+                                                   cand_ids, cand_d, self.width,
+                                                   self.keep_pruned)
+        tgt = torch.where(act, st.batch_ids[:r], bt.cap1 - 1).long()
+        bt.ids[l][tgt] = torch.where(act[:, None], sel_ids, -1)
+        bt.dists[l][tgt] = torch.where(act[:, None], sel_d, INF)
+        self.sel[0].copy_(sel_ids)
+        self.sel[1].copy_(sel_d)
+        if l > 0:
+            has = act & torch.isfinite(sel_d[:, 0])
+            st.pivot[:r].copy_(torch.where(has, sel_ids[:, 0], st.pivot[:r]))
+            st.d0[:r].copy_(torch.where(has, sel_d[:, 0], st.d0[:r]))
+        elif self.protect:
+            _add_counts(bt.indeg0, sel_ids, act[:, None] & (sel_ids >= 0), 1)
+
+
+def _rescore_exact(bt: BuildTensors, metric: str, q, cand_ids, cand_d):
+    """With a bf16 traversal copy: the candidates re-scored against the f32
+    vectors and re-sorted; without one, as they are."""
+    if bt.vectors_lo is None:
+        return cand_ids, cand_d
+    safe = torch.clamp(cand_ids, 0, bt.cap1 - 1).long()
+    sc = scores_gathered(metric, q, bt.vectors[safe], bt.sqnorms[safe])
+    sc = torch.where(cand_ids >= 0, sc, INF)
+    sd, o = torch.sort(sc, dim=1, stable=True)
+    return torch.gather(cand_ids, 1, o), sd
+
+
+class MergeZeroPart(RoundPart):
+    """The layer-0 reverse-link merge of the level-0 points' selections (with
+    the in-degree guarantee under ``protect``)."""
+
+    def __init__(self, bt: BuildTensors, st: RoundState, width: int, protect: bool,
+                 min_indeg: int):
+        self.bt, self.st, self.width, self.protect, self.min_indeg = (
+            bt, st, width, protect, min_indeg)
+        self.sel = st.selection(0, st.B, width)
+
+    def begin(self):
+        bt, st = self.bt, self.st
+        sids, sd = self.sel
+        ev0 = (sids >= 0) & st.alive[:, None] & (st.lv == 0)[:, None]
         eq0 = sids.reshape(-1)
         ed0 = sd.reshape(-1)
-        es0 = batch_ids[:, None].expand(sids.shape).reshape(-1)
+        es0 = st.batch_ids[:, None].expand(sids.shape).reshape(-1)
         v0 = ev0.reshape(-1) & (eq0 != es0)
-        if indeg0 is None:
-            _reverse_merge(ids_t[0], d_t[0], eq0, es0, ed0, v0, cfg.widths[0])
-        else:
-            ep0 = (torch.arange(sids.shape[1], device=dev)[None, :] < cfg.min_indeg
-                   ).expand(sids.shape).reshape(-1)
-            _reverse_merge(ids_t[0], d_t[0], eq0, es0, ed0, v0, cfg.widths[0],
-                           indeg=indeg0, eprot=ep0, min_indeg=cfg.min_indeg)
-    if B1 > 0:
-        parts = []
-        if sel0 is not None:
-            sids, sd, _ = sel0
-            parts.append((sids[:B1], sd[:B1]))
-        for l in range(1, L):
-            if sel_upper[l] is not None:
-                parts.append((sel_upper[l][0], sel_upper[l][1]))
-        if parts:
-            eq = torch.cat([p[0] for p in parts], dim=1)
-            edd = torch.cat([p[1] for p in parts], dim=1)
-            esrc = batch_ids[:B1, None].expand(eq.shape)
-            elv = lv[:B1, None].expand(eq.shape)
-            eq, edd, esrc, elv = (x.reshape(-1) for x in (eq, edd, esrc, elv))
-            ev = (eq >= 0) & (eq != esrc)
-            for l_n in range(1, L):
-                v_ln = ev & (elv == l_n)
-                _reverse_merge(ids_t[l_n], d_t[l_n], eq, esrc, edd, v_ln, cfg.widths[l_n])
-    out = tuple(zip(ids_t, d_t))
+        if not self.protect:
+            _reverse_merge(bt.ids[0], bt.dists[0], eq0, es0, ed0, v0, self.width)
+            return
+        ep0 = (torch.arange(sids.shape[1], device=sids.device)[None, :] < self.min_indeg
+               ).expand(sids.shape).reshape(-1)
+        _reverse_merge(bt.ids[0], bt.dists[0], eq0, es0, ed0, v0, self.width,
+                       indeg=bt.indeg0, eprot=ep0, min_indeg=self.min_indeg)
+
+
+class MergeUpperPart(RoundPart):
+    """The upper layers' reverse-link merge: the B1 prefix's selections on
+    layer 0 (``with0``) and on each layer in ``uppers``, grouped by the new
+    point's level."""
+
+    def __init__(self, bt: BuildTensors, st: RoundState, B1: int, widths: tuple,
+                 uppers: tuple, with0: bool):
+        self.bt, self.st, self.B1, self.widths = bt, st, B1, widths
+        self.parts = ([st.selection(0, st.B, widths[0])] if with0 else []) + [
+            st.selection(l, B1, widths[l]) for l in sorted(uppers)]
+
+    def begin(self):
+        bt, st, B1 = self.bt, self.st, self.B1
+        eq = torch.cat([p[0][:B1] for p in self.parts], dim=1)
+        edd = torch.cat([p[1][:B1] for p in self.parts], dim=1)
+        esrc = st.batch_ids[:B1, None].expand(eq.shape)
+        elv = st.lv[:B1, None].expand(eq.shape)
+        eq, edd, esrc, elv = (x.reshape(-1) for x in (eq, edd, esrc, elv))
+        ev = (eq >= 0) & (eq != esrc)
+        for l_n in range(1, len(self.widths)):
+            _reverse_merge(bt.ids[l_n], bt.dists[l_n], eq, esrc, edd, ev & (elv == l_n),
+                           self.widths[l_n])
+
+
+def round_plan(cfg: RoundConfig, protect: bool) -> list:
+    """The parts of a round, in order, as ``(key, make)``: ``key`` names the
+    part and every static it reads (of ``cfg``, and whether the in-degree
+    guarantee runs), ``make(bt, st)`` builds it. The layer-0 construction
+    depends on neither ``B1`` nor ``max_obs``, so every steady round shares
+    its key."""
+    B, B1, L, m = cfg.B, cfg.B1, cfg.num_layers, cfg.metric
+    beam = (cfg.efc, cfg.expand, cfg.max_iters, cfg.keep_pruned)
+    plan = [(("head", B), lambda bt, st: HeadPart(bt, st, m))]
+    for l in range(min(cfg.max_obs, L - 1), 0, -1):
+        linked = bool(cfg.nonempty[l])
+        plan.append((("descent", B, l, linked),
+                     lambda bt, st, l=l, linked=linked: DescentPart(bt, st, m, l, linked)))
+    uppers = tuple(l for l in range(L - 1, 0, -1) if cfg.nonempty[l]) if B1 else ()
+    for l in uppers:
+        plan.append((("build", B, l, B1, cfg.widths[l]) + beam,
+                     lambda bt, st, l=l: BuildPart(bt, st, m, l, B1, cfg.widths[l],
+                                                   *beam)))
+    if cfg.nonempty[0]:
+        plan.append((("build", B, 0, B, cfg.widths[0]) + beam + (cfg.extend, protect),
+                     lambda bt, st: BuildPart(bt, st, m, 0, B, cfg.widths[0], *beam,
+                                              extend=cfg.extend, protect=protect)))
+        plan.append((("merge0", B, cfg.widths[0], protect, cfg.min_indeg),
+                     lambda bt, st: MergeZeroPart(bt, st, cfg.widths[0], protect,
+                                                  cfg.min_indeg)))
+    if B1 and (cfg.nonempty[0] or uppers):
+        plan.append((("merge_upper", B, B1, cfg.widths, uppers, bool(cfg.nonempty[0])),
+                     lambda bt, st: MergeUpperPart(bt, st, B1, cfg.widths, uppers,
+                                                   bool(cfg.nonempty[0]))))
+    return plan
+
+
+def round_step(vectors, sqnorms, levels, tables, batch_ids, entry,
+               vectors_lo=None, indeg0=None, *, cfg: RoundConfig):
+    """One synchronized insertion round, eager: every part of ``round_plan``
+    with its own loop (one host read per beam iteration and per descent
+    hop). ``tables`` is a sequence of (ids, dists) per layer, updated in
+    place and returned. With ``indeg0`` (a [cap1] int32 layer-0 in-degree
+    array, also updated in place) the layer-0 merge protects in-degree and
+    the return value is ``(tables, indeg0)``. ``entry``: an int or a
+    one-element tensor.
+
+    ``vectors_lo``: optional bf16 copy used only for traversal scoring; the
+    candidates are re-scored in f32 before the neighbour selection.
+    ``ops/program.py::BuildPrograms`` runs the same parts as captured device
+    programs and writes the same tables."""
+    bt = BuildTensors(vectors, sqnorms, levels, tables, vectors_lo, indeg0)
+    st = RoundState(cfg.B, vectors.shape[1], vectors.device)
+    st.start(batch_ids, entry)
+    for _, make in round_plan(cfg, indeg0 is not None):
+        run_part(make(bt, st))
+    out = bt.tables()
     return out if indeg0 is None else (out, indeg0)
 
 
@@ -589,7 +848,12 @@ class HostBuildState:
 def device_parallel_insert(hnsw, pairs, batch_size: Optional[int] = None,
                            expand: int = 8, build_max_iters: Optional[int] = None):
     """Build/extend an index with synchronized rounds on ``hnsw.device``.
-    ``pairs`` is a list of ``(vector, id)`` tuples or an ``(X, ids)`` pair."""
+    ``pairs`` is a list of ``(vector, id)`` tuples or an ``(X, ids)`` pair.
+    On the card every round runs through the build's round programs
+    (``program.round_programs``: captured CUDA graphs); on the CPU through
+    the eager ``round_step``. ``hnsw._round_stats`` (and the ``build.*``
+    profiler counters) count the rounds, the rounds replayed, the program
+    keys, the captures and the bytes of the programs' pool."""
     if isinstance(pairs, tuple) and len(pairs) == 2 and hasattr(pairs[0], "ndim"):
         X, ids = pairs
         if len(X) == 0:
@@ -610,6 +874,7 @@ def device_parallel_insert(hnsw, pairs, batch_size: Optional[int] = None,
             return
     from ..utils.logging import init_logging
     from ..utils.profiling import PROFILER
+    from . import program
 
     dev = hnsw.device
     st = HostBuildState(hnsw, pairs)
@@ -640,6 +905,9 @@ def device_parallel_insert(hnsw, pairs, batch_size: Optional[int] = None,
     indeg0 = torch.as_tensor(st.indeg0_np(), device=dev) if protect else None
     min_indeg = int(os.environ.get("HNSW_MIN_INDEG", 2))
     PROFILER.add("build.points", st.remaining)
+    progs = program.round_programs(dev)
+    if progs is not None:
+        bt = BuildTensors(vectors, sqnorms, levels_t, tables, vectors_lo, indeg0)
     while st.remaining:
         Br = st.ramp(B)
         max_obs, nonempty = st.entry_level, tuple(bool(c > 0) for c in st.counts)
@@ -654,14 +922,21 @@ def device_parallel_insert(hnsw, pairs, batch_size: Optional[int] = None,
                           extend=bool(hnsw.extend_candidates), B1=B1,
                           max_iters=build_max_iters, min_indeg=min_indeg)
         with PROFILER.span("build.round"):
-            out = round_step(vectors, sqnorms, levels_t, tables,
-                             torch.as_tensor(bidx, device=dev), entry,
-                             vectors_lo, indeg0, cfg=cfg)
-            tables, indeg0 = out if protect else (out, None)
+            if progs is None:
+                round_step(vectors, sqnorms, levels_t, tables,
+                           torch.as_tensor(bidx, device=dev), entry,
+                           vectors_lo, indeg0, cfg=cfg)
+            else:
+                progs.round(bt, cfg, bidx, entry)
         if st.cursor % 50_000 < Br:  # reference prints every 50k (src/hnsw.rs:524-526)
             init_logging().info("device insert: %d points indexed", st.cursor)
     with PROFILER.span("build.flush"):
         st.flush([(i.cpu().numpy(), d.cpu().numpy()) for i, d in tables])
+    if progs is not None:  # before the snapshot and the search programs take memory
+        for k, v in progs.stats.items():
+            PROFILER.add(f"build.{k}", v)
+        hnsw._round_stats = dict(progs.stats, pools=progs.pools())
+        progs.clear()
     if getattr(hnsw, "_auto_repair", True):
         import time as _time
         _t0 = _time.time()

@@ -46,7 +46,17 @@ The other three are one graph each (``CallProgram``): one call of a
 function on static inputs, none of which reads the host, so a whole batch
 replays with no host read. ``IvfProgram`` unrolls its ``nprobe`` probe steps
 into the graph, as ``lax.scan`` with a static length compiles to one
-program; ``TopkProgram``'s chunk loop has a static trip count.
+program; ``TopkProgram``'s chunk loop has a static trip count. The k-means
+assignment step of the IVF build is a ``CallProgram`` too.
+
+The build's insertion rounds (``BuildPrograms``, the counterpart of
+``jax.jit(round_step)``, ``hnsw_tpu/ops/insert_rounds.py:508``) are one
+``RoundProgram`` per part of a round (the head, each layer's descent and
+construction, the merges; ``ops/insert_rounds.py::round_plan``), keyed on
+the statics the part reads, so every steady round replays the layer-0
+construction, whose key holds neither ``B1`` nor ``max_obs``. A round writes
+the tables in place, so nothing is warmed up: a key's first run is
+uncaptured, its second captures and replays.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import time
 from collections import OrderedDict
 from typing import Optional
 
@@ -128,6 +139,19 @@ def call_key(held, batch: int, dtype, device, **static) -> tuple:
             str(torch.device(device)), tuple(sorted(static.items())))
 
 
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(device):
+    """The one warm-up and capture stream of ``device``: the caching allocator
+    hands a pool's freed blocks only to allocations on the stream that freed
+    them, so the captures that share a pool (a build's) share a stream."""
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 class Program:
     """What every program shares: its device, the warm-up and capture of its
     pieces into one memory pool, and the bytes that pool holds
@@ -145,14 +169,17 @@ class Program:
     def _release(self):
         pass
 
-    def _pieces(self, fns, graph_factory=None, capture=None) -> list:
+    def _pieces(self, fns, graph_factory=None, capture=None, warm=True, pool=None) -> list:
         """Captured pieces on the card (or with a stub graph); on the CPU
-        pieces that run their function on every replay."""
+        pieces that run their function on every replay. ``warm=False``
+        skips the warm-up (a round program's pieces ran once, uncaptured,
+        just before); ``pool`` is a list that holds the memory pool several
+        programs share (empty until the first capture into it)."""
         if self.device.type == "cuda" or graph_factory is not None:
-            return self._capture_all(fns, graph_factory, capture)
+            return self._capture_all(fns, graph_factory, capture, warm, pool)
         return [Piece(fn) for fn in fns]
 
-    def _capture_all(self, fns, graph_factory, capture):
+    def _capture_all(self, fns, graph_factory, capture, warm=True, pool=None):
         on_card = self.device.type == "cuda"
         if graph_factory is None:
             graph_factory = torch.cuda.CUDAGraph
@@ -160,37 +187,48 @@ class Program:
         with ctx:
             side = None
             if on_card:
-                cur = torch.cuda.current_stream(self.device)
-                side = torch.cuda.Stream(self.device)  # warm-up and capture stream
-                side.wait_stream(cur)
-                with torch.cuda.stream(side):  # the warm-up
-                    for fn in fns:
-                        fn()
-                cur.wait_stream(side)
-                self._release()
+                side = _capture_stream(self.device)
+                if warm:
+                    cur = torch.cuda.current_stream(self.device)
+                    side.wait_stream(cur)
+                    with torch.cuda.stream(side):  # the warm-up
+                        for fn in fns:
+                            fn()
+                    cur.wait_stream(side)
+                    self._release()
                 torch.cuda.synchronize(self.device)
-                torch.cuda.empty_cache()
+                if warm:  # a round program captures mid-build: its cache stays
+                    torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved(self.device)
-            pool = []
+            pool = [] if pool is None else pool
 
+            # torch.cuda.graph's own context would synchronize and empty the
+            # allocator's caches (pinned host memory too) around every graph
             @contextlib.contextmanager
             def in_pool(graph):
-                with torch.cuda.graph(graph, pool=pool[0] if pool else None, stream=side):
-                    yield
+                with torch.cuda.stream(side):
+                    graph.capture_begin(*pool[:1])
+                    try:
+                        yield
+                    finally:
+                        graph.capture_end()
                 if not pool:
                     pool.append(graph.pool())
 
             # the cycle collector stays off while capturing: a collection
             # could destroy another program's graph, which CUDA refuses while
-            # a stream captures
-            gc.collect()
+            # a stream captures (a round program captures mid-build, chunk by
+            # chunk, where a full collection each time would cost more than
+            # the capture)
+            if warm:
+                gc.collect()
             gc.disable()
             try:
                 pieces = [Piece(fn, graph_factory(), capture or in_pool) for fn in fns]
             finally:
                 gc.enable()
             if on_card:
-                self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+                self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         return pieces
 
 
@@ -380,6 +418,242 @@ class IvfProgram(CallProgram):
                                xsq3=xsq3, nprobe=int(nprobe), kf=int(kf), metric=metric)
         super().__init__(fn, [((int(batch), cent.shape[1]), dtype)], device,
                          graph_factory, capture)
+
+
+class KmeansProgram(CallProgram):
+    """The IVF build's k-means assignment step (``models/ivf.py::
+    _kmeans_assign``; the reference jits it, ``hnsw_tpu/models/ivf.py:57``)
+    for one chunk shape: its static inputs are the chunk [rows, d], the
+    centroids [C, d] and their squared norms [C]. ``run(Xc, cent, csq)`` ->
+    (assign, top4, psum, pcnt, qerr)."""
+
+    def __init__(self, rows: int, C: int, d: int, device, graph_factory=None, capture=None):
+        from ..models.ivf import _kmeans_assign
+        super().__init__(functools.partial(_kmeans_assign, C=int(C)),
+                         [((int(rows), int(d)), torch.float32),
+                          ((int(C), int(d)), torch.float32), ((int(C),), torch.float32)],
+                         device, graph_factory, capture)
+
+
+class RoundProgram(Program):
+    """One part of an insertion round for one key (``round_plan`` of
+    ``ops/insert_rounds.py``), the counterpart of that part of the
+    reference's ``jax.jit(round_step)``. Its pieces: the part's ``begin``;
+    one per chunk of ``CHUNK`` loop steps (beam iterations or descent hops),
+    each followed by a host read of the part's ``finished`` flag, after which
+    the chunks left are skipped (the reference's ``while_loop``, at chunk
+    granularity: a step after the flag changes nothing); ``end``; with the
+    widen pass, ``widen`` or ``keep`` after a host read of ``need.any()``
+    (the reference's ``lax.cond``), then ``after``.
+
+    A round writes the tables in place, so a warm-up would apply it twice.
+    The first run of a key runs its pieces uncaptured (the round's own work
+    and the warm-up of its kernels); the second captures ``begin``, ``end``
+    and the branches, which runs nothing on the card, and replays; later runs
+    replay. A chunk is captured the first time a captured run reaches it, so
+    the chunks past where the loops end (a cap of 232 beam iterations where
+    about 50 run) cost no capture. ``start``, ``step``, ``finished`` and
+    ``finish`` let a caller interleave the programs of several shards chunk
+    by chunk. ``capture_s``, ``chunk_graphs`` and ``branch_replays`` count
+    the captures' seconds, the chunk graphs and the replays of each widen
+    branch since the build last read them; ``key`` is the part's key."""
+
+    def __init__(self, part, device, graph_factory=None, capture=None, pool=None, key=None):
+        super().__init__(device)
+        self.part, self.key = part, key
+        spans = [(lo, min(lo + CHUNK, part.iters)) for lo in range(0, part.iters, CHUNK)]
+        self.n_chunks = len(spans)
+        self._flags = [None] * len(spans)
+        # a part without a loop is its begin alone (a graph may not be empty)
+        self._fixed = ([part.begin] + ([part.end] if spans else [])
+                       + ([part.widen, part.keep, part.after] if part.branches else []))
+        self._chunk_fns = [functools.partial(self._chunk, j, lo, hi)
+                           for j, (lo, hi) in enumerate(spans)]
+        self._pieces_fixed = [Piece(fn) for fn in self._fixed]
+        self._chunks = [Piece(fn) for fn in self._chunk_fns]
+        self._capture_args = (graph_factory, capture, pool)
+        self.runs = 0
+        self.capture_s = 0.0
+        self.chunk_graphs = 0
+        self.branch_replays = {"widen": 0, "keep": 0}
+
+    def _chunk(self, j: int, lo: int, hi: int):
+        for it in range(lo, hi):
+            self.part.step(it)
+        self.part.carry()
+        self._flags[j] = self.part.finished()
+
+    def _capture(self, fns) -> list:
+        factory, capture, pool = self._capture_args
+        t0 = time.perf_counter()
+        pieces = self._pieces(fns, factory, capture, warm=False, pool=pool)
+        self.capture_s += time.perf_counter() - t0
+        return pieces
+
+    def start(self):
+        """Capture at the key's second run; replay (or run) ``begin``."""
+        if self.runs == 1:
+            self._pieces_fixed = self._capture(self._fixed)
+            self._fixed = None
+            self._chunks = [None] * self.n_chunks
+        self.runs += 1
+        self._pieces_fixed[0].replay()
+
+    def step(self, j: int):
+        if self._chunks[j] is None:
+            (self._chunks[j],) = self._capture([self._chunk_fns[j]])
+            self._chunk_fns[j] = None
+            self.chunk_graphs += 1
+        self._chunks[j].replay()
+
+    def finished(self, j: int) -> bool:
+        """Whether the loop was done after chunk ``j`` (a host read)."""
+        return bool(self._flags[j])
+
+    def finish(self):
+        rest = self._pieces_fixed[1:]
+        if self.n_chunks:
+            rest[0].replay()
+        if self.part.branches:
+            widen, keep, after = rest[-3:]
+            name = "widen" if bool(self.part.need) else "keep"
+            (widen if name == "widen" else keep).replay()
+            after.replay()
+            if self._fixed is None:  # captured
+                self.branch_replays[name] += 1
+
+    def run(self):
+        self.start()
+        for j in range(self.n_chunks):
+            self.step(j)
+            if self.finished(j):
+                break
+        self.finish()
+
+    def release(self):
+        """Drop the pieces, the functions not captured yet (which refer back
+        to the program) and the part, so that a dropped program frees its
+        graphs and the build's tensors at once, not at the cycle collector's
+        next pass."""
+        self._fixed = self._chunk_fns = self._pieces_fixed = self._chunks = None
+        self.part = None
+
+
+class BuildPrograms:
+    """The round programs of one build on one device, the counterpart of the
+    reference's ``jax.jit(round_step, static_argnames=("cfg",),
+    donate_argnums=(3, 7))``. Each part of a round is a ``RoundProgram``
+    keyed on its ``round_plan`` key (the statics it reads) and the identity
+    of the build's tensors, which the build updates in place; the parts of a
+    batch size meet in one ``RoundState``, allocated outside every capture.
+    Every capture goes into one memory pool: the pieces of a build run one
+    after another, and what a program keeps in the pool between its pieces
+    (a beam's state) is dead once its ``end`` has run. A capture that takes
+    the pool past ``share`` of the card raises, as a failed capture does.
+
+    ``stats``: rounds; rounds replayed (every part from captured graphs);
+    keys; captures; first runs (parts run uncaptured, one a key);
+    ``pool_bytes``; ``capture_s``, the seconds the captures took (on the
+    card a capture runs its pieces' host work with the device idle);
+    ``chunk_graphs``, the loop chunks captured; ``widen_replays`` and
+    ``keep_replays``, the captured widen pass's branches replayed."""
+
+    def __init__(self, device, graph_factory=None, capture=None, share: float = POOL_SHARE):
+        self.device = torch.device(device)
+        self._factory, self._capture, self.share = graph_factory, capture, share
+        self._progs: dict = {}
+        self._states: dict = {}
+        self._pool: list = []
+        self._round: list = []
+        self._runs: list = []
+        self.stats = {"rounds": 0, "rounds_replayed": 0, "keys": 0, "captures": 0,
+                      "first_runs": 0, "pool_bytes": 0, "capture_s": 0.0,
+                      "chunk_graphs": 0, "widen_replays": 0, "keep_replays": 0}
+
+    def programs(self, bt, cfg, batch_ids, entry) -> list:
+        """The programs of one round, in order, with its batch and entry
+        copied into the batch size's ``RoundState``."""
+        from .insert_rounds import RoundState, round_plan
+
+        st = self._states.get(cfg.B)
+        if st is None:
+            st = self._states[cfg.B] = RoundState(cfg.B, bt.vectors.shape[1], self.device)
+        st.start(batch_ids, entry)
+        held = bt.held()
+        progs = []
+        for key, make in round_plan(cfg, bt.indeg0 is not None):
+            prog = self._progs.get((held, key))
+            if prog is None:
+                prog = self._progs[(held, key)] = RoundProgram(
+                    make(bt, st), self.device, self._factory, self._capture, self._pool, key)
+            progs.append(prog)
+        self._round, self._runs = progs, [p.runs for p in progs]
+        return progs
+
+    def account(self):
+        """Count the round whose programs ``programs`` gave, once they ran;
+        raise (the programs dropped) if its captures took the pool past
+        ``share`` of the card."""
+        s, runs = self.stats, self._runs
+        s["rounds"] += 1
+        s["rounds_replayed"] += all(r >= 1 for r in runs)
+        s["first_runs"] += sum(r == 0 for r in runs)
+        s["captures"] += sum(r == 1 for r in runs)
+        s["keys"] = max(s["keys"], len(self._progs))
+        s["pool_bytes"] = max(s["pool_bytes"], self.pool_bytes())
+        captured = [p.key for p, r in zip(self._round, runs) if r == 1 or p.chunk_graphs]
+        for p in self._round:
+            s["capture_s"] += p.capture_s
+            s["chunk_graphs"] += p.chunk_graphs
+            for name, n in p.branch_replays.items():
+                s[f"{name}_replays"] += n
+            p.capture_s, p.chunk_graphs = 0.0, 0
+            p.branch_replays = {"widen": 0, "keep": 0}
+        pool, budget = self.pool_bytes(), self._budget()
+        if captured and pool > budget:
+            self.clear()
+            raise RuntimeError(
+                f"the build's round programs hold {pool} bytes in their pool, over "
+                f"{budget:.0f} ({self.share} of the card), after capturing {captured}; "
+                "a smaller batch_size shrinks the pool")
+
+    def round(self, bt, cfg, batch_ids, entry):
+        """One round through the programs."""
+        for prog in self.programs(bt, cfg, batch_ids, entry):
+            prog.run()
+        self.account()
+
+    def pool_bytes(self) -> int:
+        return sum(p.pool_bytes for p in self._progs.values())
+
+    def pools(self) -> dict:
+        """The pool's bytes by the kind of part whose capture reserved them."""
+        out: dict = {}
+        for (_, key), p in self._progs.items():
+            out[key[0]] = out.get(key[0], 0) + p.pool_bytes
+        return out
+
+    def _budget(self) -> float:
+        if self.device.type != "cuda":
+            return float("inf")
+        return self.share * torch.cuda.get_device_properties(self.device).total_memory
+
+    def clear(self):
+        """Drop every program, its graphs and the pool."""
+        for prog in self._progs.values():
+            prog.release()
+        self._progs.clear()
+        self._round = []
+        self._states.clear()
+        self._pool.clear()
+
+
+def round_programs(device, share: float = POOL_SHARE) -> Optional[BuildPrograms]:
+    """A build's round programs on ``device`` (their pool within ``share``
+    of the card): a new ``BuildPrograms`` on the card; None on the CPU,
+    where the build runs the eager ``round_step``."""
+    device = torch.device(device)
+    return BuildPrograms(device, share=share) if device.type == "cuda" else None
 
 
 def search_fixed(g, q, mask, **kw):

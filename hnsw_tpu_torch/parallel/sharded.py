@@ -10,8 +10,11 @@ CUDA is asynchronous; a device may also appear more than once (several shards
 on one card, or on the CPU in the tests).
 
   * **build**: the corpus is split round-robin; ``mode="mesh"`` runs one
-    synchronized insertion round per shard per step (``round_step``) on one
-    shared geometry, subgraphs being independent;
+    synchronized insertion round per shard per step on one shared geometry,
+    subgraphs being independent: on the card through each shard's round
+    programs (``ops/program.py::BuildPrograms``), interleaved part by part
+    and chunk by chunk across the shards, as the search is; on the CPU the
+    eager ``round_step`` per shard;
   * **search**: every shard runs the single-card search program (the int8
     codec without id rows, so kernel B3 scores each beam iteration, then the
     exact rerank), captured per shard on its device (``ops/program.py``; the
@@ -53,7 +56,9 @@ from ..models.hnsw import Hnsw
 from ..ops.beam_search import _resolve_slack, smallest
 from ..ops.distances import get_metric
 from ..ops.graph_arrays import BeamCodec, _round_up
-from ..ops.insert_rounds import HostBuildState, RoundConfig, _next_pow2, round_step
+from ..ops import program
+from ..ops.insert_rounds import (BuildTensors, HostBuildState, RoundConfig, _next_pow2,
+                                 round_step)
 from ..ops.program import POOL_SHARE, CallProgram, ProgramCache, SearchProgram
 from ..ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk, refine_width, scan_acc
 from ..ops.stream import fetch_host, pipelined_stream, upload_batch
@@ -205,7 +210,9 @@ class ShardedHnsw:
             self._state = None
 
     def _mesh_insert(self, buckets, batch_size: Optional[int] = None, expand: int = 8):
-        """The sharded build: each step runs one round on every shard
+        """The sharded build: each step runs one round on every shard, through
+        the shards' round programs on the card (``sharded_program_round``;
+        ``self._round_stats``, one dict a shard) and ``round_step`` on the CPU
         (``sharded_insert_round_fn``); afterwards the device tables seed the
         search state directly."""
         D = self.n_shards
@@ -244,6 +251,12 @@ class ShardedHnsw:
             min(4096, max(64, max(st.remaining for st in states))))
         h0 = self.shards[0]
         self._mesh_rounds = 0
+        progs = [program.round_programs(d, POOL_SHARE / devs.count(d)) for d in devs]
+        if any(p is None for p in progs):
+            progs = None
+        else:
+            bts = [BuildTensors(vectors[s], sqnorms[s], levels[s], tables[s], None, indeg[s])
+                   for s in range(D)]
         while any(st.remaining for st in states):
             self._mesh_rounds += 1
             Br = min(st.ramp(B) for st in states if st.remaining)
@@ -262,10 +275,17 @@ class ShardedHnsw:
                               max_obs=max_obs, nonempty=nonempty,
                               keep_pruned=bool(h0.keep_pruned),
                               extend=bool(h0.extend_candidates), B1=B1)
-            tables, indeg = sharded_insert_round_fn(devs, cfg)(
-                vectors, sqnorms, levels, tables, bidx, entry, indeg)
+            if progs is None:
+                tables, indeg = sharded_insert_round_fn(devs, cfg)(
+                    vectors, sqnorms, levels, tables, bidx, entry, indeg)
+            else:
+                sharded_program_round(devs, progs, bts, cfg, bidx, entry)
         for s, st in enumerate(states):
             st.flush([(i.cpu().numpy(), d.cpu().numpy()) for i, d in tables[s]])
+        if progs is not None:
+            self._round_stats = [dict(p.stats, pools=p.pools()) for p in progs]
+            for p in progs:
+                p.clear()
         org = np.full((D, cap1), -1, np.int64)
         n_live = []
         for s in range(D):
@@ -621,6 +641,37 @@ def sharded_insert_round_fn(devices, cfg):
             out_i.append(ind)
         return out_t, out_i
     return step
+
+
+def sharded_program_round(devices, programs, bts, cfg, batch_ids, entry):
+    """One synchronized insertion round on every shard through its round
+    programs (``programs[s]``, a ``BuildPrograms`` on ``devices[s]``, on the
+    shard's ``BuildTensors`` ``bts[s]``), part by part: each part's ``begin``
+    on every shard, then chunk j on every shard still looping followed by
+    one host read of each one's flag, so no shard's launches wait on
+    another's read, then each part's ``end``. The tables and in-degrees are
+    updated in place."""
+    rounds = []
+    for s, dev in enumerate(devices):
+        with _on(dev):
+            rounds.append(programs[s].programs(bts[s], cfg, batch_ids[s], entry[s]))
+    for parts in zip(*rounds):
+        for p, dev in zip(parts, devices):
+            with _on(dev):
+                p.start()
+        live = list(range(len(parts)))
+        for j in range(parts[0].n_chunks):
+            for s in live:
+                with _on(devices[s]):
+                    parts[s].step(j)
+            live = [s for s in live if not parts[s].finished(j)]
+            if not live:
+                break
+        for p, dev in zip(parts, devices):
+            with _on(dev):
+                p.finish()
+    for p in programs:
+        p.account()
 
 
 def _sharded_codec_build_fn(devices, metric, kind):

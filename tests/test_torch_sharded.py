@@ -18,8 +18,12 @@ import hnsw_tpu_torch.ops.insert_rounds as tir
 from hnsw_tpu.parallel.sharded import (ShardedHnsw as JShardedHnsw, default_mesh,
                                        sharded_insert_round_fn as j_round_fn)
 from hnsw_tpu_torch import ShardedHnsw, get_metric, to_arrays
-from hnsw_tpu_torch.parallel.sharded import default_devices, sharded_insert_round_fn
+from hnsw_tpu_torch.ops import program
+from hnsw_tpu_torch.ops.insert_rounds import BuildTensors
+from hnsw_tpu_torch.parallel.sharded import (default_devices, sharded_insert_round_fn,
+                                             sharded_program_round)
 from test_torch_build import jax_from_state
+from test_torch_build_program import DeferredPiece, _programs, rounds_through
 
 D = 8
 KW = dict(max_nb_connection=12, ef_construction=64, dist="L2")
@@ -292,10 +296,39 @@ def test_default_devices_raise_without_cuda():
 
 # --------------------------------------------------- parity with the JAX package -----
 
+@pytest.fixture(scope="module")
+def jmeshed(data, mesh8):
+    """The JAX package's mesh build of the same points."""
+    X, _ = data
+    j = JShardedHnsw(mesh=mesh8, max_elements=len(X) // D + 8, **KW)
+    j.parallel_insert((X, np.arange(len(X))), mode="mesh", batch_size=128)
+    return j
+
+
 def test_round_identical_to_reference(meshed, mesh8):
     """One sharded round from the same conformed states (the built shards
     carried across, 64 new points a shard) writes the same tables and
     in-degrees on every real row of every shard."""
+    _one_round_against_reference(meshed, mesh8, None)
+
+
+def test_round_through_programs_identical_to_reference(meshed, mesh8, monkeypatch):
+    """The same round through every shard's round programs, interleaved part
+    by part and chunk by chunk (``sharded_program_round``), writes what the
+    JAX package's round writes. (A key's first run is uncaptured; the
+    captured replays of a whole mesh build are held against the eager build
+    in ``test_mesh_build_through_programs``.)"""
+    monkeypatch.setattr(program, "Piece", DeferredPiece)
+    progs = [_programs([]) for _ in range(D)]
+    _one_round_against_reference(meshed, mesh8, progs)
+    assert all(p.stats["rounds"] == 1 and p.stats["first_runs"] == p.stats["keys"] > 0
+               for p in progs)
+
+
+def _one_round_against_reference(meshed, mesh8, progs):
+    """One round from the states of ``test_round_identical_to_reference``,
+    eager (``progs`` None) or through ``progs`` (one ``BuildPrograms`` a
+    shard), held against the JAX package's."""
     rng = np.random.default_rng(3)
     X2 = rng.random((D * 64, 16)).astype(np.float32)
     ids2 = 10_000 + np.arange(len(X2))
@@ -331,11 +364,18 @@ def test_round_identical_to_reference(meshed, mesh8):
         ind = [st.indeg0_np() for st in states]
         if pkg == "torch":
             vt = [torch.from_numpy(v) for v in vec]
-            tables, indeg = sharded_insert_round_fn([torch.device("cpu")] * D, cfg)(
-                vt, [(v * v).sum(-1) for v in vt],
-                [torch.from_numpy(st.levels_np()) for st in states],
-                [[(torch.from_numpy(i), torch.from_numpy(d)) for i, d in t] for t in tabs],
-                bidx, entry, [torch.from_numpy(i) for i in ind])
+            args = (vt, [(v * v).sum(-1) for v in vt],
+                    [torch.from_numpy(st.levels_np()) for st in states],
+                    [[(torch.from_numpy(i), torch.from_numpy(d)) for i, d in t] for t in tabs],
+                    bidx, entry, [torch.from_numpy(i) for i in ind])
+            devs = [torch.device("cpu")] * D
+            if progs is None:
+                tables, indeg = sharded_insert_round_fn(devs, cfg)(*args)
+            else:
+                bts = [BuildTensors(*(x[s] for x in args[:4]), None, args[6][s])
+                       for s in range(D)]
+                sharded_program_round(devs, progs, bts, cfg, bidx, entry)
+                tables, indeg = [list(bt.tables()) for bt in bts], args[6]
             tables = [[(i.numpy(), d.numpy()) for i, d in t] for t in tables]
             indeg = [i.numpy() for i in indeg]
         else:
@@ -361,13 +401,12 @@ def test_round_identical_to_reference(meshed, mesh8):
         np.testing.assert_array_equal(it[s][:n], ij[s][:n])
 
 
-def test_mesh_build_close_to_reference(meshed, data, mesh8):
+def test_mesh_build_close_to_reference(meshed, data, jmeshed):
     """The JAX package's mesh build of the same points: equal levels, >= 99.5%
     of layer-0 rows identical (f32 summation order can flip a near-tie in the
     prune), recall@10 within 0.005."""
     X, Q = data
-    j = JShardedHnsw(mesh=mesh8, max_elements=len(X) // D + 8, **KW)
-    j.parallel_insert((X, np.arange(len(X))), mode="mesh", batch_size=128)
+    j = jmeshed
     same = []
     for a, b in zip(meshed.shards, j.shards):
         ta, tb = to_arrays(a), to_arrays(b)
@@ -377,6 +416,30 @@ def test_mesh_build_close_to_reference(meshed, data, mesh8):
     r_t = _recall(*meshed.search_batch(Q, 10, 48), X, Q, 10)
     r_j = _recall(*j.search_batch(Q, 10, 48), X, Q, 10)
     assert abs(r_t - r_j) <= 0.005, (r_t, r_j)
+
+
+def test_mesh_build_through_programs(meshed, jmeshed, data, monkeypatch):
+    """The mesh build through every shard's round programs (stub graphs that
+    run nothing at capture and the piece at each replay) writes the eager
+    mesh build's graphs bit for bit, and so is as close to the JAX package's
+    mesh build: equal levels, >= 99.5% of layer-0 rows identical."""
+    monkeypatch.setattr(program, "Piece", DeferredPiece)
+    X, _ = data
+    graphs, made = [], []
+    sh = _sharded(len(X))
+    with rounds_through(graphs, made):
+        sh.parallel_insert((X, np.arange(len(X))), mode="mesh", batch_size=128)
+    assert len(made) == D and graphs
+    assert all(s["rounds_replayed"] > 0 and s["first_runs"] == s["keys"]
+               for s in sh._round_stats)
+    same = []
+    for a, b, j in zip(sh.shards, meshed.shards, jmeshed.shards):
+        ta, tb, tj = to_arrays(a), to_arrays(b), to_arrays(j)
+        for k in ta:
+            np.testing.assert_array_equal(ta[k], tb[k], err_msg=k)
+        np.testing.assert_array_equal(ta["_level"], tj["_level"])
+        same.append((ta["layer0_ids"] == tj["layer0_ids"]).all(1))
+    assert np.concatenate(same).mean() >= 0.995
 
 
 def test_search_and_exact_on_same_graphs(meshed, data, mesh8):
