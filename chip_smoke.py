@@ -43,7 +43,7 @@ Phases, each printing one JSON line. Path 1 (build and serve):
            op by op): wall median of 3 in turns, device busy from one profiler
            window each, and the same for the program alone on a resident
            batch; 65,536 f32 queries streamed through ``search_batch``, both
-           forms, median QPS over 5 blocks and spread; a filtered search (the
+           forms, median QPS over 3 blocks and spread; a filtered search (the
            even ids) equal to the eager one, every id passing; below the scan
            (20k rows, L2 and Cosine) the matmul route's program (``TopkProgram``)
            equal to its direct call; the pools
@@ -62,7 +62,7 @@ Phases, each printing one JSON line. Path 1 (build and serve):
            forms in turns, and the bytes the programs' pools hold
   bench    the port's benchmark (``hnsw_tpu_torch.bench``) on the same
            index, queries and truth: its ef sweep, the exact engine and the
-           chosen ef timed in 3 blocks of 1 s, the device-resident rate over
+           chosen ef timed in 3 blocks of 0.5 s, the device-resident rate over
            4 sub-batches; its record on a line ``{"bench": {...}}`` must hold
            every key of its JSON line, recall@10 >= 0.98 (graph) and >= 0.999
            (exact), and every B1 launch through "bulk", every B2 launch
@@ -77,7 +77,10 @@ Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
            equal the built index's (h2 array for array; h3, stored in layer
            order, through ``check_graph_equality`` and the row-sorted tables);
            a second dump by the Python route must be byte-equal; file sizes
-           and the seconds of every step
+           and the seconds of every step; then (``persist_more``) the dump's
+           data file through ``DataMap`` byte-equal to the index's rows, and a
+           Light dump reloaded with every layer's table equal to the Full
+           reload's
   serve2   on h2: (a) k=100 through the pool reservoir (ef 192, expand 8,
            pool 256): ids identical to the built index's, recall@100 in fp64;
            (b) ef=256, k=10 with ``allow_fused=False`` (kernel B4) and
@@ -107,15 +110,15 @@ Path 2 (dump, reload, recall-critical serving), on the index path 1 built:
 
 Path 3 (``metrics``; every other metric, built and served on the card):
 
-  (a) Hamming on 200k 256-bit codes (the sign bits of a fixed random 128 ->
+  (a) Hamming on 100k 256-bit codes (the sign bits of a fixed random 128 ->
       256 projection of the path-1 corpus: ann-benchmarks' sift-256-hamming
       construction), built as path 1 (M=24, efC=400, batch 16384), served by
       ``device_search_stream`` at ef 64 and 128 on 4096 query codes; recall@10
       against exact counts from XOR + popcount of the packed codes on the card
-  (b) Jaccard, Hellinger, Jeffreys, JensenShannon and L1 on 20k x 64 softmax
-      rows, Levenshtein on 20k misspellings (one or two edits) of 2k random
+  (b) Jaccard, Hellinger, Jeffreys, JensenShannon and L1 on 10k x 64 softmax
+      rows, Levenshtein on 10k misspellings (one or two edits) of 1k random
       zero-padded words of 3-12 letters, and a
-      ``UserMetric`` (weighted L2, both torch forms) on 20k x 16; each built
+      ``UserMetric`` (weighted L2, both torch forms) on 10k x 16; each built
       with M=16, efC=100, batch 4096, searched at ef 64 over 1024 queries;
       recall@10 against a top-64 pool of the metric's torch scores refined by
       its fp64 numpy oracle; the torch scores against the oracle on 64 x 256;
@@ -160,6 +163,36 @@ one warmed batch at ef 96 through the per-shard programs (chunked: B3
 launches, wall ms, each shard's replay equal to a direct call of its pieces).
 After path 5's counts are read, B3 against its plain version on shard 0's
 codec at path 5's shape.
+
+The later lines, each with its launch counts from zero (``launches_by_path``):
+
+  filters       (after path 2's counts are read) path 1's index with the even
+                ids and with the middle half of the ids: ``device_search_stream``
+                over 4096 queries and ``Hnsw.search_filter`` over 64 at ef 96,
+                no id failing the filter, recall@10 >= 0.95 against
+                ``BruteForceIndex`` under the same filter, the same stream on a
+                CPU copy agreeing on 99% of 256 queries (B1, B2)
+  graft         ``hnsw_tpu_torch/graft_entry.py``: ``entry()``'s program replayed
+                equal to the direct call (and with the int8 codec bound in: B3
+                at the reference's d = 32), ``dryrun_multichip(8)`` on cuda:0 x 8
+                passing every assertion, ``dryrun_multichip(4)`` stopping where
+                the reference's body stops at 4 devices (B3, B2)
+  build_budget  a 20k x 128 build at batch 2048 through the round programs at
+                the default share, at a share between the parts' measured
+                peaks (some keys captured, some not) and below every peak (none
+                captured): each bit-equal to the eager build, none raising
+  user_pivots   the weighted-L2 ``UserMetric`` at 40k x 16 (above
+                ``PIVOT_MIN_POINTS``): entry pivots set, recall@10 >= 0.95 at ef
+                64, its ``matmul_scores`` captured in the program, the replay
+                equal to the direct call
+  topk_gathered ``BruteForceIndex("Hellinger")`` (no matmul form: ``_bf_topk``'s
+                gathered loop in a ``TopkProgram``) on 20k x 64: the replay
+                equal to the direct call, recall@10 >= 0.999 against the fp64
+                oracle
+  bench_knobs   ``hnsw_tpu_torch.bench.main`` at 20k x 128, 4096 queries, with
+                ``BENCH_BUILD=native`` and with ``BENCH_GT=host``: every key,
+                recall at its floor; the host oracle's k-th distances equal to
+                the pool's within 1e-6 relative (B2)
 
 Each kernels line carries median CUDA-event times of the kernel, its plain
 version and a one-call PyTorch yardstick, and the bound the card allows for
@@ -762,25 +795,26 @@ def scan_rows(torch, X, Q):
     return rows, failures
 
 
-def build_path1(torch, X):
+def build_path1(torch, X, batch=16384):
     """Path 1's build of ``X`` (M=24, efC=400, level scale 0.5, kept pruned
     links, batch 16384, cap 96): (index, seconds to a synchronize, peak
     device memory of the build in GB, allocated and reserved)."""
     from hnsw_tpu_torch import Hnsw, PROFILER
+    from hnsw_tpu_torch.ops import program
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    program.reset_peak_memory()
     PROFILER.reset()
     t0 = time.time()
     h = Hnsw(max_nb_connection=24, max_elements=len(X), ef_construction=400,
              dist="L2", device="cuda")
     h.set_keeping_pruned(True)
     h.modify_level_scale(0.5)
-    h.parallel_insert(X, mode="device", batch_size=16384, build_max_iters=96)
+    h.parallel_insert(X, mode="device", batch_size=batch, build_max_iters=96)
     torch.cuda.synchronize()
-    return h, time.time() - t0, {"peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                                 "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    peak, reserved = program.peak_memory()
+    return h, time.time() - t0, {"peak_mem_gb": peak / 1e9, "peak_reserved_gb": reserved / 1e9}
 
 
 def round_faults(label, stats):
@@ -1221,7 +1255,7 @@ def phase_program(torch, h, Q, k=10):
 
 EXACT_BATCH = 2048           # the exact engine's batch (BENCH_SCANB)
 EXACT_STREAM_QUERIES = 65_536
-EXACT_STREAM_BLOCKS = 5
+EXACT_STREAM_BLOCKS = 3
 EXACT_BLOCK_S = 0.5
 SMALL_N = 20_000             # below BruteForceIndex.SCAN_MIN_POINTS: the matmul route
 
@@ -1342,7 +1376,7 @@ def phase_exact_program(torch, bf, X, Q, k=10):
     (wall median of 3 in turns, device busy from one profiler window each),
     and the program alone against its direct call on a resident batch; the
     stream of 65,536 f32 queries through ``search_batch`` against the eager
-    form (median QPS over 5 blocks, spread; one more pass each with the
+    form (median QPS over 3 blocks, spread; one more pass each with the
     stream's upload/dispatch/fetch spans); a filtered search (even ids)
     equal to the eager one, every id passing; below the scan, the matmul
     route's program (L2 and Cosine on 20k rows) equal to its direct
@@ -1420,7 +1454,7 @@ def phase_bench(torch, h, build_s, bf, X, Q, kth):
     """The port's benchmark (``hnsw_tpu_torch.bench``) on path 1's
     index, queries and truth, with no second build: its ef sweep, the exact
     engine (on ``bf``'s scan corpus) and the chosen ef timed in 3 blocks of
-    1 s, the device-resident rate over S2 = 4 sub-batches, the other knobs at
+    0.5 s, the device-resident rate over S2 = 4 sub-batches, the other knobs at
     bench.py's defaults. Prints its record, ``{"bench": {...}}``, and returns
     the failures: a key missing, recall below bench.py's floor (graph) or
     RECALL_EXACT (exact), a B1 launch not through ``bulk`` or a B2 launch not
@@ -1429,7 +1463,7 @@ def phase_bench(torch, h, build_s, bf, X, Q, kth):
     from hnsw_tpu_torch.ops import kernel_lib
 
     cfg = bench.Config(n=len(X), d=X.shape[1], qbatch=len(Q), k=10, dataset="gauss",
-                       recall=RECALL_BENCH, blocks=3, min_block_s=1.0, kernel_s=4,
+                       recall=RECALL_BENCH, blocks=3, min_block_s=0.5, kernel_s=4,
                        device="cuda")
     before = dict(kernel_lib.LAUNCHES)
     t0 = time.time()
@@ -1533,6 +1567,8 @@ def phase_persist(torch, h):
         sizes = {os.path.basename(p): os.path.getsize(p)
                  for p in (npz, os.path.join(tmp, base + ".hnsw.graph"),
                            os.path.join(tmp, base + ".hnsw.data"))}
+        more, f = persist_more(torch, h, h3, tmp, base)
+        failures += f
     t.append(time.time())
     for name, r, layer_order in (("load_native", h2, False), ("load_hnsw", h3, True)):
         if r.device.type != "cuda":
@@ -1548,7 +1584,7 @@ def phase_persist(torch, h):
           "file_dump_s": t[3] - t[2], "load_hnsw_s": t[4] - t[3],
           "file_dump_python_s": py_dump_s, "routes": routes,
           "native_equals_python_bytes": same, "compare_s": compare_s,
-          "bytes": sizes, "failures": failures})
+          "bytes": sizes, "persist_more": more, "failures": failures})
     return h2, h3, failures
 
 
@@ -1726,8 +1762,12 @@ def phase_serve2(torch, h, h2, bf, X, Q, kth10):
 
 # ------------------------------------------------------------------ path 3 ----
 
-RECALL_HAMMING_EF128 = 0.90  # 200k x 256-bit codes, recall@10 at ef=128
-RECALL_SMALL_EF64 = 0.95     # each 20k metric, recall@10 at ef=64
+RECALL_HAMMING_EF128 = 0.90  # 100k x 256-bit codes, recall@10 at ef=128
+RECALL_SMALL_EF64 = 0.95     # each 10k metric, recall@10 at ef=64
+# path 3's sizes, cut (from sift-256-hamming's 1M, and from 200k / 20k before
+# the later lines took their seconds) to keep the script within its time
+HAMMING_N = 100_000
+METRIC_N = 10_000
 SCORES_RTOL = 1e-3           # f32 torch scores against the fp64 oracle (64 x 256)
 HAMMING_BITS = 256
 PROJ_SEED = 0x5EED           # the fixed 128 -> 256 sign projection
@@ -1785,10 +1825,10 @@ def stream_timed(torch, h, Q, k, ef, batch, **kw):
 
 
 def phase_hamming(torch, X, Q, failures, nq=4096, k=10):
-    """Hamming at full size: 200k 256-bit codes, built and served on the card."""
+    """Hamming on HAMMING_N 256-bit codes, built and served on the card."""
     from hnsw_tpu_torch import Hnsw, get_metric
 
-    codes, qcodes = hamming_codes(X, Q[:nq])
+    codes, qcodes = hamming_codes(X[:HAMMING_N], Q[:nq])
     torch.cuda.synchronize()
     t0 = time.time()
     h = Hnsw(max_nb_connection=24, max_elements=len(codes), ef_construction=400,
@@ -1845,7 +1885,7 @@ def _misspellings(rng, base, m, width=12):
     spelling corrector's index holds them. Uniform random strings are all
     about equally far apart, which gives a graph little to route by: the JAX
     package's build of such a set answers with the port's ids
-    (``tests/test_torch_levenshtein_recall.py``), below the gate at 20k."""
+    (``tests/test_torch_levenshtein_recall.py``), below the gate at 20k rows."""
     out = np.zeros((m, width), np.uint16)
     for r, b in enumerate(rng.integers(0, len(base), m)):
         w = list(base[b][base[b] != 0])
@@ -1891,8 +1931,12 @@ def _wl2_scores(q, C):
     return (w * diff * diff).sum(-1)
 
 
+_WL2_MATMUL_CALLS = [0]      # calls of the weighted L2's matmul form (host side)
+
+
 def _wl2_matmul(q, X, x_sqnorms=None):
     import torch
+    _WL2_MATMUL_CALLS[0] += 1
     w = _w16(q.device)
     qf, Xf = q.float(), X.float()
     g = qf @ (w * Xf).T
@@ -1900,7 +1944,7 @@ def _wl2_matmul(q, X, x_sqnorms=None):
                            + (w * Xf * Xf).sum(-1)[None, :], 0.0)
 
 
-def small_sets(X, Q, seed, n=20000, nq=1024):
+def small_sets(X, Q, seed, n=METRIC_N, nq=1024):
     """(metric, corpus, queries) of path 3's small metrics."""
     from hnsw_tpu_torch import UserMetric
 
@@ -2386,7 +2430,7 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     (failures, the index, each shard's B2 launches a replay of its exact
     program)."""
     from hnsw_tpu_torch import ShardedHnsw
-    from hnsw_tpu_torch.ops import kernel_lib
+    from hnsw_tpu_torch.ops import kernel_lib, program
 
     failures = []
     n, nq = len(X), len(kth)
@@ -2394,14 +2438,14 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     failures += mesh_check.pop("failures")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    program.reset_peak_memory()
     t0 = time.time()
     sh = sharded_index(n)
     sh.set_traversal_codec("i8")
     sh.parallel_insert(X, mode="mesh")
     torch.cuda.synchronize()
     build_s = time.time() - t0
-    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    build_peak_gb = program.peak_memory()[0] / 1e9
     for s, stats in enumerate(sh._round_stats):
         failures += round_faults(f"sharded shard {s}", stats)
     if any(d != torch.device("cuda", 0) for d in sh.devices):
@@ -2519,6 +2563,398 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     return failures, sh, exact_programs["pallas"]["launches_per_replay"]
 
 
+# ------------------------------------------------- paths only the CPU had run ----
+
+BUDGET_N = 20_000            # the build_budget line: 20k x 128 rows at batch 2048
+BUDGET_BATCH = 2048
+
+
+@contextlib.contextmanager
+def budget_rounds(share, made):
+    """Builds in this scope run their rounds through round programs whose
+    pool is kept within ``share`` of the card (``program.round_programs(device,
+    share)``); each build's ``BuildPrograms`` goes into ``made``."""
+    from hnsw_tpu_torch.ops import program
+
+    real = program.round_programs
+    program.round_programs = lambda device, share_=program.POOL_SHARE: (
+        made.append(real(device, share)) or made[-1])
+    try:
+        yield
+    finally:
+        program.round_programs = real
+
+
+def phase_build_budget(torch, X):
+    """The build's pool budget (``BuildPrograms.admit``): a key whose captures
+    would take the pool past its share of the card runs uncaptured for the
+    rest of the build. A 20k x 128 build at batch 2048 (path 1's graph
+    settings) through the round programs at the default share measures every
+    kind of part's peak; then the same build with the budget halfway between
+    the smallest and the largest peak (some keys captured, some not) and with
+    the budget below every peak (none captured). Every build bit-equal to the
+    eager build of the same rows on every real row, and none raises. Returns
+    the failures."""
+    from hnsw_tpu_torch.ops import insert_rounds, program
+
+    Xs = X[:BUDGET_N]
+    total = torch.cuda.get_device_properties(0).total_memory
+    seen = {}  # key -> (runs, peak) of the build's programs, after each round
+
+    def keep_prog(args, out):
+        seen.update({key: (p.runs, p.peak) for (_, key), p in args[0]._progs.items()})
+        return args[1].tables(), args[1].indeg0
+
+    with eager_rounds(), watched_rounds(torch, insert_rounds, "round_step", -1,
+                                        lambda args, out: (tuple(args[3]), args[7])) as rec:
+        _, eager_s, _ = build_path1(torch, Xs, BUDGET_BATCH)
+    eager = rec["held"]
+    failures, builds, shares = [], {}, {"default": program.POOL_SHARE}
+    for label in ("default", "between", "below"):
+        made = []
+        seen.clear()
+        try:
+            with budget_rounds(shares[label], made), watched_rounds(
+                    torch, program.BuildPrograms, "round", -1, keep_prog) as rec:
+                h, build_s, peaks = build_path1(torch, Xs, BUDGET_BATCH)
+        except RuntimeError as e:
+            failures.append(f"build_budget {label}: the build raised: {e}")
+            break
+        stats = h._round_stats
+        equal, diff = tables_equal(torch, eager, rec["held"], len(Xs))
+        h = rec = None
+        builds[label] = {"share": shares[label], "budget_bytes": shares[label] * total,
+                         "tables_equal_eager": equal, "first_difference": diff,
+                         "build_s": build_s, **peaks,
+                         **{k: stats[k] for k in ("rounds", "rounds_replayed", "keys",
+                                                  "captures", "uncaptured_keys",
+                                                  "pool_bytes")},
+                         "peaks": stats["peaks"], "uncaptured": stats["uncaptured"],
+                         "pools": stats["pools"]}
+        if not equal:
+            failures.append(f"build_budget {label}: differs from the eager build: {diff}")
+        if label == "default":
+            # the peaks of the keys that reached their second run (the
+            # cold start's keys run once and never decide)
+            decided = [peak for runs, peak in seen.values() if runs > 1]
+            lo, hi = min(decided), max(decided)
+            builds[label]["decided_peaks"] = {"min": lo, "max": hi, "keys": len(decided)}
+            shares["between"] = (lo + hi) / 2 / total
+            shares["below"] = lo / 2 / total
+        elif label == "between" and not (stats["captures"] >= 1
+                                         and stats["uncaptured_keys"] >= 1):
+            failures.append(f"build_budget between: {stats['captures']} keys captured, "
+                            f"{stats['uncaptured_keys']} uncaptured: wanted both")
+        elif label == "below" and not (stats["captures"] == 0
+                                       and stats["uncaptured_keys"] >= 1
+                                       and stats["rounds_replayed"] == 0):
+            failures.append(f"build_budget below: {stats['captures']} captures, "
+                            f"{stats['uncaptured_keys']} keys uncaptured: wanted none "
+                            "captured")
+    emit({"phase": "build_budget", "n": len(Xs), "d": Xs.shape[1], "batch": BUDGET_BATCH,
+          "eager_build_s": eager_s, "builds": builds, "failures": failures})
+    return failures
+
+
+# What the reference's dryrun body answers at 4 devices for its int8-codec
+# self-retrieval (``ids3[:, 0]``; the JAX package on its 4-device CPU mesh):
+# query 5 finds 136, so the body's assertion holds at 8 devices only
+# (``tests/test_torch_graft_entry.py`` holds the port's answer to it).
+REFERENCE_DRYRUN4_IDS3 = [0, 1, 2, 3, 4, 136, 6, 7]
+
+
+def phase_graft(torch):
+    """The graft entry points of the port (``hnsw_tpu_torch/graft_entry.py``)
+    on the card: ``entry()``'s ``fn(*args)`` replayed through a
+    ``SearchProgram`` (``compiled``) equal to the direct call, bit for bit,
+    as given (no codec: the reference's entry) and with the index's int8
+    codec bound in (d = 32: no id rows, so the codec kernel runs as B3, and
+    its launches are read on a warmed replay); then ``dryrun_multichip(8)``,
+    eight shards on ``cuda:0``, every assertion of the reference's body (the
+    reference runs it on 8 devices), and ``dryrun_multichip(4)``, which must
+    stop where the reference's body stops at 4 devices, at the int8
+    self-retrieval, with the reference's ids. Returns the failures."""
+    import functools
+
+    from hnsw_tpu_torch import graft_entry
+    from hnsw_tpu_torch.ops import kernel_lib
+    from hnsw_tpu_torch.ops.graph_arrays import BeamCodec
+
+    failures, forms = [], {}
+    t0 = time.time()
+    fn, args = graft_entry.entry()
+    for name, f in (("entry", fn),
+                    ("entry_i8", functools.partial(fn, codec=BeamCodec.build(args[0], "i8")))):
+        run = graft_entry.compiled(f, args)
+        run(*args)
+        before = dict(kernel_lib.LAUNCHES)
+        got = run(*args)
+        launches = {c: v - before[c] for c, v in kernel_lib.LAUNCHES.items() if v != before[c]}
+        want = f(*args)
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        forms[name] = {"replay_equals_direct": equal, "launches_per_replay": launches,
+                       "shape": list(got[0].shape)}
+        if not equal:
+            failures.append(f"graft {name}: the replay differs from the direct call")
+    if not forms["entry_i8"]["launches_per_replay"].get("codec_scores"):
+        failures.append("graft entry_i8: the replay launched no codec kernel")
+    entry_s = time.time() - t0
+    dryrun = {}
+    for n in (8, 4):
+        t0 = time.time()
+        try:
+            graft_entry.dryrun_multichip(n)
+            stop = None
+        except AssertionError as e:
+            stop = np.asarray(e.args[0]).tolist() if e.args else repr(e)
+        dryrun[n] = {"passed": stop is None, "stopped_at_ids3": stop,
+                     "seconds": time.time() - t0, "devices": [f"cuda:{i % torch.cuda.device_count()}"
+                                                               for i in range(n)]}
+    if not dryrun[8]["passed"]:
+        failures.append(f"graft dryrun_multichip(8): an assertion failed: "
+                        f"{dryrun[8]['stopped_at_ids3']}")
+    if dryrun[4]["stopped_at_ids3"] != REFERENCE_DRYRUN4_IDS3:
+        failures.append(f"graft dryrun_multichip(4): {dryrun[4]}, not the reference's stop "
+                        f"at ids {REFERENCE_DRYRUN4_IDS3}")
+    emit({"phase": "graft", "forms": forms, "entry_s": entry_s, "dryrun": dryrun,
+          "failures": failures})
+    return failures
+
+
+RECALL_FILTER_EF96 = 0.95
+FILTER_CPU_QUERIES = 256
+FILTER_CPU_AGREE = 0.99
+
+
+def phase_filters(torch, h, bf, X, Q, k=10, ef=96, nq=4096, nhost=64):
+    """Filtered graph search on path 1's index, with the even ids and with a
+    sorted id range (the middle half): ``device_search_stream`` (the program
+    with its mask) over 4096 queries and ``Hnsw.search_filter`` (the host
+    search) over 64; no returned id may fail the filter; recall@10 against
+    ``BruteForceIndex``'s exact answers under the same filter; and the same
+    stream on a CPU copy of the index (``to_arrays`` / ``from_arrays``) must
+    answer the same id set on 99% of 256 queries. Returns the failures."""
+    from hnsw_tpu_torch import SortedIdFilter, from_arrays, to_arrays
+    from hnsw_tpu_torch.convert import params_of
+    from hnsw_tpu_torch.ops.beam_search import device_search_stream
+
+    n = len(X)
+    failures, out = [], {}
+    cpu = from_arrays(to_arrays(h), params_of(h), device="cpu")
+    Qf = Q[:nq]
+    for name, keep in (("even", np.arange(0, n, 2)), ("range", np.arange(n // 4, 3 * n // 4))):
+        flt, allowed = SortedIdFilter(keep), np.zeros(n, bool)
+        allowed[keep] = True
+        exact, _ = bf.search_batch(Qf, k, filter=flt)
+        t0 = time.time()
+        ids, _ = device_search_stream(h, Qf, k, ef, batch=nq, filter=flt)
+        stream_s = time.time() - t0
+        oid = np.where(ids >= 0, h._origin[np.clip(ids, 0, h._nb_point - 1)], -1)
+        recall = float(np.mean([len(set(oid[b]) & set(exact[b])) / k for b in range(nq)]))
+        host = [h.search_filter(Qf[b], k, ef, filter=flt) for b in range(nhost)]
+        host_ids = [[r.d_id for r in res] for res in host]
+        host_recall = float(np.mean([len(set(host_ids[b]) & set(exact[b])) / k
+                                     for b in range(nhost)]))
+        leaked = int((~allowed[oid[oid >= 0]]).sum()) + sum(
+            int(not allowed[i]) for row in host_ids for i in row)
+        full = bool((oid >= 0).all()) and all(len(r) == k for r in host_ids)
+        ids_cpu, _ = device_search_stream(cpu, Qf[:FILTER_CPU_QUERIES], k, ef,
+                                          batch=FILTER_CPU_QUERIES, filter=flt)
+        oid_cpu = np.where(ids_cpu >= 0, cpu._origin[np.clip(ids_cpu, 0, n - 1)], -1)
+        agree = float(np.mean([set(oid[b]) == set(oid_cpu[b])
+                               for b in range(FILTER_CPU_QUERIES)]))
+        out[name] = {"kept": len(keep), "recall_at_10": recall, "host_recall_at_10": host_recall,
+                     "leaked": leaked, "rows_full": full, "stream_s": stream_s,
+                     "cpu_copy_agreement": agree}
+        if leaked or not full:
+            failures.append(f"filters {name}: {leaked} ids leaked, rows full {full}")
+        if min(recall, host_recall) < RECALL_FILTER_EF96:
+            failures.append(f"filters {name}: recall@10 {recall:.4f} (stream), "
+                            f"{host_recall:.4f} (host) < {RECALL_FILTER_EF96} at ef {ef}")
+        if agree < FILTER_CPU_AGREE:
+            failures.append(f"filters {name}: the CPU copy agrees on {agree:.4f} of "
+                            f"{FILTER_CPU_QUERIES} queries < {FILTER_CPU_AGREE}")
+    emit({"phase": "filters", "n": n, "ef": ef, "queries": nq, "host_queries": nhost,
+          "by_filter": out, "failures": failures})
+    return failures
+
+
+def persist_more(torch, h, h3, tmp, base):
+    """On path 2's reference-format dump (``base`` in ``tmp``): the data file
+    through ``io/datamap.py``'s ``DataMap`` must give every vector byte-equal
+    to the index's row of that id; a Light dump of the same index reloaded
+    (``HnswIo.load_hnsw``, the Python route) must hold every layer's table
+    equal to the Full reload's (``h3``). Returns (its line, failures)."""
+    from hnsw_tpu_torch import DataMap, HnswIo
+    from hnsw_tpu_torch.io.hnswio import file_dump
+
+    failures = []
+    t = [time.time()]
+    dm = DataMap(tmp, base)
+    view, ids = dm.strided_view(), dm.ids()
+    n = h._nb_point
+    row_of = np.empty(n, np.int64)
+    row_of[h._origin[:n]] = np.arange(n)
+    rows = h._data[row_of[ids]]
+    datamap_equal = bool(len(ids) == n and view.tobytes() == np.ascontiguousarray(rows).tobytes()
+                         and all(np.array_equal(dm.get_data(int(i)), h._data[row_of[i]])
+                                 for i in ids[:: max(1, n // 64)]))
+    t.append(time.time())
+    light = file_dump(h, tmp, "smoke_light", mode="Light")
+    t.append(time.time())
+    hl = HnswIo(tmp, light).load_hnsw()
+    t.append(time.time())
+    diff = [f"layer {l} {f}" for l in sorted(h3._layers)
+            for f in ("ids", "dists", "counts")
+            if l not in hl._layers or not np.array_equal(
+                getattr(h3._layers[l], f)[:n], getattr(hl._layers[l], f)[:n])]
+    diff += [f"layer {l} only in the Light reload" for l in hl._layers if l not in h3._layers]
+    if not datamap_equal:
+        failures.append("persist_more: the DataMap's vectors differ from the index's rows")
+    if diff:
+        failures.append(f"persist_more: the Light reload differs from the Full one: {diff}")
+    line = {"datamap_equal": datamap_equal, "datamap_records": len(ids),
+            "datamap_s": t[1] - t[0], "light_dump_s": t[2] - t[1],
+            "light_load_s": t[3] - t[2], "light_tables_equal_full": not diff,
+            "light_device": str(hl.device)}
+    return line, failures
+
+
+PIVOT_N = 40_000             # above PIVOT_MIN_POINTS (32,768): the pivot entry
+
+
+def phase_user_pivots(torch, X, Q, k=10, nq=1024):
+    """The weighted-L2 ``UserMetric`` of path 3 at 40k x 16, above
+    ``PIVOT_MIN_POINTS``: the snapshot must carry entry pivots, recall@10 at
+    ef 64 against its fp64 oracle >= 0.95, the program's capture must have
+    called the metric's ``matmul_scores`` (the pivot entry) and its replay
+    must equal a direct call. Returns the failures."""
+    from hnsw_tpu_torch import Hnsw, UserMetric
+
+    failures = []
+    user = UserMetric(_wl2_pair, name="WeightedL2", scores=_wl2_scores,
+                      matmul_scores=_wl2_matmul)
+    Xs, Qs = np.ascontiguousarray(X[:PIVOT_N, :16]), np.ascontiguousarray(Q[:nq, :16])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    h = Hnsw(max_nb_connection=16, max_elements=len(Xs), ef_construction=100, dist=user,
+             device="cuda")
+    h.parallel_insert(Xs, mode="device", batch_size=4096)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    g = h.device_graph()
+    pivots = None if g.pivot_ids is None else int(g.pivot_ids.shape[0])
+    oid, qps = stream_timed(torch, h, Qs, k, 64, batch=nq)
+    recall = recall_oracle(user, Xs, Qs, exact_kth(torch, user, Xs, Qs, k), oid, k)
+    h.drop_programs()
+    calls = _WL2_MATMUL_CALLS[0]
+    prog = h.device_program(nq, torch.float32, **search_static(h, 64, k))
+    captured_calls = _WL2_MATMUL_CALLS[0] - calls
+    q = torch.as_tensor(Qs, device="cuda")
+    calls = _WL2_MATMUL_CALLS[0]
+    equal = replay_equals_direct(torch, prog, q)
+    if pivots is None:
+        failures.append("user pivots: the snapshot of 40k rows has no entry pivots")
+    if recall < RECALL_SMALL_EF64:
+        failures.append(f"user pivots: recall@10 at ef 64 {recall:.4f} < {RECALL_SMALL_EF64}")
+    if captured_calls < 1 or not equal:
+        failures.append(f"user pivots: matmul_scores called {captured_calls} times while the "
+                        f"program was built, replay equal to the direct call: {equal}")
+    emit({"phase": "user_pivots", "n": len(Xs), "d": 16, "build_s": build_s,
+          "pivots": pivots, "recall_at_10": recall, "qps": qps,
+          "matmul_scores_calls_building_program": captured_calls,
+          "matmul_scores_calls_replay_and_direct": _WL2_MATMUL_CALLS[0] - calls,
+          "replay_equals_direct": equal, "failures": failures})
+    return failures
+
+
+RECALL_TOPK_GATHERED = 0.999
+
+
+def phase_topk_gathered(torch, X, Q, k=10, n=20_000, nq=256):
+    """``TopkProgram``'s gathered route: ``BruteForceIndex("Hellinger")`` (no
+    ``matmul_scores``, so ``_bf_topk`` scores the broadcast corpus a chunk of
+    queries at a time) on path 3's softmax rows; the replay must equal the
+    direct call bit for bit and answer the fp64 oracle's top-10 (recall
+    scored as path 3 scores it, >= 0.999). Returns the failures."""
+    from hnsw_tpu_torch import BruteForceIndex, get_metric
+
+    failures = []
+    P, PQ = _softmax(X[:n, :64]), _softmax(Q[:nq, :64])
+    m = get_metric("Hellinger")
+    bf = BruteForceIndex(dist="Hellinger", device="cuda")
+    bf.parallel_insert(P)
+    t0 = time.time()
+    ids, _ = bf.search_batch(PQ, k)
+    first_s = time.time() - t0
+    (prog,) = bf._programs._progs.values()
+    equal, launches = call_replay_equals_direct(torch, prog, torch.as_tensor(PQ, device="cuda"))
+    kth = np.array([np.sort(m.np_batch(PQ[b], P))[k - 1] for b in range(nq)])
+    recall = recall_oracle(m, P, PQ, kth, ids, k)
+    if not equal or launches or recall < RECALL_TOPK_GATHERED:
+        failures.append(f"topk gathered: replay equal {equal}, launches {launches}, "
+                        f"recall@10 {recall:.4f} (>= {RECALL_TOPK_GATHERED} wanted)")
+    emit({"phase": "topk_gathered", "metric": "Hellinger", "n": n, "d": 64, "queries": nq,
+          "program": type(prog).__name__, "replay_equals_direct": equal,
+          "launches_per_replay": launches, "recall_at_10": recall, "first_call_s": first_s,
+          "pool_bytes": prog.pool_bytes, "failures": failures})
+    bf.drop_programs()
+    return failures
+
+
+BENCH_KNOB_N = 20_000
+BENCH_KNOB_Q = 4096
+
+
+def phase_bench_knobs(torch):
+    """``hnsw_tpu_torch.bench.main`` at a cut size (20k x 128, 4096 queries; 2
+    blocks of 0.2 s, S2 = 4), once with ``BENCH_BUILD=native`` (the C++ tier
+    builds, the card serves) and once with ``BENCH_GT=host`` (the fp64 host
+    oracle); each record must hold every key, the graph recall its floor and
+    the exact recall RECALL_EXACT. The host oracle's k-th distances must
+    equal the exact-scan pool's on the same queries within recall_fp64's
+    relative margin (1e-6: the norm form against the direct form). Returns
+    the failures."""
+    from hnsw_tpu_torch import bench
+
+    failures, runs = [], {}
+    for knob, value in (("BENCH_BUILD", "native"), ("BENCH_GT", "host")):
+        os.environ[knob] = value
+        try:
+            cfg = bench.Config(n=BENCH_KNOB_N, qbatch=BENCH_KNOB_Q, blocks=2,
+                               min_block_s=0.2, kernel_s=4, device="cuda")
+            t0 = time.time()
+            rec = bench.main(cfg)
+        finally:
+            del os.environ[knob]
+        # the repair keys come with a device build alone, as in bench.py's
+        # record (a native build runs no repair)
+        missing = [key for key in bench.KEYS if key not in rec and not (
+            key.startswith("repair_") and rec.get("build_backend") != "device")]
+        runs[f"{knob}={value}"] = {"seconds": time.time() - t0, "build": cfg.build,
+                                   "gt": cfg.gt, "backend": rec.get("build_backend"),
+                                   "hnsw_recall": rec["hnsw_recall"],
+                                   "exact_recall": rec["exact_recall"],
+                                   "hnsw_qps": rec["hnsw_qps"], "missing": missing}
+        if missing:
+            failures.append(f"bench {knob}={value}: keys missing: {missing}")
+        if rec["hnsw_recall"] < cfg.recall or rec["exact_recall"] < RECALL_EXACT:
+            failures.append(f"bench {knob}={value}: recall {rec['hnsw_recall']} (floor "
+                            f"{cfg.recall}), exact {rec['exact_recall']} ({RECALL_EXACT})")
+    X, Q = f32_dataset("gauss", np.random.default_rng(1234), BENCH_KNOB_N, BENCH_KNOB_Q,
+                       128, 16)
+    nq = min(len(Q), bench.NQ_GT_MAX)
+    host = bench.host_kth(X, Q[:nq], 10)
+    pool = bench.pool_kth(bench.scan_corpus(X, torch.device("cuda")), X, Q[:nq], 10, 64, 2048)
+    rel = float(np.max(np.abs(host - pool) / pool))
+    if rel > 1e-6:
+        failures.append(f"bench: the host oracle's k-th distances differ from the pool's "
+                        f"by {rel:.2e} relative (> 1e-6)")
+    emit({"phase": "bench_knobs", "n": BENCH_KNOB_N, "queries": BENCH_KNOB_Q, "runs": runs,
+          "host_vs_pool_kth_max_rel": rel, "failures": failures})
+    return failures
+
+
 def profiled(torch, label, fn, top=12, warm=True):
     """Run ``fn`` under torch.profiler (after one untraced call with
     ``warm``, so a search program is built before its window); emit device
@@ -2539,7 +2975,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="env,kernels,build,gt,exact_program,serve,program,bench,persist,"
-                            "serve2,native,metrics,ivf,sharded")
+                            "serve2,filters,native,metrics,ivf,sharded,graft,build_budget,"
+                            "user_pivots,topk_gathered,bench_knobs")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, trace one served batch per operating "
@@ -2610,6 +3047,12 @@ def main():
         for name, r in out2["exact_k100"]["programs"].items():
             replays[f"path2 k=100 {name}"] = r["launches_per_replay"]
     path2 = dict(kernel_lib.LAUNCHES)
+    # ---- the later lines, each with its counts from zero ----
+    later = {}
+    if h is not None and bf is not None and "filters" in phases:
+        kernel_lib.reset_launch_counts()
+        failures += phase_filters(torch, h, bf, X, Q)
+        later["filters"] = dict(kernel_lib.LAUNCHES)
     if h is not None and kth is not None and "native" in phases:
         native_ready()
         failures += phase_native(torch, h, X, Q, kth)
@@ -2676,6 +3119,18 @@ def main():
                           b3=(blocks[0], scale[0], sh.shards[0]._nb_point))
         rows = rows[:1] + r + rows[1:]
         failures += f
+    for name, run in (("graft", lambda: phase_graft(torch)),
+                      ("build_budget", lambda: phase_build_budget(torch, X)),
+                      ("user_pivots", lambda: phase_user_pivots(torch, X, Q)),
+                      ("topk_gathered", lambda: phase_topk_gathered(torch, X, Q)),
+                      ("bench_knobs", lambda: phase_bench_knobs(torch))):
+        if name in phases:
+            if name == "bench_knobs":
+                native_ready()
+            kernel_lib.reset_launch_counts()
+            failures += run()
+            later[name] = dict(kernel_lib.LAUNCHES)
+            torch.cuda.empty_cache()
     if args.profile and h is not None:
         from hnsw_tpu_torch.ops.beam_search import device_search_stream
         windows = [(f"serve ef={ef} batch=16384",
@@ -2730,7 +3185,7 @@ def main():
     ran4 = "ivf" in phases
     ran5 = sh is not None
     paths = {"path1": path1, "path2": path2, "path3": path3, "path4": path4,
-             "path5": path5}
+             "path5": path5, **later}
     # (ran, counts, must launch there)
     needed = {"B1": [(ran1, path1, True), (ran2, path2, False)],
               "B2": [(ran1, path1, True), (ran4, path4, True), (ran5, path5, True)],
@@ -2770,6 +3225,27 @@ def main():
                                 f"{r['entry']} entry ({counts[e]} of {counts[c]} launches)")
     if ran2 and (path2["codec_scores_ids"] == 0 or path2["scan_topk"] == 0):
         failures.append("path 2 did not run B1 and B2")
+    # the later lines' kernels: filters B1 and B2 (the codec search, the
+    # exact truth), graft B3 and B2 (the i8 codec of the reference's d = 32
+    # index, which carries no id rows, and the sharded "pallas" scan),
+    # bench_knobs B2 (20k rows: below the codec's 32,768, no B1);
+    # build_budget, user_pivots and topk_gathered none of the five
+    for name, counters in (("filters", ("codec_scores_ids", "scan_topk")),
+                           ("graft", ("codec_scores", "scan_topk")),
+                           ("bench_knobs", ("scan_topk",)),
+                           ("build_budget", ()), ("user_pivots", ()),
+                           ("topk_gathered", ())):
+        if name not in later:
+            continue
+        counts = later[name]
+        missing = [c for c in counters if counts[c] == 0]
+        extra = {c: counts[c] for c in ("codec_scores_ids", "codec_scores",
+                                        "codec_scores_gathered", "scan_topk",
+                                        "scan_topk_unpacked")
+                 if c not in counters and counts[c]}
+        if missing or extra:
+            failures.append(f"{name}: kernels {missing} never launched, others launched: "
+                            f"{extra}")
     print(card, flush=True)
     emit({"kernels": rows})
     if failures:
@@ -2783,4 +3259,9 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # the interpreter's own teardown of the card's state (the indexes'
+    # captured programs) took 11 s after the last line; nothing is left to run
+    os._exit(rc)

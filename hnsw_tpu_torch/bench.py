@@ -62,7 +62,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .ops import kernel_lib
+from .ops import kernel_lib, program
 from .ops.program import ProgramCache
 from .ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk_stream, pad_corpus, scan_acc
 from .utils.device import resolve_device
@@ -610,7 +610,7 @@ def main(cfg: Optional[Config] = None) -> dict:
     info = device_info(device)
     log(f"[bench] device: {info}")
     if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+        program.reset_peak_memory(device)
     before = dict(kernel_lib.LAUNCHES)
     X, Q = f32_dataset(cfg.dataset, np.random.default_rng(1234), cfg.n, cfg.qbatch,
                        cfg.d, cfg.intrinsic)
@@ -636,7 +636,7 @@ def main(cfg: Optional[Config] = None) -> dict:
         if faults:
             raise RuntimeError("kernel entries: " + "; ".join(faults))
         log(f"[bench] peak device memory: "
-            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+            f"{program.peak_memory(device)[0] / 2**30:.2f} GiB")
     rec = make_record(cfg, exact, hnsw, h, build_s, backend, info)
     print(json.dumps(rec), flush=True)
     return rec

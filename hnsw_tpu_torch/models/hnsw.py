@@ -63,6 +63,52 @@ class PointIdWithOrder:
         return self.dist_to_ref < other.dist_to_ref
 
 
+def _point_keys(h, n: int) -> np.ndarray:
+    """Each of the first ``n`` points' PointId (layer, rank) as one int64."""
+    return (np.asarray(h._level[:n], np.int64) << 32) + np.asarray(h._rank_in_layer[:n],
+                                                                   np.int64)
+
+
+def _sorted_rows(h, layer: int, order, keys, width: int):
+    """``layer``'s rows of ``h`` in ``order``: (the neighbours' PointId keys,
+    their distances rounded to 5 decimals), each row sorted by (key, distance)
+    and padded to ``width`` with (int64 max, inf)."""
+    n = len(order)
+    big = np.iinfo(np.int64).max
+    K = np.full((n, width), big, np.int64)
+    D = np.full((n, width), np.inf, np.float64)
+    t = h._layers.get(layer)
+    if t is not None:
+        w = t.ids.shape[1]
+        ids = np.asarray(t.ids[:n])[order]
+        valid = np.arange(w)[None, :] < np.asarray(t.counts[:n])[order][:, None]
+        K[:, :w] = np.where(valid, keys[np.clip(ids, 0, n - 1)], big)
+        D[:, :w] = np.where(valid, np.round(np.asarray(t.dists[:n], np.float64)[order], 5),
+                            np.inf)
+    o = np.argsort(D, axis=1, kind="stable")
+    K, D = np.take_along_axis(K, o, 1), np.take_along_axis(D, o, 1)
+    o = np.argsort(K, axis=1, kind="stable")
+    return np.take_along_axis(K, o, 1), np.take_along_axis(D, o, 1)
+
+
+def _same_rows(a, b) -> bool:
+    """The same PointIds with the same origin ids, and in every layer each
+    point's (neighbour PointId, distance to 5 decimals) pairs equal."""
+    n = a._nb_point
+    ka, kb = _point_keys(a, n), _point_keys(b, n)
+    oa, ob = np.argsort(ka, kind="stable"), np.argsort(kb, kind="stable")
+    if not (np.array_equal(ka[oa], kb[ob])
+            and np.array_equal(np.asarray(a._origin[:n])[oa], np.asarray(b._origin[:n])[ob])):
+        return False
+    for layer in set(a._layers) | set(b._layers):
+        w = max(h._layers[layer].ids.shape[1] for h in (a, b) if layer in h._layers)
+        (xa, da), (xb, db) = (_sorted_rows(a, layer, oa, ka, w),
+                              _sorted_rows(b, layer, ob, kb, w))
+        if not (np.array_equal(xa, xb) and np.array_equal(da, db)):
+            return False
+    return True
+
+
 class _LayerTable:
     """Dense neighbor table for one layer: row per global point index."""
 
@@ -590,7 +636,13 @@ class Hnsw:
         Fast array form: pass a 2-D array (ids become ``arange``) or an
         ``(X, ids)`` tuple of arrays — the build then bulk-copies rows instead
         of iterating a million Python tuples (the reference's slice-of-tuples
-        ingestion is a rayon-ism; arrays are the natural device-side input)."""
+        ingestion is a rayon-ism; arrays are the natural device-side input).
+
+        A ``"device"`` build on the card resets the card's CUDA peak memory
+        statistics (``torch.cuda.reset_peak_memory_stats``) to measure its
+        round programs (``device_parallel_insert``): read a peak taken across
+        it with ``ops.program.peak_memory``, started with
+        ``ops.program.reset_peak_memory``."""
         X = ids = None
         if isinstance(data_with_ids, np.ndarray) and data_with_ids.ndim == 2:
             X = np.asarray(data_with_ids, dtype=self.dtype)
@@ -1010,6 +1062,8 @@ class Hnsw:
     # ------------------------------------------------------------------ equality ----
 
     def _pid_index(self) -> dict[tuple[int, int], int]:
+        """PointId -> storage index; the JAX package's ``check_graph_equality``
+        aligns an index of this package through it."""
         n = self._nb_point
         return {(int(self._level[i]), int(self._rank_in_layer[i])): i for i in range(n)}
 
@@ -1025,24 +1079,4 @@ class Hnsw:
             return False
         if self._entry >= 0 and self.get_point_id(self._entry) != other.get_point_id(other._entry):
             return False
-        a_map = self._pid_index()
-        b_map = other._pid_index()
-        if set(a_map) != set(b_map):
-            return False
-        layers = set(self._layers) | set(other._layers)
-        for pid, ia in a_map.items():
-            ib = b_map[pid]
-            if self.get_origin_id(ia) != other.get_origin_id(ib):
-                return False
-            for l in layers:
-                a_ids, a_d = self.neighbour_row(ia, l)
-                b_ids, b_d = other.neighbour_row(ib, l)
-                if len(a_ids) != len(b_ids):
-                    return False
-                a_set = sorted((self.get_point_id(int(j)), round(float(d), 5))
-                               for j, d in zip(a_ids, a_d))
-                b_set = sorted((other.get_point_id(int(j)), round(float(d), 5))
-                               for j, d in zip(b_ids, b_d))
-                if a_set != b_set:
-                    return False
-        return True
+        return _same_rows(self, other)

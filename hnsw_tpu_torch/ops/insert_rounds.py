@@ -853,7 +853,15 @@ def device_parallel_insert(hnsw, pairs, batch_size: Optional[int] = None,
     (``program.round_programs``: captured CUDA graphs); on the CPU through
     the eager ``round_step``. ``hnsw._round_stats`` (and the ``build.*``
     profiler counters) count the rounds, the rounds replayed, the program
-    keys, the captures and the bytes of the programs' pool."""
+    keys, the captures, the keys run uncaptured because their captures would
+    take the pool past its budget, and the bytes of the programs' pool.
+
+    On the card each key's first round measures its pieces' peaks by
+    resetting the card's CUDA peak memory statistics
+    (``torch.cuda.reset_peak_memory_stats``), so ``torch.cuda``'s peak read
+    across a build is the build's last piece's: ``program.peak_memory`` (a
+    window started with ``program.reset_peak_memory``) gives the larger of the
+    caller's peak and the build's."""
     if isinstance(pairs, tuple) and len(pairs) == 2 and hasattr(pairs[0], "ndim"):
         X, ids = pairs
         if len(X) == 0:
@@ -935,7 +943,7 @@ def device_parallel_insert(hnsw, pairs, batch_size: Optional[int] = None,
     if progs is not None:  # before the snapshot and the search programs take memory
         for k, v in progs.stats.items():
             PROFILER.add(f"build.{k}", v)
-        hnsw._round_stats = dict(progs.stats, pools=progs.pools())
+        hnsw._round_stats = progs.report()
         progs.clear()
     if getattr(hnsw, "_auto_repair", True):
         import time as _time

@@ -56,7 +56,11 @@ construction, the merges; ``ops/insert_rounds.py::round_plan``), keyed on
 the statics the part reads, so every steady round replays the layer-0
 construction, whose key holds neither ``B1`` nor ``max_obs``. A round writes
 the tables in place, so nothing is warmed up: a key's first run is
-uncaptured, its second captures and replays.
+uncaptured and measures the most memory its pieces hold; at its second run
+the key captures and replays if the build's pool plus that peak stays
+within the build's share of the card, and otherwise runs uncaptured for the
+rest of the build (the same pieces, one host read per ``CHUNK`` steps), so a
+build never fails where the eager rounds fit.
 """
 
 from __future__ import annotations
@@ -90,6 +94,39 @@ MAX_PROGRAMS = 8
 # least recently used are dropped (before a build, room is kept for one more
 # program as large as the largest held).
 POOL_SHARE = 0.25
+
+# the peaks (allocated, reserved) a build's first runs reset, by card
+_PEAKS: dict = {}
+
+
+def _card(device) -> int:
+    device = torch.device("cuda") if device is None else torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def _reset_peak(device):
+    """``torch.cuda.reset_peak_memory_stats``, keeping the peaks it drops
+    for ``peak_memory``."""
+    old = _PEAKS.get(_card(device), (0, 0))
+    _PEAKS[_card(device)] = (max(old[0], torch.cuda.max_memory_allocated(device)),
+                             max(old[1], torch.cuda.max_memory_reserved(device)))
+    torch.cuda.reset_peak_memory_stats(device)
+
+
+def reset_peak_memory(device=None):
+    """Start a window of ``peak_memory`` on the card: reset its peak memory
+    statistics and the peaks a build's measurements kept."""
+    _PEAKS.pop(_card(device), None)
+    torch.cuda.reset_peak_memory_stats(_card(device))
+
+
+def peak_memory(device=None) -> tuple:
+    """(allocated, reserved) peak bytes on the card since
+    ``reset_peak_memory``: ``torch.cuda``'s peaks, with those counted in that
+    a build's first runs reset to measure their pieces."""
+    old = _PEAKS.get(_card(device), (0, 0))
+    return (max(old[0], torch.cuda.max_memory_allocated(_card(device))),
+            max(old[1], torch.cuda.max_memory_reserved(_card(device))))
 
 
 class Piece:
@@ -448,17 +485,24 @@ class RoundProgram(Program):
 
     A round writes the tables in place, so a warm-up would apply it twice.
     The first run of a key runs its pieces uncaptured (the round's own work
-    and the warm-up of its kernels); the second captures ``begin``, ``end``
-    and the branches, which runs nothing on the card, and replays; later runs
-    replay. A chunk is captured the first time a captured run reaches it, so
-    the chunks past where the loops end (a cap of 232 beam iterations where
-    about 50 run) cost no capture. ``start``, ``step``, ``finished`` and
-    ``finish`` let a caller interleave the programs of several shards chunk
-    by chunk. ``capture_s``, ``chunk_graphs`` and ``branch_replays`` count
-    the captures' seconds, the chunk graphs and the replays of each widen
-    branch since the build last read them; ``key`` is the part's key."""
+    and the warm-up of its kernels) and measures ``peak``, the most memory
+    its pieces held above what was allocated when it started (what its
+    captures would take from the pool). At the second run ``admit(self)``
+    decides: captured (``captured`` True), the run captures ``begin``,
+    ``end`` and the branches, which runs nothing on the card, and replays,
+    and later runs replay; refused (False), every run calls the pieces
+    uncaptured, as the first did, for the rest of the build. A chunk is
+    captured the first time a captured run reaches it, so the chunks past
+    where the loops end (a cap of 232 beam iterations where about 50 run)
+    cost no capture. ``start``, ``step``, ``finished`` and ``finish`` let a
+    caller interleave the programs of several shards chunk by chunk (each
+    piece is measured alone, so the interleaving does not blur ``peak``).
+    ``capture_s``, ``chunk_graphs`` and ``branch_replays`` count the
+    captures' seconds, the chunk graphs and the replays of each widen branch
+    since the build last read them; ``key`` is the part's key."""
 
-    def __init__(self, part, device, graph_factory=None, capture=None, pool=None, key=None):
+    def __init__(self, part, device, graph_factory=None, capture=None, pool=None, key=None,
+                 admit=None):
         super().__init__(device)
         self.part, self.key = part, key
         spans = [(lo, min(lo + CHUNK, part.iters)) for lo in range(0, part.iters, CHUNK)]
@@ -472,7 +516,11 @@ class RoundProgram(Program):
         self._pieces_fixed = [Piece(fn) for fn in self._fixed]
         self._chunks = [Piece(fn) for fn in self._chunk_fns]
         self._capture_args = (graph_factory, capture, pool)
+        self._admit = admit
         self.runs = 0
+        self.peak = 0
+        self.captured = None
+        self._held = None  # during the first run: the bytes its pieces left allocated
         self.capture_s = 0.0
         self.chunk_graphs = 0
         self.branch_replays = {"widen": 0, "keep": 0}
@@ -490,21 +538,48 @@ class RoundProgram(Program):
         self.capture_s += time.perf_counter() - t0
         return pieces
 
+    def _memory(self, fn) -> tuple:
+        """Run ``fn``; on the card (bytes it left allocated, the most it
+        allocated above what was allocated before it), elsewhere (0, 0)."""
+        if self.device.type != "cuda":
+            fn()
+            return 0, 0
+        base = torch.cuda.memory_allocated(self.device)
+        _reset_peak(self.device)
+        fn()
+        return (torch.cuda.memory_allocated(self.device) - base,
+                torch.cuda.max_memory_allocated(self.device) - base)
+
+    def _replay(self, piece):
+        """Replay ``piece``; during the key's first run, measured."""
+        if self._held is None:
+            piece.replay()
+            return
+        left, peak = self._memory(piece.replay)
+        self.peak = max(self.peak, self._held + peak)
+        self._held += left
+
     def start(self):
-        """Capture at the key's second run; replay (or run) ``begin``."""
+        """Decide at the key's second run, and capture if admitted; replay
+        (or run) ``begin``."""
         if self.runs == 1:
-            self._pieces_fixed = self._capture(self._fixed)
+            self.captured = self._admit is None or bool(self._admit(self))
+            if self.captured:
+                self._pieces_fixed = self._capture(self._fixed)
+                self._chunks = [None] * self.n_chunks
+            else:
+                self._chunk_fns = None
             self._fixed = None
-            self._chunks = [None] * self.n_chunks
+        self._held = 0 if self.runs == 0 else None
         self.runs += 1
-        self._pieces_fixed[0].replay()
+        self._replay(self._pieces_fixed[0])
 
     def step(self, j: int):
         if self._chunks[j] is None:
             (self._chunks[j],) = self._capture([self._chunk_fns[j]])
             self._chunk_fns[j] = None
             self.chunk_graphs += 1
-        self._chunks[j].replay()
+        self._replay(self._chunks[j])
 
     def finished(self, j: int) -> bool:
         """Whether the loop was done after chunk ``j`` (a host read)."""
@@ -513,14 +588,15 @@ class RoundProgram(Program):
     def finish(self):
         rest = self._pieces_fixed[1:]
         if self.n_chunks:
-            rest[0].replay()
+            self._replay(rest[0])
         if self.part.branches:
             widen, keep, after = rest[-3:]
             name = "widen" if bool(self.part.need) else "keep"
-            (widen if name == "widen" else keep).replay()
-            after.replay()
-            if self._fixed is None:  # captured
+            self._replay(widen if name == "widen" else keep)
+            self._replay(after)
+            if self.captured:
                 self.branch_replays[name] += 1
+        self._held = None
 
     def run(self):
         self.start()
@@ -536,7 +612,7 @@ class RoundProgram(Program):
         graphs and the build's tensors at once, not at the cycle collector's
         next pass."""
         self._fixed = self._chunk_fns = self._pieces_fixed = self._chunks = None
-        self.part = None
+        self.part = self._admit = None
 
 
 class BuildPrograms:
@@ -548,15 +624,19 @@ class BuildPrograms:
     batch size meet in one ``RoundState``, allocated outside every capture.
     Every capture goes into one memory pool: the pieces of a build run one
     after another, and what a program keeps in the pool between its pieces
-    (a beam's state) is dead once its ``end`` has run. A capture that takes
-    the pool past ``share`` of the card raises, as a failed capture does.
+    (a beam's state) is dead once its ``end`` has run. The pool is kept
+    within ``share`` of the card: a key is captured at its second run only
+    if the pool plus the peak its first run measured fits (``admit``), and
+    otherwise runs uncaptured for the rest of the build, so the build never
+    refuses what the eager rounds would build and never thrashes.
 
     ``stats``: rounds; rounds replayed (every part from captured graphs);
     keys; captures; first runs (parts run uncaptured, one a key);
-    ``pool_bytes``; ``capture_s``, the seconds the captures took (on the
-    card a capture runs its pieces' host work with the device idle);
-    ``chunk_graphs``, the loop chunks captured; ``widen_replays`` and
-    ``keep_replays``, the captured widen pass's branches replayed."""
+    ``uncaptured_keys``, the keys refused a capture; ``pool_bytes``;
+    ``capture_s``, the seconds the captures took (on the card a capture runs
+    its pieces' host work with the device idle); ``chunk_graphs``, the loop
+    chunks captured; ``widen_replays`` and ``keep_replays``, the captured
+    widen pass's branches replayed."""
 
     def __init__(self, device, graph_factory=None, capture=None, share: float = POOL_SHARE):
         self.device = torch.device(device)
@@ -567,8 +647,9 @@ class BuildPrograms:
         self._round: list = []
         self._runs: list = []
         self.stats = {"rounds": 0, "rounds_replayed": 0, "keys": 0, "captures": 0,
-                      "first_runs": 0, "pool_bytes": 0, "capture_s": 0.0,
-                      "chunk_graphs": 0, "widen_replays": 0, "keep_replays": 0}
+                      "first_runs": 0, "uncaptured_keys": 0, "pool_bytes": 0,
+                      "capture_s": 0.0, "chunk_graphs": 0, "widen_replays": 0,
+                      "keep_replays": 0}
 
     def programs(self, bt, cfg, batch_ids, entry) -> list:
         """The programs of one round, in order, with its batch and entry
@@ -585,23 +666,27 @@ class BuildPrograms:
             prog = self._progs.get((held, key))
             if prog is None:
                 prog = self._progs[(held, key)] = RoundProgram(
-                    make(bt, st), self.device, self._factory, self._capture, self._pool, key)
+                    make(bt, st), self.device, self._factory, self._capture, self._pool, key,
+                    self.admit)
             progs.append(prog)
         self._round, self._runs = progs, [p.runs for p in progs]
         return progs
 
+    def admit(self, prog) -> bool:
+        """Whether ``prog`` may capture at its key's second run: the pool
+        plus the peak its first run measured within the budget."""
+        return self.pool_bytes() + prog.peak <= self._budget()
+
     def account(self):
-        """Count the round whose programs ``programs`` gave, once they ran;
-        raise (the programs dropped) if its captures took the pool past
-        ``share`` of the card."""
+        """Count the round whose programs ``programs`` gave, once they ran."""
         s, runs = self.stats, self._runs
         s["rounds"] += 1
-        s["rounds_replayed"] += all(r >= 1 for r in runs)
+        s["rounds_replayed"] += all(r >= 1 and p.captured for p, r in zip(self._round, runs))
         s["first_runs"] += sum(r == 0 for r in runs)
-        s["captures"] += sum(r == 1 for r in runs)
+        s["captures"] += sum(r == 1 and bool(p.captured) for p, r in zip(self._round, runs))
         s["keys"] = max(s["keys"], len(self._progs))
+        s["uncaptured_keys"] = sum(p.captured is False for p in self._progs.values())
         s["pool_bytes"] = max(s["pool_bytes"], self.pool_bytes())
-        captured = [p.key for p, r in zip(self._round, runs) if r == 1 or p.chunk_graphs]
         for p in self._round:
             s["capture_s"] += p.capture_s
             s["chunk_graphs"] += p.chunk_graphs
@@ -609,13 +694,6 @@ class BuildPrograms:
                 s[f"{name}_replays"] += n
             p.capture_s, p.chunk_graphs = 0.0, 0
             p.branch_replays = {"widen": 0, "keep": 0}
-        pool, budget = self.pool_bytes(), self._budget()
-        if captured and pool > budget:
-            self.clear()
-            raise RuntimeError(
-                f"the build's round programs hold {pool} bytes in their pool, over "
-                f"{budget:.0f} ({self.share} of the card), after capturing {captured}; "
-                "a smaller batch_size shrinks the pool")
 
     def round(self, bt, cfg, batch_ids, entry):
         """One round through the programs."""
@@ -626,12 +704,31 @@ class BuildPrograms:
     def pool_bytes(self) -> int:
         return sum(p.pool_bytes for p in self._progs.values())
 
-    def pools(self) -> dict:
-        """The pool's bytes by the kind of part whose capture reserved them."""
+    def _by_kind(self, value, keep=lambda p: True, add=True) -> dict:
         out: dict = {}
         for (_, key), p in self._progs.items():
-            out[key[0]] = out.get(key[0], 0) + p.pool_bytes
+            if keep(p):
+                v = value(p)
+                out[key[0]] = out.get(key[0], 0) + v if add else max(out.get(key[0], 0), v)
         return out
+
+    def pools(self) -> dict:
+        """The pool's bytes by the kind of part whose capture reserved them."""
+        return self._by_kind(lambda p: p.pool_bytes)
+
+    def peaks(self) -> dict:
+        """The largest peak a first run measured, by the kind of part."""
+        return self._by_kind(lambda p: p.peak, add=False)
+
+    def uncaptured(self) -> dict:
+        """The peaks of the keys refused a capture, summed by the kind of part."""
+        return self._by_kind(lambda p: p.peak, keep=lambda p: p.captured is False)
+
+    def report(self) -> dict:
+        """``stats`` with the pools, peaks and uncaptured bytes by part (a
+        build's ``_round_stats``)."""
+        return dict(self.stats, pools=self.pools(), peaks=self.peaks(),
+                    uncaptured=self.uncaptured())
 
     def _budget(self) -> float:
         if self.device.type != "cuda":

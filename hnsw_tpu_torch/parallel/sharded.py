@@ -173,7 +173,10 @@ class ShardedHnsw:
         """Deal the points round-robin over the shards, then build.
         ``mode="mesh"`` (chosen by ``"auto"`` for more than one shard and 1024
         points a shard) advances every shard by one synchronized round per
-        step; ``"device"``/``"serial"`` build the shards one after another."""
+        step; ``"device"``/``"serial"`` build the shards one after another.
+        On the card a build resets the CUDA peak memory statistics, as
+        ``device_parallel_insert`` says: read peaks across it with
+        ``ops.program.peak_memory``."""
         dt = self.shards[0].dtype
         if isinstance(data_with_ids, np.ndarray) and data_with_ids.ndim == 2:
             X = np.asarray(data_with_ids, dtype=dt)
@@ -283,7 +286,7 @@ class ShardedHnsw:
         for s, st in enumerate(states):
             st.flush([(i.cpu().numpy(), d.cpu().numpy()) for i, d in tables[s]])
         if progs is not None:
-            self._round_stats = [dict(p.stats, pools=p.pools()) for p in progs]
+            self._round_stats = [p.report() for p in progs]
             for p in progs:
                 p.clear()
         org = np.full((D, cap1), -1, np.int64)

@@ -122,18 +122,129 @@ def test_device_build_through_programs_equals_eager(stubs, max_iters):
     assert stubs and all(g.replays >= 1 for g in stubs[:1])
 
 
-def test_pool_over_budget_raises(stubs, monkeypatch):
-    """A capture that takes the pool past its share of the card raises, as a
-    failed capture does, naming the keys it captured; the build's programs
-    are dropped first. Below the budget the same build runs through."""
+def _peaks_by_kind(monkeypatch, sizes):
+    """Round programs' first runs measure ``sizes[kind]`` bytes of peak (the
+    card's measurement, which the CPU does not make)."""
+    def memory(self, fn):
+        fn()
+        return 0, sizes.get(self.key[0], 1)
+    monkeypatch.setattr(program.RoundProgram, "_memory", memory)
+
+
+@pytest.mark.parametrize("case", ["below_every_key", "between_keys", "refused_for_good"])
+def test_pool_over_budget_runs_uncaptured(stubs, monkeypatch, case):
+    """A key whose captures would take the pool past the budget runs
+    uncaptured for the rest of the build, and nothing raises: with the
+    budget below every key's measured peak, no key captures; between the
+    constructions' peak and the others', the constructions run uncaptured and
+    the rest capture; both builds write the eager build's tables bit for
+    bit. A key refused once is never captured, even when the budget would
+    admit it later."""
+    _peaks_by_kind(monkeypatch, {"build": 1000})
+    if case == "refused_for_good":
+        bt, cfg, batches = _rounds(np.random.default_rng(10), k=4)
+        eager = _eager_copy(bt)
+        progs = _programs(stubs)
+        budget = [-1.0]
+        monkeypatch.setattr(program.BuildPrograms, "_budget", lambda self: budget[0])
+        for r, (bidx, entry) in enumerate(batches):
+            round_step(eager.vectors, eager.sqnorms, eager.levels, eager.tables(), bidx,
+                       entry, None, eager.indeg0, cfg=cfg)
+            progs.round(bt, cfg, bidx, entry)
+            _assert_state_equal(bt, eager, bt.cap1 - 1)
+            if r == 1:
+                budget[0] = float("inf")
+        assert not stubs
+        assert all(p.captured is False and p.runs == 4 for p in progs._progs.values())
+        s = progs.stats
+        assert s["uncaptured_keys"] == s["keys"] > 0 and s["captures"] == 0
+        assert (s["rounds"], s["rounds_replayed"]) == (4, 0)
+        return
+    monkeypatch.setattr(program.BuildPrograms, "_budget",
+                        lambda self: -1.0 if case == "below_every_key" else 500.0)
+    seen = {}  # key -> (runs, captured) when the build drops its programs
+    clear = program.BuildPrograms.clear
+    monkeypatch.setattr(program.BuildPrograms, "clear", lambda self: seen.update(
+        {key: (p.runs, p.captured) for (_, key), p in self._progs.items()}) or clear(self))
     X = np.random.default_rng(6).random((800, 8)).astype(np.float32)
+    eager = _build(X, None, batch=64)
     made = []
     h = _build(X, stubs, batch=64, made=made)
-    assert h._round_stats["captures"] > 0
-    monkeypatch.setattr(program.BuildPrograms, "_budget", lambda self: -1.0)
-    with pytest.raises(RuntimeError, match=r"over -1 .*after capturing \[\("):
-        _build(X, stubs, batch=64, made=made)
-    assert not made[-1]._progs and not made[-1]._pool
+    _assert_same_graph(h, eager)
+    s = h._round_stats
+    assert s["first_runs"] == s["keys"] == len(seen) > 0 and s["peaks"]["build"] == 1000
+    assert s["uncaptured"]["build"] >= 1000
+    # a key seen in one round only (the cold start's) never reaches a decision
+    again = [c for runs, c in seen.values() if runs > 1]
+    assert all(c is None for runs, c in seen.values() if runs == 1)
+    if case == "below_every_key":
+        assert s["uncaptured_keys"] == len(again) and not any(again)
+        assert s["captures"] == 0 and not stubs
+        assert s["rounds_replayed"] == 0 and "head" in s["uncaptured"]
+    else:
+        assert 0 < s["uncaptured_keys"] < s["keys"] and s["captures"] > 0 and stubs
+        assert set(s["uncaptured"]) == {"build"}
+    assert not made[0]._progs and not made[0]._pool
+
+
+class _FakeCard:
+    """``torch.cuda``'s allocated bytes and peak statistics, as the caching
+    allocator keeps them (reserved bytes never return)."""
+
+    def __init__(self):
+        self.allocated = self.peak = self.reserved = self.peak_reserved = 0
+        self.resets = 0
+
+    def alloc(self, n):
+        self.allocated += n
+        self.reserved = max(self.reserved, self.allocated)
+        self.peak, self.peak_reserved = (max(self.peak, self.allocated),
+                                         max(self.peak_reserved, self.reserved))
+
+    def reset(self, device=None):
+        self.peak, self.peak_reserved = self.allocated, self.reserved
+        self.resets += 1
+
+    def patch(self, monkeypatch):
+        for name, fn in dict(memory_allocated=lambda d=None: self.allocated,
+                             max_memory_allocated=lambda d=None: self.peak,
+                             max_memory_reserved=lambda d=None: self.peak_reserved,
+                             reset_peak_memory_stats=self.reset,
+                             current_device=lambda: 0).items():
+            monkeypatch.setattr(torch.cuda, name, fn)
+
+
+@pytest.mark.parametrize("caller, piece", [(5000, 3000), (2000, 7000)],
+                         ids=["caller-higher", "build-higher"])
+def test_peak_memory_across_a_build(stubs, monkeypatch, caller, piece):
+    """A build's first runs reset the card's peak statistics to measure their
+    pieces; ``peak_memory`` across the build still gives the larger of the
+    caller's peak and the build's, where ``torch.cuda``'s own peak reads only
+    what followed the last reset."""
+    card = _FakeCard()
+    card.patch(monkeypatch)
+    real = program.RoundProgram._memory
+    on_card = type("OnCard", (), {"device": torch.device("cuda", 0)})()
+
+    def memory(self, fn):
+        def run():
+            card.alloc(piece)
+            fn()
+            card.alloc(-piece)
+        return real(on_card, run)
+
+    monkeypatch.setattr(program.RoundProgram, "_memory", memory)
+    program.reset_peak_memory("cuda:0")
+    card.alloc(caller)
+    card.alloc(100 - caller)  # the caller keeps 100 bytes through the build
+    X = np.random.default_rng(6).random((800, 8)).astype(np.float32)
+    h = _build(X, stubs, batch=64)
+    assert card.resets > 1 and h._round_stats["peaks"]["build"] == piece
+    want = max(caller, 100 + piece)
+    assert program.peak_memory("cuda:0") == (want, want)
+    assert torch.cuda.max_memory_allocated(0) == 100 + piece
+    program.reset_peak_memory("cuda:0")
+    assert program.peak_memory("cuda:0") == (100, want)
 
 
 def test_build_leaves_no_program_alive(stubs):

@@ -159,6 +159,34 @@ def test_dump_reload_equality(rng, tmp_path):
     assert isinstance(reloaded, T.AnnT)
 
 
+def test_check_graph_equality_bulk_and_rounded(rng, tmp_path):
+    """``check_graph_equality`` compares distances to 5 decimals: equal graphs
+    pass, a distance moved within its rounding passes, and a moved distance, a
+    swapped link, a count or an origin id fail."""
+    h, X = _build(rng)
+    r = T.HnswIo(tmp_path, h.file_dump(tmp_path, "bulk")).load_hnsw(device="cpu")
+    assert h.check_graph_equality(r) and r.check_graph_equality(h)
+    t = r._layers[0]
+    i = int(np.flatnonzero(t.counts[:r._nb_point] > 1)[0])
+    d0 = t.dists[i, 0]
+    t.dists[i, 0] = np.nextafter(d0, np.float32(np.inf))
+    assert h.check_graph_equality(r)
+    t.dists[i, 0] = d0 + np.float32(1e-3)
+    assert not h.check_graph_equality(r)
+    t.dists[i, 0] = d0
+    a, b = t.ids[i, 0], t.ids[i, 1]
+    t.ids[i, 0] = t.ids[i, 1] = a
+    assert not h.check_graph_equality(r)
+    t.ids[i, 1] = b
+    t.counts[i] -= 1
+    assert not h.check_graph_equality(r)
+    t.counts[i] += 1
+    r._origin[i], r._origin[i + 1] = r._origin[i + 1], r._origin[i]
+    assert not h.check_graph_equality(r)
+    r._origin[i], r._origin[i + 1] = r._origin[i + 1], r._origin[i]
+    assert h.check_graph_equality(r)
+
+
 def test_description(rng, tmp_path):
     h, _ = _build(rng, n=50)
     basename = h.file_dump(tmp_path, "descrtest")

@@ -23,7 +23,7 @@ from hnsw_tpu_torch.ops.insert_rounds import BuildTensors
 from hnsw_tpu_torch.parallel.sharded import (default_devices, sharded_insert_round_fn,
                                              sharded_program_round)
 from test_torch_build import jax_from_state
-from test_torch_build_program import DeferredPiece, _programs, rounds_through
+from test_torch_build_program import DeferredPiece, _peaks_by_kind, _programs, rounds_through
 
 D = 8
 KW = dict(max_nb_connection=12, ef_construction=64, dist="L2")
@@ -440,6 +440,37 @@ def test_mesh_build_through_programs(meshed, jmeshed, data, monkeypatch):
         np.testing.assert_array_equal(ta["_level"], tj["_level"])
         same.append((ta["layer0_ids"] == tj["layer0_ids"]).all(1))
     assert np.concatenate(same).mean() >= 0.995
+
+
+@pytest.mark.parametrize("budget", ["between_keys", "below_every_key"])
+def test_mesh_build_uncaptured_within_shard_share(meshed, data, monkeypatch, budget):
+    """The mesh build with each shard's share too small for some keys (the
+    constructions' measured peak above the budget, the other parts' below)
+    or for all: the refused keys run uncaptured on every shard, interleaved
+    chunk by chunk with the shards' graphs, nothing raises, and every shard
+    writes the eager mesh build's graph bit for bit."""
+    monkeypatch.setattr(program, "Piece", DeferredPiece)
+    _peaks_by_kind(monkeypatch, {"build": 1000})
+    monkeypatch.setattr(program.BuildPrograms, "_budget",
+                        lambda self: 500.0 if budget == "between_keys" else -1.0)
+    X, _ = data
+    graphs, made = [], []
+    sh = _sharded(len(X))
+    with rounds_through(graphs, made):
+        sh.parallel_insert((X, np.arange(len(X))), mode="mesh", batch_size=128)
+    assert len(made) == D
+    for s in sh._round_stats:
+        assert s["uncaptured_keys"] > 0 and s["first_runs"] == s["keys"]
+        if budget == "between_keys":
+            assert 0 < s["uncaptured_keys"] < s["keys"] and s["captures"] > 0
+            assert set(s["uncaptured"]) == {"build"}
+        else:
+            assert s["captures"] == 0 and s["rounds_replayed"] == 0
+    assert bool(graphs) == (budget == "between_keys")
+    for a, b in zip(sh.shards, meshed.shards):
+        ta, tb = to_arrays(a), to_arrays(b)
+        for k in ta:
+            np.testing.assert_array_equal(ta[k], tb[k], err_msg=k)
 
 
 def test_search_and_exact_on_same_graphs(meshed, data, mesh8):

@@ -2,12 +2,13 @@
 """The device build through its round programs against the eager rounds, on
 one card, at a bench size.
 
-    python3 tools/build_programs.py [--n 1000000] [--seed 1234]
-        [--forms program,chunked,eager]
+    python3 tools/build_programs.py [--n 1000000] [--d 128] [--batch 16384]
+        [--seed 1234] [--forms program,chunked,eager]
 
 Builds bench.py's gauss corpus (``hnsw_tpu_torch.bench.make_dataset``,
-rounded to float32) with path 1's settings (M=24, efC=400, level scale 0.5,
-kept pruned links, batch 16384, cap 96) once per form, in the order given (a
+rounded to float32; ``--d`` its width) with path 1's settings (M=24, efC=400,
+level scale 0.5, kept pruned links, cap 96; ``--batch`` the build batch,
+16384 by default) once per form, in the order given (a
 form may repeat, for runs in turns): ``program`` (the card's default: every
 round through ``ops/program.py::BuildPrograms``), ``chunked`` (the same
 round programs with nothing captured: every round runs their pieces
@@ -15,8 +16,10 @@ directly, one host read per ``CHUNK`` loop steps, as a key's first round
 does) and ``eager`` (``round_step``, one host read per beam iteration and
 descent hop). Each round runs between two synchronizes and is timed on the
 host clock, after an untimed 20k-row build that warms the process. Prints
-one JSON line per build (seconds, per-round ms, peak
-device memory, the round programs' counts and pool), then one with every
+one JSON line per build (seconds, per-round ms, peak device memory, the
+round programs' counts, pool, the peak each kind of part measured at its
+first run and the keys left uncaptured because their captures would take
+the pool past its budget, with their bytes), then one with every
 build's tables and in-degrees compared with the first's bit for bit on every
 real row and the traversal codec's build (row-chunked) against a one-shot
 gather: each one's peak device memory above what was allocated before it,
@@ -40,6 +43,8 @@ sys.path.insert(0, os.path.dirname(HERE))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--d", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--forms", default="program,eager")
     args = ap.parse_args()
@@ -55,11 +60,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     enable_profiling()
     print(subprocess_card(), flush=True)
-    X, _ = f32_dataset("gauss", np.random.default_rng(args.seed), args.n, 1, 128, 16)
+    X, _ = f32_dataset("gauss", np.random.default_rng(args.seed), args.n, 1, args.d, 16)
     forms = args.forms.split(",")
     # a short build first, so that no timed build pays the process's first
     # use of the card (the allocator's growth, the libraries' set-up)
-    cs.build_path1(torch, X[:20000])
+    cs.build_path1(torch, X[:20000], args.batch)
     held, first = [], None
     for form in forms:
         if form == "eager":
@@ -71,22 +76,26 @@ def main():
             owner, name = program.BuildPrograms, "round"
             keep = lambda a, out: (a[1].tables(), a[1].indeg0)  # noqa: E731
         with ctx, cs.watched_rounds(torch, owner, name, -1, keep) as rec:
-            h, build_s, peaks = cs.build_path1(torch, X)
+            h, build_s, peaks = cs.build_path1(torch, X, args.batch)
         walls = rec["walls_ms"]
-        print(json.dumps({"form": form, "n": args.n, "build_s": build_s, **peaks,
+        print(json.dumps({"form": form, "n": args.n, "d": args.d, "batch": args.batch,
+                          "build_s": build_s, **peaks,
                           "rounds": len(walls), "rounds_s": sum(walls) / 1e3,
                           "round_ms": walls,
                           "round_programs": getattr(h, "_round_stats", None)}), flush=True)
         held.append(rec["held"])
         first = h if first is None else first
         h = None
-    out = {"n": args.n, "forms": forms, "tables_equal_first": [], "first_difference": []}
+    out = {"n": args.n, "d": args.d, "batch": args.batch, "forms": forms, "tables_equal_first": [], "first_difference": []}
     for other in held[1:]:
         equal, diff = cs.tables_equal(torch, held[0], other, args.n)
         out["tables_equal_first"].append(equal)
         out["first_difference"].append(diff)
     held = None
-    out["codec_failures"] = cs.phase_codec(torch, first)
+    # the codec check needs the index's traversal codec ("auto" declines one
+    # past CODEC_MAX_BYTES, as at d = 960)
+    out["codec_failures"] = (cs.phase_codec(torch, first)
+                             if first.device_codec() is not None else None)
     print(json.dumps(out), flush=True)
     return 0 if all(out["tables_equal_first"]) and not out["codec_failures"] else 1
 
