@@ -194,6 +194,30 @@ The later lines, each with its launch counts from zero (``launches_by_path``):
                 recall at its floor; the host oracle's k-th distances equal to
                 the pool's within 1e-6 relative (B2)
 
+The ``cards`` phase (not in the default list: ``--phases
+env,gt,sharded,graft,cards`` on a machine with four cards; asked for where
+fewer than two cards are visible, the script exits 2 before any phase and
+says why): ``ShardedHnsw`` with its four shards dealt over the visible cards
+(``default_devices``: one a card on four, two a card on two). Its first line
+(``"part": "equality"``) builds path 5's index (200k x 128, M=24, efC 400,
+int8 codec) twice in one process, on cuda:0 x 4 and over the cards, and holds
+bit for bit every shard's tables, in-degrees, codec blocks, squared norms and
+scale, ``search_batch`` of 16384 queries at ef 64 and 96, the 65,536-query
+stream at ef 96 (f16 ingest, batches of 16384), a filtered search (the even
+ids), ``exact_search_batch`` at k=10 and k=100, the manifest dumps' bytes and
+each dump reloaded onto the other placement; B3 and B2 must launch on every
+card (``kernel_lib.CARD_LAUNCHES``, all ``bulk`` and ``wgmma``); build
+seconds, stream QPS, each card's peak and one traced batch of each form. Its
+second line (``"part": "scale"``) builds 4 x 1M rows of bench.py's gauss
+corpus one shard a card at bench run b's settings (batch 16384): set-up,
+rounds, flush, every round's wall and a steady round traced (each card's busy
+time against the wall), each card's peak; streamed recall@10 and QPS at ef 64
+/ 96 / 128 (f16 ingest, one 16384-query batch, median of 3) and the exact
+search against a 4M fp64 truth (gates 0.97 at ef 96 and 0.999); one search
+batch traced; then shard 0's 1M rows built and served alone on cuda:0 the
+same way, and the ratios of the two. Every line names each card and its
+power limit.
+
 Each kernels line carries median CUDA-event times of the kernel, its plain
 version and a one-call PyTorch yardstick, and the bound the card allows for
 the same work; the two scans also the bound of their epilogue (CUDA-core
@@ -2346,13 +2370,14 @@ RECALL_SHARDED_EF96 = 0.97
 SET_EQUAL_EXACT = 0.999
 
 
-def sharded_index(n):
-    """Path 5's ``ShardedHnsw`` for ``n`` rows: four shards on the card,
-    path 1's graph settings on every shard."""
+def sharded_index(n, devices=None):
+    """Path 5's ``ShardedHnsw`` for ``n`` rows: four shards, all on ``cuda:0``
+    unless ``devices`` places them, path 1's graph settings on every shard."""
     from hnsw_tpu_torch import ShardedHnsw
 
-    sh = ShardedHnsw(n_shards=N_SHARDS, max_nb_connection=24, max_elements=n // N_SHARDS + 8,
-                     ef_construction=400, dist="L2")
+    devices = devices or ["cuda:0"] * N_SHARDS
+    sh = ShardedHnsw(devices=devices, max_nb_connection=24,
+                     max_elements=n // len(devices) + 8, ef_construction=400, dist="L2")
     for s in sh.shards:
         s.set_keeping_pruned(True)
         s.modify_level_scale(0.5)
@@ -2423,6 +2448,13 @@ def mesh_build_check(torch, X):
     return out
 
 
+def peaks_by_card_gb(devices):
+    """Each card's peak allocated GB since its ``reset_peak_memory``."""
+    from hnsw_tpu_torch.ops import program
+
+    return {f"cuda:{c}": a / 1e9 for c, (a, _) in program.peak_memory_by_card(devices).items()}
+
+
 def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     """Path 5: ``ShardedHnsw`` with four shards on one card, path 1's corpus
     and graph settings, the mesh build and the per-shard int8 codec (B3), the
@@ -2445,7 +2477,7 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     sh.parallel_insert(X, mode="mesh")
     torch.cuda.synchronize()
     build_s = time.time() - t0
-    build_peak_gb = program.peak_memory()[0] / 1e9
+    peaks_gb = peaks_by_card_gb(sh.devices)
     for s, stats in enumerate(sh._round_stats):
         failures += round_faults(f"sharded shard {s}", stats)
     if any(d != torch.device("cuda", 0) for d in sh.devices):
@@ -2546,7 +2578,8 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     del r
     emit({"phase": "sharded", "n": n, "shards": N_SHARDS,
           "devices": [str(d) for d in sh.devices], "build_s": build_s,
-          "build_peak_mem_gb": build_peak_gb, "round_programs": sh._round_stats,
+          "build_peak_mem_gb": max(peaks_gb.values()),
+          "build_peak_mem_gb_by_card": peaks_gb, "round_programs": sh._round_stats,
           "mesh_build_check": mesh_check,
           "rounds": sh._mesh_rounds, "layer0_widths": [int(s._layers[0].width)
                                                        for s in sh.shards],
@@ -2719,6 +2752,415 @@ def phase_graft(torch):
     emit({"phase": "graft", "forms": forms, "entry_s": entry_s, "dryrun": dryrun,
           "failures": failures})
     return failures
+
+
+# ---------------------------------------------------------------- the cards ----
+
+CARDS_MIN = 2                # the cards phase refuses to run on fewer visible cards
+CARDS_SCALE_N = 4_000_000    # 4 x 1M rows: bench run b's size on every card
+CARDS_BATCH = 16384          # bench run b's build and serve batch
+CARDS_STREAM_COPIES = 4      # the equality stream: path 1's 16384 queries four times
+CARDS_EFS = (64, 96, 128)
+CARDS_TIMED = 3              # timed calls of each scale search (median)
+CARDS_TRACE_ROUND = 20       # a steady round of the 4 x 1M build (B=16384, keys replayed)
+CARDS_EXACT_Q = 4096
+RECALL_CARDS_EF96 = 0.97
+
+
+def card_lines():
+    """nvidia-smi's "name, power limit" of every card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines() if smi.returncode == 0 else ["unknown"]
+
+
+def sync_cards(torch, devices):
+    """``torch.cuda.synchronize`` of every card of ``devices`` (a bare call
+    waits on the current card alone)."""
+    from hnsw_tpu_torch.ops import program
+
+    for c in program.cards(devices):
+        torch.cuda.synchronize(c)
+
+
+def busy_by_card(spans):
+    """{"cuda:<c>": busy ms} from device activities ``(card, start ns, end
+    ns)``: the union of each card's intervals, so activities that overlap on
+    one card count once."""
+    out = {}
+    for card in sorted({c for c, _, _ in spans}):
+        busy, end = 0, None
+        for a, b in sorted((a, b) for c, a, b in spans if c == card):
+            if end is None or a > end:
+                busy, end = busy + b - a, b
+            elif b > end:
+                busy, end = busy + b - end, b
+        out[f"cuda:{card}"] = busy / 1e6
+    return out
+
+
+def trace_cards(torch, fn, devices):
+    """``fn`` once under torch.profiler, device activity alone: the wall ms
+    to every card's end, each card's busy ms and the cards' busy time summed
+    over the wall (at most the number of cards: each card busy all along)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync_cards(torch, devices)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.time()
+        fn()
+        sync_cards(torch, devices)
+        wall_ms = (time.time() - t0) * 1e3
+    busy = busy_by_card([(e.device_index(), e.start_ns(), e.end_ns())
+                         for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == torch.autograd.DeviceType.CUDA
+                         and not e.is_user_annotation()])
+    return {"wall_ms": wall_ms, "busy_ms_by_card": busy,
+            "busy_sum_over_wall": sum(busy.values()) / wall_ms}
+
+
+@contextlib.contextmanager
+def watched_mesh_rounds(torch, devices, at):
+    """Run each call of the mesh build's round function between two
+    synchronizes of every card, timed on the host clock, and call ``at``
+    (from 0) inside ``trace_cards``; the returned dict holds the rounds'
+    walls, that call's trace, its wall with the profiler's own start and stop
+    (``total_ms``), and the host clock at the first round's start and the
+    last round's end (what precedes them is the build's set-up, what follows
+    its flush)."""
+    from hnsw_tpu_torch.parallel import sharded
+
+    real = sharded.sharded_program_round
+    rec = {"walls_ms": [], "trace": None, "total_ms": None, "first": None, "last": None}
+
+    def watched(*args):
+        sync_cards(torch, devices)
+        t0 = time.time()
+        rec["first"] = rec["first"] or t0
+        if len(rec["walls_ms"]) == at:
+            rec["trace"] = trace_cards(torch, lambda: real(*args), devices)
+        else:
+            real(*args)
+        sync_cards(torch, devices)
+        rec["last"] = time.time()
+        rec["walls_ms"].append((rec["last"] - t0) * 1e3)
+        if len(rec["walls_ms"]) == at + 1:
+            rec["total_ms"] = rec["walls_ms"][-1]
+
+    sharded.sharded_program_round = watched
+    try:
+        yield rec
+    finally:
+        sharded.sharded_program_round = real
+
+
+def mesh_build_timed(torch, X, devices, ids=None):
+    """``sharded_index`` on ``devices`` with the int8 codec, built with
+    ``mode="mesh"`` at batch CARDS_BATCH, every round watched
+    (``watched_mesh_rounds``, round CARDS_TRACE_ROUND traced). Returns the
+    index and its line: build seconds less the profiler's own, the set-up
+    (the host states and uploads before the first round), the rounds, the
+    flush (the tables back into the host graphs), the first runs (rounds
+    before STEADY_FROM: the ramp's batch sizes and each key's uncaptured
+    first run and capture), the steady rounds' median, the traced round,
+    what each card held before and its peak, and the round programs'
+    counts."""
+    from hnsw_tpu_torch.ops import program
+
+    held = {f"cuda:{c}": torch.cuda.memory_allocated(c) / 1e9 for c in program.cards(devices)}
+    for c in program.cards(devices):
+        program.reset_peak_memory(c)
+    sync_cards(torch, devices)
+    t0 = time.time()
+    with watched_mesh_rounds(torch, devices, CARDS_TRACE_ROUND) as rec:
+        sh = sharded_index(len(X), devices)
+        sh.set_traversal_codec("i8")
+        sh.parallel_insert(X if ids is None else (X, ids), mode="mesh",
+                           batch_size=CARDS_BATCH)
+    sync_cards(torch, devices)
+    t1 = time.time()
+    walls = rec["walls_ms"]
+    profiler_s = (rec["total_ms"] - rec["trace"]["wall_ms"]) / 1e3 if rec["trace"] else 0.0
+    steady = [w for r, w in enumerate(walls) if r >= STEADY_FROM and r != CARDS_TRACE_ROUND]
+    peaks = peaks_by_card_gb(devices)
+    return sh, {
+        "devices": [str(x) for x in sh.devices], "shard_sizes": [x._nb_point for x in sh.shards],
+        "build_s": t1 - t0 - profiler_s, "build_s_with_profiler": t1 - t0,
+        "setup_s": rec["first"] - t0, "rounds_s": sum(walls) / 1e3 - profiler_s,
+        "flush_s": t1 - rec["last"], "rounds": len(walls),
+        "first_runs_s": sum(walls[:STEADY_FROM]) / 1e3,
+        "steady_round_ms_median": float(np.median(steady)) if steady else None,
+        "round_ms": [round(w, 1) for w in walls],
+        "traced_round": {"round": CARDS_TRACE_ROUND, **(rec["trace"] or {})},
+        "held_before_gb_by_card": held, "build_peak_mem_gb_by_card": peaks,
+        "round_programs": [{key: st[key] for key in (
+            "rounds", "rounds_replayed", "captures", "uncaptured_keys", "pool_bytes",
+            "capture_s")} for st in sh._round_stats]}
+
+
+def to_device(torch, held, device):
+    """A build's held ``(tables, indeg0)`` copied to ``device``."""
+    tables, indeg = held
+    return [(i.to(device), d.to(device)) for i, d in tables], indeg.to(device)
+
+
+def card_answers(torch, sh, X, Q, k=10):
+    """What the cards phase holds bit for bit across placements, on one
+    index: ``search_batch`` of path 1's 16384 queries at ef 64 and 96, the
+    65,536-query stream at ef 96 (f16 ingest, batches of 16384; its QPS on
+    the second call), a filtered search (the even ids), ``exact_search_batch``
+    at k=10 and k=100. Returns ({name: (ids, dists)}, stream QPS, seconds)."""
+    t_all = time.time()
+    out = {f"batch_ef{ef}": sh.search_batch(Q, k, ef) for ef in (64, 96)}
+    Qs = np.concatenate([Q] * CARDS_STREAM_COPIES)
+    sh.search_stream(Qs[:CARDS_BATCH], k, 96, batch=CARDS_BATCH, query_dtype="f16")
+    sync_cards(torch, sh.devices)
+    t0 = time.time()
+    out["stream_ef96"] = sh.search_stream(Qs, k, 96, batch=CARDS_BATCH, query_dtype="f16")
+    qps = len(Qs) / (time.time() - t0)
+    out["filtered_ef96"] = sh.search_batch(Q[:2048], k, 96, filter=even_ids_filter(len(X)))
+    for kk in (10, 100):
+        out[f"exact_k{kk}"] = sh.exact_search_batch(Q[:CARDS_EXACT_Q], kk)
+    return out, qps, time.time() - t_all
+
+
+def launches_on_cards(before, cards):
+    """{"cuda:<c>": {counter: launches}} since ``before`` (a copy of
+    ``kernel_lib.CARD_LAUNCHES``), for B3 and B2 and their entries."""
+    from hnsw_tpu_torch.ops import kernel_lib
+
+    keep = ("codec_scores", "codec_scores.bulk", "scan_topk", "scan_topk.wgmma")
+    return {f"cuda:{c}": {key: kernel_lib.CARD_LAUNCHES.get((c, key), 0) - before.get((c, key), 0)
+                          for key in keep} for c in cards}
+
+
+def cards_equality(torch, X, Q, kth, one, many, k=10):
+    """Path 5's index (200k x 128, 4 shards, M=24, efC 400) built twice in
+    this process, its shards on ``one`` (cuda:0 x 4) and on ``many`` (one a
+    card): tables, in-degrees, codec blocks, squared norms and scales, every
+    answer of ``card_answers``, the manifest dumps' bytes and the reloads
+    onto the other placement, each bit for bit; B3 and B2 launched on every
+    card of ``many`` (all ``bulk`` and ``wgmma``). Returns (line, failures)."""
+    import filecmp
+
+    from hnsw_tpu_torch import ShardedHnsw
+    from hnsw_tpu_torch.ops import kernel_lib, program
+
+    failures, forms, built = [], {}, {}
+    for name, devs in (("one_card", one), ("cards", many)):
+        for c in program.cards(devs):
+            program.reset_peak_memory(c)
+        before = dict(kernel_lib.CARD_LAUNCHES)
+        sync_cards(torch, devs)
+        t0 = time.time()
+        with held_mesh_rounds("program") as held:
+            sh = sharded_index(len(X), devs)
+            sh.set_traversal_codec("i8")
+            sh.parallel_insert(X, mode="mesh")
+        sync_cards(torch, devs)
+        build_s = time.time() - t0
+        codec = sh.device_codec_arrays()
+        answers, qps, answers_s = card_answers(torch, sh, X, Q, k)
+        sh.search_batch(Q, k, 96)  # warm, then one batch traced
+        trace = trace_cards(torch, lambda: sh.search_batch(Q, k, 96), devs)
+        forms[name] = {"devices": [str(d) for d in sh.devices], "build_s": build_s,
+                       "rounds": sh._mesh_rounds, "answers_s": answers_s,
+                       "stream_qps_ef96": qps, "peak_mem_gb_by_card": peaks_by_card_gb(devs),
+                       "search_batch_ef96_trace": trace,
+                       "launches_by_card": launches_on_cards(before, program.cards(devs))}
+        if kth is not None:
+            forms[name]["recall_at_10_ef96"] = recall_fp64(X, Q, kth, answers["batch_ef96"][0], k)
+        for s, stats in enumerate(sh._round_stats):
+            failures += round_faults(f"cards {name} shard {s}", stats)
+        built[name] = (sh, held["tables"], codec, answers)
+    (sh_a, tab_a, cod_a, ans_a), (sh_b, tab_b, cod_b, ans_b) = built["one_card"], built["cards"]
+    dev0 = torch.device("cuda", 0)
+    sizes = [s._nb_point for s in sh_a.shards]
+    tables = [tables_equal(torch, a, to_device(torch, b, dev0), n)
+              for a, b, n in zip(tab_a, tab_b, sizes)]
+    codec_equal = [all(torch.equal(x[s], y[s].to(dev0)) for x, y in zip(cod_a[:3], cod_b[:3]))
+                   for s in range(N_SHARDS)] if cod_a and cod_b else [False]
+    answers = {key: answers_equal(ans_a[key], ans_b[key]) for key in ans_a}
+    wrong_place = [str(d) for s, d in enumerate(sh_b.devices) if d != many[s]]
+    # the manifest dumps (equal builds: equal bytes), each reloaded onto the
+    # other placement and answering as the other reload does
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
+        dirs = {name: os.path.join(tmp, name) for name in built}
+        for name, (sh, *_) in built.items():
+            os.makedirs(dirs[name])
+            sh.file_dump(dirs[name], "cards")
+        files = sorted(os.listdir(dirs["one_card"]))
+        dumps_equal = (files == sorted(os.listdir(dirs["cards"])) and all(
+            filecmp.cmp(os.path.join(dirs["one_card"], f), os.path.join(dirs["cards"], f),
+                        shallow=False) for f in files))
+        reload = {}
+        for name, src, devs in (("one_card_to_cards", "one_card", many),
+                                ("cards_to_one_card", "cards", one)):
+            r = ShardedHnsw.load(dirs[src], "cards", devices=devs, max_nb_connection=24,
+                                 max_elements=len(X) // N_SHARDS + 8, ef_construction=400,
+                                 dist="L2")
+            r.set_traversal_codec("i8")
+            reload[name] = (r.search_batch(Q[:2048], k, 96), [str(d) for d in r.devices])
+            del r
+    source_ids = ans_a["batch_ef96"][0][:2048]
+    reload_line = {
+        name: {"devices": devs, "ids_equal_source": bool(np.array_equal(ans[0], source_ids))}
+        for name, (ans, devs) in reload.items()}
+    reload_equal = answers_equal(reload["one_card_to_cards"][0], reload["cards_to_one_card"][0])
+    launches = forms["cards"]["launches_by_card"]
+    missing = {c: v for c, v in launches.items()
+               if not (v["codec_scores"] and v["scan_topk"]
+                       and v["codec_scores.bulk"] == v["codec_scores"]
+                       and v["scan_topk.wgmma"] == v["scan_topk"])}
+    line = {"n": len(X), "shards": N_SHARDS, "forms": forms,
+            "tables_equal": [e for e, _ in tables],
+            "first_difference": next((d for e, d in tables if not e), None),
+            "codec_equal": codec_equal, "answers_equal": answers,
+            "dumps_byte_equal": dumps_equal, "reload": reload_line,
+            "reloads_equal": reload_equal}
+    if len(program.cards(many)) < CARDS_MIN or wrong_place:
+        failures.append(f"cards: the shards are not spread over the cards: {many}, "
+                        f"misplaced {wrong_place}")
+    if not all(e for e, _ in tables):
+        failures.append(f"cards: the builds' tables differ: {line['first_difference']}")
+    if not all(codec_equal):
+        failures.append(f"cards: the codecs differ by shard: {codec_equal}")
+    if not all(answers.values()):
+        failures.append(f"cards: answers differ across placements: {answers}")
+    if not dumps_equal:
+        failures.append("cards: the two placements' dumps differ")
+    if not reload_equal or not all(r["ids_equal_source"] for r in reload_line.values()):
+        failures.append(f"cards: the reloads answer differently: {reload_line}, "
+                        f"equal to each other {reload_equal}")
+    if missing:
+        failures.append(f"cards: B3 and B2 (bulk, wgmma) not launched on every card: {missing}")
+    if kth is not None and forms["cards"]["recall_at_10_ef96"] < RECALL_CARDS_EF96:
+        failures.append(f"cards: recall@10 at ef 96 {forms['cards']['recall_at_10_ef96']:.5f}")
+    for sh, *_ in built.values():
+        for c in sh._programs:
+            c.clear()
+    return line, failures
+
+
+def served(torch, sh, X, Q, kth, k=10, to_rows=None):
+    """Streamed recall@10 and QPS of ``sh`` at CARDS_EFS (f16 ingest, batch
+    16384: a warm call, then CARDS_TIMED timed calls, median), scored as path
+    1 (``to_rows`` maps the answered ids to rows of ``X``)."""
+    by_ef = {}
+    for ef in CARDS_EFS:
+        ids, _ = sh.search_stream(Q, k, ef, batch=CARDS_BATCH, query_dtype="f16")
+        walls = []
+        for _ in range(CARDS_TIMED):
+            sync_cards(torch, sh.devices)
+            t0 = time.time()
+            sh.search_stream(Q, k, ef, batch=CARDS_BATCH, query_dtype="f16")
+            walls.append(time.time() - t0)
+        rows = ids if to_rows is None else to_rows(ids)
+        by_ef[ef] = {"recall_at_10": recall_fp64(X, Q, kth, rows, k),
+                     "qps": len(Q) / float(np.median(walls)),
+                     "qps_each": [len(Q) / w for w in walls]}
+    return by_ef
+
+
+def truth(torch, X, Q, k=10):
+    """fp64 k-th distances of the first 4096 queries over ``X`` (path 1's
+    method: a ``BruteForceIndex`` top-64 pool on cuda:0, refined on the
+    host) and the seconds they took."""
+    from hnsw_tpu_torch import BruteForceIndex
+
+    t0 = time.time()
+    bf = BruteForceIndex(dist="L2", device="cuda:0")
+    bf.parallel_insert(X)
+    kth = kth_fp64(bf, X, Q, min(len(Q), 4096), k, 64)
+    bf.drop_programs()
+    del bf
+    torch.cuda.empty_cache()
+    return kth, time.time() - t0
+
+
+def cards_scale(torch, seed, many, k=10):
+    """4 x 1M rows of bench.py's gauss corpus (seed ``seed``) sharded one
+    shard a card at bench run b's settings (M=24, efC 400, level scale 0.5,
+    kept pruned links, batch 16384, int8 codec; ``mesh_build_timed``);
+    streamed recall@10 and QPS at ef 64 / 96 / 128 and the exact search's
+    against a 4M truth; one search batch traced; then shard 0's rows built
+    and served alone on cuda:0 the same way, in the same process. Returns
+    (line, failures)."""
+    from hnsw_tpu_torch.ops import program
+
+    failures, n, d, nq = [], CARDS_SCALE_N, 128, 16384
+    t0 = time.time()
+    X, Q = f32_dataset("gauss", np.random.default_rng(seed), n, nq, d, 16)
+    line = {"n": n, "d": d, "queries": nq, "data_s": time.time() - t0}
+    sh, built = mesh_build_timed(torch, X, many)
+    for s, stats in enumerate(sh._round_stats):
+        failures += round_faults(f"cards scale shard {s}", stats)
+    kth, line["truth_s"] = truth(torch, X, Q, k)
+    by_ef = served(torch, sh, X, Q, kth, k)
+    sh.exact_search_batch(Q[:CARDS_EXACT_Q], k)
+    walls = []
+    for _ in range(CARDS_TIMED):
+        sync_cards(torch, many)
+        t0 = time.time()
+        ids_e, _ = sh.exact_search_batch(Q[:CARDS_EXACT_Q], k)
+        walls.append(time.time() - t0)
+    sh.search_batch(Q, k, 96)
+    line["sharded"] = dict(
+        built, by_ef=by_ef, exact={"queries": CARDS_EXACT_Q,
+                                   "recall_at_10": recall_fp64(X, Q, kth, ids_e, k),
+                                   "qps": CARDS_EXACT_Q / float(np.median(walls))},
+        search_batch_ef96_trace=trace_cards(torch, lambda: sh.search_batch(Q, k, 96), many),
+        peak_mem_gb_by_card=peaks_by_card_gb(many))
+    if by_ef[96]["recall_at_10"] < RECALL_CARDS_EF96:
+        failures.append(f"cards scale: recall@10 at ef 96 {by_ef[96]['recall_at_10']:.5f} "
+                        f"< {RECALL_CARDS_EF96}")
+    if line["sharded"]["exact"]["recall_at_10"] < RECALL_EXACT:
+        failures.append(f"cards scale: exact recall@10 "
+                        f"{line['sharded']['exact']['recall_at_10']:.5f} < {RECALL_EXACT}")
+    for c in sh._programs:
+        c.clear()
+    del sh
+    torch.cuda.empty_cache()
+    # shard 0's rows (the strided split's) built and served alone on cuda:0
+    one = [torch.device("cuda", 0)]
+    X0, ids0 = np.ascontiguousarray(X[0::N_SHARDS]), np.arange(0, n, N_SHARDS)
+    sh1, built1 = mesh_build_timed(torch, X0, one, ids0)
+    kth0, _ = truth(torch, X0, Q, k)
+    by_ef1 = served(torch, sh1, X0, Q, kth0, k,
+                    to_rows=lambda ids: np.where(ids >= 0, ids // N_SHARDS, -1))
+    sh1.search_batch(Q, k, 96)
+    line["one_card_shard0"] = dict(
+        built1, by_ef=by_ef1,
+        search_batch_ef96_trace=trace_cards(torch, lambda: sh1.search_batch(Q, k, 96), one),
+        peak_mem_gb_by_card=peaks_by_card_gb(one))
+    line["four_over_one"] = {
+        key: line["sharded"][key] / built1[key]
+        for key in ("build_s", "setup_s", "rounds_s", "flush_s", "first_runs_s",
+                    "steady_round_ms_median")}
+    line["four_over_one"]["qps_by_ef"] = {ef: by_ef[ef]["qps"] / by_ef1[ef]["qps"]
+                                          for ef in CARDS_EFS}
+    for c in sh1._programs:
+        c.clear()
+    return line, failures
+
+
+def phase_cards(torch, X, Q, kth, seed, k=10):
+    """The sharded tier with one shard a card (``default_devices``: 4 shards
+    dealt round-robin over the visible cards, so two a card on two cards):
+    ``cards_equality`` at path 5's size against the same shards on cuda:0,
+    then ``cards_scale`` at 4 x 1M rows. Returns the failures."""
+    from hnsw_tpu_torch.parallel.sharded import default_devices
+
+    many = default_devices(N_SHARDS)
+    one = [torch.device("cuda", 0)] * N_SHARDS
+    names = card_lines()
+    eq, failures = cards_equality(torch, X, Q, kth, one, many, k)
+    emit({"phase": "cards", "part": "equality", "cards": names, **eq, "failures": failures})
+    torch.cuda.empty_cache()
+    scale, f = cards_scale(torch, seed, many, k)
+    emit({"phase": "cards", "part": "scale", "cards": names, **scale, "failures": f})
+    return failures + f
 
 
 RECALL_FILTER_EF96 = 0.95
@@ -2988,6 +3430,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if "cards" in phases and torch.cuda.device_count() < CARDS_MIN:
+        print(f"chip_smoke: the cards phase spreads the shards over at least {CARDS_MIN} "
+              f"cards; this machine shows {torch.cuda.device_count()}", file=sys.stderr)
+        return 2
     sys.path.insert(0, HERE)
     from hnsw_tpu_torch import enable_profiling
     from hnsw_tpu_torch.ops import kernel_lib
@@ -3123,7 +3569,8 @@ def main():
                       ("build_budget", lambda: phase_build_budget(torch, X)),
                       ("user_pivots", lambda: phase_user_pivots(torch, X, Q)),
                       ("topk_gathered", lambda: phase_topk_gathered(torch, X, Q)),
-                      ("bench_knobs", lambda: phase_bench_knobs(torch))):
+                      ("bench_knobs", lambda: phase_bench_knobs(torch)),
+                      ("cards", lambda: phase_cards(torch, X, Q, kth, args.seed))):
         if name in phases:
             if name == "bench_knobs":
                 native_ready()
@@ -3232,6 +3679,7 @@ def main():
     # build_budget, user_pivots and topk_gathered none of the five
     for name, counters in (("filters", ("codec_scores_ids", "scan_topk")),
                            ("graft", ("codec_scores", "scan_topk")),
+                           ("cards", ("codec_scores", "scan_topk")),
                            ("bench_knobs", ("scan_topk",)),
                            ("build_budget", ()), ("user_pivots", ()),
                            ("topk_gathered", ())):

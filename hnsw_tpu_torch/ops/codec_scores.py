@@ -152,14 +152,17 @@ def codec_scores(src, q, qsn, scale, blocks, M0: int, form: str = "l2", *,
     if entry is None:
         entry = codec_entry(d, M0, RID) if _aligned16(q, blocks) else "rows"
     lib = kernel_lib.load("codec_scores")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel_lib.launch(
-        "codec_scores_ids" if RID > 0 else "codec_scores", entry,
-        lib.codec_scores_launch,
-        src.data_ptr(), q.data_ptr(), qsn.data_ptr(), scale.data_ptr(),
-        blocks.data_ptr(), B, E, M0, RID, d, FORMS[form],
-        kernel_lib.CODEC_ENTRIES.index(entry), out.data_ptr(),
-        ids.data_ptr() if ids is not None else None, stream)
+    # the library launches on the current card: the tensors' own, whatever
+    # card the caller has current
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernel_lib.launch(
+            "codec_scores_ids" if RID > 0 else "codec_scores", entry,
+            lib.codec_scores_launch,
+            src.data_ptr(), q.data_ptr(), qsn.data_ptr(), scale.data_ptr(),
+            blocks.data_ptr(), B, E, M0, RID, d, FORMS[form],
+            kernel_lib.CODEC_ENTRIES.index(entry), out.data_ptr(),
+            ids.data_ptr() if ids is not None else None, stream, card=dev.index)
     return out, ids
 
 
@@ -211,10 +214,13 @@ def codec_scores_gathered(q, blk, csq, qsn, scale, form: str = "l2", *,
     if entry is None:
         entry = gathered_entry(d) if _aligned16(q, blk) else "rows"
     lib = kernel_lib.load("codec_scores_gathered")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel_lib.launch(
-        "codec_scores_gathered", entry, lib.codec_scores_gathered_launch,
-        q.data_ptr(), blk.data_ptr(), csq.data_ptr(), qsn.data_ptr(),
-        scale.data_ptr(), B, K, d, FORMS[form],
-        kernel_lib.GATHERED_ENTRIES.index(entry), out.data_ptr(), stream)
+    # the library launches on the current card: the tensors' own, whatever
+    # card the caller has current
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernel_lib.launch(
+            "codec_scores_gathered", entry, lib.codec_scores_gathered_launch,
+            q.data_ptr(), blk.data_ptr(), csq.data_ptr(), qsn.data_ptr(),
+            scale.data_ptr(), B, K, d, FORMS[form],
+            kernel_lib.GATHERED_ENTRIES.index(entry), out.data_ptr(), stream, card=dev.index)
     return out

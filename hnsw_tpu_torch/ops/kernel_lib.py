@@ -16,7 +16,9 @@ shapes alone (``scan_topk.scan_entry``, ``codec_scores.codec_entry`` and
 ``gathered_entry``): beside the wrapper's own count, ``<name>.<entry>`` says
 which entry each launch took (``wgmma``/``simt`` for the scans, ``bulk``/
 ``rows`` for the fused codec scores, ``stream``/``rows`` for the gathered
-ones).
+ones). ``CARD_LAUNCHES`` counts the same launches by card, ``(card index,
+counter)``, for a caller that spreads work over several cards (the sharded
+tier): every card's share of a path is read there.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ ENTRIES = {"codec_scores_ids": CODEC_ENTRIES, "codec_scores": CODEC_ENTRIES,
 LAUNCHES = {**{name: 0 for name in ENTRIES},
             **{f"{name}.{entry}": 0 for name, entries in ENTRIES.items()
                for entry in entries}}
+# {(card index, counter): launches}, the counters of ``LAUNCHES`` by card
+CARD_LAUNCHES: dict = {}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -55,6 +59,7 @@ _libs: dict = {}
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    CARD_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -186,10 +191,13 @@ def check(rc: int, what: str):
                            f"({torch.cuda.get_device_name()})")
 
 
-def launch(name: str, entry: str, fn, *args):
+def launch(name: str, entry: str, fn, *args, card=None):
     """Call a library's launch function and count the launch, for the wrapper
-    ``name`` and for the ``entry`` it took. A launch that CUDA refused
+    ``name`` and for the ``entry`` it took, and on ``card`` (the index of the
+    card it launched on) in ``CARD_LAUNCHES``. A launch that CUDA refused
     (non-zero return) raises and is not counted."""
     check(fn(*args), f"{name}.{entry}")
-    LAUNCHES[name] += 1
-    LAUNCHES[f"{name}.{entry}"] += 1
+    for key in (name, f"{name}.{entry}"):
+        LAUNCHES[key] += 1
+        if card is not None:
+            CARD_LAUNCHES[(card, key)] = CARD_LAUNCHES.get((card, key), 0) + 1

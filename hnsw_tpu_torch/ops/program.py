@@ -100,6 +100,8 @@ _PEAKS: dict = {}
 
 
 def _card(device) -> int:
+    if isinstance(device, int):
+        return device
     device = torch.device("cuda") if device is None else torch.device(device)
     return torch.cuda.current_device() if device.index is None else device.index
 
@@ -116,6 +118,8 @@ def _reset_peak(device):
 def reset_peak_memory(device=None):
     """Start a window of ``peak_memory`` on the card: reset its peak memory
     statistics and the peaks a build's measurements kept."""
+    if torch.cuda.is_available():
+        torch.cuda.init()  # a fresh process has no allocator to reset yet
     _PEAKS.pop(_card(device), None)
     torch.cuda.reset_peak_memory_stats(_card(device))
 
@@ -129,27 +133,44 @@ def peak_memory(device=None) -> tuple:
             max(old[1], torch.cuda.max_memory_reserved(_card(device))))
 
 
+def cards(devices) -> list:
+    """The distinct card indices of ``devices`` (a bare ``"cuda"`` is the
+    current card), in order."""
+    return sorted({_card(d) for d in devices})
+
+
+def peak_memory_by_card(devices) -> dict:
+    """{card index: ``peak_memory`` of that card} over the cards of
+    ``devices`` (a sharded index's), each since its ``reset_peak_memory``."""
+    return {c: peak_memory(c) for c in cards(devices)}
+
+
 class Piece:
     """One piece of a program. With a ``graph``, ``fn`` is captured into it
     once (inside ``capture(graph)``) and ``replay`` replays the graph and adds
-    the launches the capture counted, which the capture itself leaves
-    uncounted. Without one (the CPU), ``replay`` runs ``fn``. A captured
-    piece keeps no ``fn`` (a method of its program), so a dropped program is
-    freed at once, not by the cycle collector."""
+    the launches the capture counted (``launches``, and by card
+    ``card_launches``), which the capture itself leaves uncounted. Without
+    one (the CPU), ``replay`` runs ``fn``. A captured piece keeps no ``fn``
+    (a method of its program), so a dropped program is freed at once, not by
+    the cycle collector."""
 
     def __init__(self, fn, graph=None, capture=None):
-        self.fn, self.graph, self.launches = fn, graph, {}
+        self.fn, self.graph, self.launches, self.card_launches = fn, graph, {}, {}
         if graph is None:
             return
-        before = dict(kernel_lib.LAUNCHES)
+        before = dict(kernel_lib.LAUNCHES), dict(kernel_lib.CARD_LAUNCHES)
         try:
             with capture(graph):
                 fn()
         finally:
-            counted = dict(kernel_lib.LAUNCHES)
-            kernel_lib.LAUNCHES.update(before)
+            counted = dict(kernel_lib.LAUNCHES), dict(kernel_lib.CARD_LAUNCHES)
+            kernel_lib.LAUNCHES.update(before[0])
+            kernel_lib.CARD_LAUNCHES.clear()
+            kernel_lib.CARD_LAUNCHES.update(before[1])
         self.fn = None
-        self.launches = {k: v - before[k] for k, v in counted.items() if v != before[k]}
+        self.launches, self.card_launches = (
+            {k: v - was.get(k, 0) for k, v in now.items() if v != was.get(k, 0)}
+            for now, was in zip(counted, before))
 
     def replay(self):
         if self.graph is None:
@@ -158,6 +179,8 @@ class Piece:
         self.graph.replay()
         for k, v in self.launches.items():
             kernel_lib.LAUNCHES[k] += v
+        for k, v in self.card_launches.items():
+            kernel_lib.CARD_LAUNCHES[k] = kernel_lib.CARD_LAUNCHES.get(k, 0) + v
 
 
 def program_key(g, codec, batch: int, dtype, device, **static) -> tuple:

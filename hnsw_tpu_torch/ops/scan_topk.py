@@ -138,11 +138,15 @@ def scan_packed(qs, Xs, xsq, tn: int, group: int, acc: int):
     xsq = xsq.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty((n_blocks, B, 2 * G), dtype=torch.int32, device=dev)
     lib = kernel_lib.load("scan_topk")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel_lib.launch("scan_topk", entry, lib.scan_topk_launch, qs.data_ptr(),
-                      Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, group, acc, LB,
-                      int(Xs.dtype == torch.bfloat16),
-                      kernel_lib.SCAN_ENTRIES.index(entry), out.data_ptr(), stream)
+    # the library launches on the current card: the tensors' own, whatever
+    # card the caller has current
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernel_lib.launch("scan_topk", entry, lib.scan_topk_launch, qs.data_ptr(),
+                          Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, group, acc, LB,
+                          int(Xs.dtype == torch.bfloat16),
+                          kernel_lib.SCAN_ENTRIES.index(entry), out.data_ptr(), stream,
+                          card=dev.index)
     return out
 
 
@@ -219,12 +223,15 @@ def scan_unpacked(qs, Xs, xsq, tn: int, group: int, acc: int):
     outd = torch.empty((n_blocks, B, 2 * G), dtype=torch.float32, device=dev)
     outi = torch.empty((n_blocks, B, 2 * G), dtype=torch.int32, device=dev)
     lib = kernel_lib.load("scan_topk_unpacked")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel_lib.launch(
-        "scan_topk_unpacked", entry, lib.scan_topk_unpacked_launch,
-        qs.data_ptr(), Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, group, acc,
-        int(Xs.dtype == torch.bfloat16), kernel_lib.SCAN_ENTRIES.index(entry),
-        outd.data_ptr(), outi.data_ptr(), stream)
+    # the library launches on the current card: the tensors' own, whatever
+    # card the caller has current
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernel_lib.launch(
+            "scan_topk_unpacked", entry, lib.scan_topk_unpacked_launch,
+            qs.data_ptr(), Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, group, acc,
+            int(Xs.dtype == torch.bfloat16), kernel_lib.SCAN_ENTRIES.index(entry),
+            outd.data_ptr(), outi.data_ptr(), stream, card=dev.index)
     return outd, outi
 
 

@@ -6,8 +6,10 @@ by one Python process. The port keeps that single-controller design without
 ``torch.distributed``: one process holds a list of torch devices, and shard
 ``s`` lives on ``devices[s]`` — its vectors, tables, codec and scan copy, and
 its beam program. On several cards the shards' launches overlap because
-CUDA is asynchronous; a device may also appear more than once (several shards
-on one card, or on the CPU in the tests).
+CUDA is asynchronous, and a shard's work runs with its card current
+(``_on``); the shards answer bit for bit what the same shards answer on one
+card. A device may also appear more than once (several shards on one card,
+which then share its pool budget, or on the CPU in the tests).
 
   * **build**: the corpus is split round-robin; ``mode="mesh"`` runs one
     synchronized insertion round per shard per step on one shared geometry,
@@ -80,6 +82,25 @@ def default_devices(n_shards: Optional[int] = None, device=None) -> list:
     return [dev] * (n_shards or 1)
 
 
+def _card_device(d) -> torch.device:
+    """``d`` as a torch device, a bare ``"cuda"`` named by the index of the
+    current card, so that the shards of one card count alike whatever name
+    they came by (``pool_shares``, the copies of ``_per_device``). Raises
+    where CUDA is absent unless the CPU is asked for."""
+    d = resolve_device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def pool_shares(devices) -> list:
+    """Each shard's share of its card for its programs' pools (the search's
+    ``ProgramCache``, the build's ``BuildPrograms``): ``POOL_SHARE`` of the
+    card split evenly over the shards the card holds, so one shard a card
+    has the card's whole share."""
+    return [POOL_SHARE / devices.count(d) for d in devices]
+
+
 def _on(dev):
     """The current CUDA device for a shard's launches (the kernels launch on
     the current device's stream); nothing on the CPU."""
@@ -120,7 +141,7 @@ class ShardedHnsw:
     def __init__(self, devices: Optional[Sequence] = None, n_shards: Optional[int] = None,
                  **hnsw_kwargs):
         device = hnsw_kwargs.pop("device", None)
-        self.devices = ([torch.device(d) for d in devices] if devices is not None
+        self.devices = ([_card_device(d) for d in devices] if devices is not None
                         else default_devices(n_shards, device))
         self.n_shards = len(self.devices)
         self.hnsw_kwargs = dict(hnsw_kwargs)
@@ -135,8 +156,7 @@ class ShardedHnsw:
         self._scan_state = None
         # per shard: its captured search programs (ops/program.py), the
         # shards of one card sharing an index's share of its memory
-        self._programs = [ProgramCache(POOL_SHARE / self.devices.count(d))
-                          for d in self.devices]
+        self._programs = [ProgramCache(share) for share in pool_shares(self.devices)]
         self._placement = None  # lazy {external id: shard}; rebuilt after inserts
         self._mesh_rounds = 0  # steps of the last mesh build
 
@@ -254,7 +274,7 @@ class ShardedHnsw:
             min(4096, max(64, max(st.remaining for st in states))))
         h0 = self.shards[0]
         self._mesh_rounds = 0
-        progs = [program.round_programs(d, POOL_SHARE / devs.count(d)) for d in devs]
+        progs = [program.round_programs(d, share) for d, share in zip(devs, pool_shares(devs))]
         if any(p is None for p in progs):
             progs = None
         else:
