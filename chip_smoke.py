@@ -164,6 +164,27 @@ launches, wall ms, each shard's replay equal to a direct call of its pieces).
 After path 5's counts are read, B3 against its plain version on shard 0's
 codec at path 5's shape.
 
+The high-d path (``highd``; it runs right after ``kernels``, before path 1,
+while the card holds nothing else), three lines each with its launch counts from
+zero: ``highd_mnist``, 70k x 784 rows (ann-mnist-784-euclidean's shape,
+bench.py's gauss generator from the seed): ``AutoIndex("L2")`` must choose the
+scan (d >= HIGH_D); ``search_batch`` of 16,384 f32 queries, recall@10 >= 0.999
+against ``matmul_kth`` (a chunked f32 matmul refined in fp64), QPS median of 3
+and spread; ``l2_topk_stream`` at k=100 packed (B2) and unpacked (B5),
+set-equal; ``highd_graph``, the same corpus through the graph at the
+reference's mnist settings (M=24, efC=400, level scale 0.5, the int8 codec: at
+d=784 without id rows, the JAX codec's layout, so B3 and not B1), ef swept
+until recall@10 reaches 0.999 (>= 0.98 required), streamed QPS beside the
+exact engine's; ``highd_gist``, 1M x 960 rows (gist-960-euclidean's shape):
+``AutoIndex("L2")`` must choose the scan, recall@10 >= 0.999 over 4096
+queries, QPS. Every B2 and B5 launch takes "wgmma" (the K-looped layout at
+these depths), every B1 and B3 launch "bulk". With ``kernels``, after each
+line's counts are read, B2 and B5 at (B=2048, 71,680 x 784) and B2 at
+(B=2048, 1,001,472 x 960) against their plain versions (at 960 on 256
+queries), timed as the d=128 rows, with the f32-FMA entry's time on the same
+shape where its shared memory fits ("was"): three more rows on the kernels
+line, each with its ``line``.
+
 The later lines, each with its launch counts from zero (``launches_by_path``):
 
   filters       (after path 2's counts are read) path 1's index with the even
@@ -221,9 +242,11 @@ power limit.
 Each kernels line carries median CUDA-event times of the kernel, its plain
 version and a one-call PyTorch yardstick, and the bound the card allows for
 the same work; the two scans also the bound of their epilogue (CUDA-core
-instruction rate), the achieved TFLOP/s, the kernel entry that ran, and their time
-when 20 launches are queued back to back (``ms`` is timed in turns with the
-yardstick, whose 1.6 GB product evicts the corpus from L2 in between).
+instruction rate), the achieved TFLOP/s, the kernel entry and layout that ran
+(with ptxas's registers and spills), the same shape through the f32-FMA entry
+(``was_ms``) and, at d=128, through the K-looped layout (``kloop_ms``), and
+their time when 20 launches are queued back to back (``ms`` is timed in turns
+with the yardstick, whose 1.6 GB product evicts the corpus from L2 in between).
 ``--profile`` then traces one served batch per operating point, one
 2048-query batch of the exact engine (packed k=10, unpacked k=100)
 and a second build with torch.profiler (device time by kernel, the device's
@@ -702,9 +725,10 @@ def compare_scans(torch, st, kernel_lib, qs, Xs, xsq, acc, label, want_entry, fa
 
 def scan_rows(torch, X, Q):
     """B2 and B5 against their plain versions on the card. The tensor-core
-    entries at the path's shape (200k x 128, B=2048, bf16) and at a ragged one
-    (B=2000, a 30000-row corpus whose last span is one tile short, d=64); the
-    f32-FMA entry on a small f32 case with d=40. At the path's shape also the
+    entries at the path's shape (200k x 128, B=2048, bf16), at a ragged one
+    (B=2000, a 30000-row corpus whose last span is one tile short, d=64), at d
+    = 1536 (the K-looped layout) and at d = 100 (copies padded to 112 columns);
+    the f32-FMA entry on a small f32 case with d=40. At the path's shape also the
     ids and distances after the overfetch and f32 refine, and the times, each
     kernel in turns with its one-call PyTorch yardstick."""
     from hnsw_tpu_torch.ops import kernel_lib
@@ -735,7 +759,17 @@ def scan_rows(torch, X, Q):
         torch, st, kernel_lib, Qr.to(torch.bfloat16),
         torch.as_tensor(Xr, device=dev).to(torch.bfloat16), torch.as_tensor(xr, device=dev),
         4, "ragged B=2000 N=30720 d=64 bf16 acc=4", "wgmma", failures))
-    # f32 (full-precision contract) and a d the tensor path does not take
+    # the K-looped layout at d = 1536 (24 boxes), and a d that is not a multiple
+    # of 16 (100: the bf16 copies padded to 112 columns, the resident layout)
+    for dd in (1536, 100):
+        Xh, xh, _ = st.pad_corpus(rng.standard_normal((9000, dd)).astype(np.float32))
+        Qh = torch.as_tensor(rng.standard_normal((300, dd)).astype(np.float32), device=dev)
+        Xhs = st.scan_copy(torch.as_tensor(Xh, device=dev))
+        checks.append(compare_scans(
+            torch, st, kernel_lib, st.scan_copy(Qh), Xhs, torch.as_tensor(xh, device=dev), 2,
+            f"B=300 N=10240 d={dd} bf16 acc=2 ({st.scan_layout(dd)})", "wgmma", failures))
+    del Xh, xh, Qh, Xhs
+    # f32 (full-precision contract)
     Xf, xf, _ = st.pad_corpus(rng.standard_normal((9000, 40)).astype(np.float32))
     Qf = torch.as_tensor(rng.standard_normal((100, 40)).astype(np.float32), device=dev)
     checks.append(compare_scans(
@@ -758,8 +792,13 @@ def scan_rows(torch, X, Q):
         gq = torch.matmul(qs, Xs.T)
         return torch.topk(xsq[None, :] - 2.0 * gq.float(), k + 8, dim=1,
                           largest=False)
-    ms, lib_ms = cuda_ms_turns(
-        torch, [lambda: st.scan_packed(qs, Xs, xsq, tn, grp, acc), library])
+    # in turns with the library call: the same shape through the K-looped
+    # layout and through the f32-FMA entry (bf16 in, not through the wrapper)
+    ms, lib_ms, kloop_ms, was_ms = cuda_ms_turns(
+        torch, [lambda: st.scan_packed(qs, Xs, xsq, tn, grp, acc), library,
+                scan_launcher(torch, st, kernel_lib, True, "wgmma", "kloop", qs, Xs, xsq, acc),
+                scan_launcher(torch, st, kernel_lib, True, "simt", "resident", qs, Xs, xsq,
+                              acc)])
     plain_ms = cuda_ms(torch, lambda: st.scan_packed_plain(qs, Xs, xsq, tn, grp, acc))
     flops = 2 * Bq * Np * d
     nbytes = Np * d * 2 + Np * 4 + Bq * d * 2 + n_blocks * Bq * 256 * 4
@@ -770,6 +809,8 @@ def scan_rows(torch, X, Q):
            "source": "hnsw_tpu_torch/csrc/scan_topk.cu",
            "replaces": "hnsw_tpu/ops/pallas_topk.py:106",
            "counter": "scan_topk", "entry": at_path["entry"],
+           "layout": st.scan_layout(d, True), "kloop_ms": kloop_ms, "was_ms": was_ms,
+           "was_entry": "simt", "ptxas": kernel_ptxas(kernel_lib, "scan_topk", "resident"),
            "max_abs_err": at_path["b2_max_abs_err"], "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
            "epilogue_bound_ms": Bq * Np * B2_EPILOGUE_INSTR / CUDA_CORE_INSTR_PER_S * 1e3,
@@ -792,8 +833,12 @@ def scan_rows(torch, X, Q):
         failures.append("B5 distances beyond tolerance")
     vs_packed = float((torch.sort(iu, 1).values == torch.sort(ik, 1).values).all(1)
                       .float().mean())
-    u_ms, u_lib_ms = cuda_ms_turns(
-        torch, [lambda: st.scan_unpacked(qs, Xs, xsq, tn, grp, acc), library])
+    u_ms, u_lib_ms, u_kloop_ms, u_was_ms = cuda_ms_turns(
+        torch, [lambda: st.scan_unpacked(qs, Xs, xsq, tn, grp, acc), library,
+                scan_launcher(torch, st, kernel_lib, False, "wgmma", "kloop", qs, Xs, xsq,
+                              acc),
+                scan_launcher(torch, st, kernel_lib, False, "simt", "resident", qs, Xs, xsq,
+                              acc)])
     u_plain_ms = cuda_ms(torch, lambda: st.scan_unpacked_plain(qs, Xs, xsq, tn, grp, acc),
                          warmup=1, iters=3)
     u_bytes = Np * d * 2 + Np * 4 + Bq * d * 2 + 2 * n_blocks * Bq * 256 * 4
@@ -804,6 +849,9 @@ def scan_rows(torch, X, Q):
                  "source": "hnsw_tpu_torch/csrc/scan_topk_unpacked.cu",
                  "replaces": "hnsw_tpu/ops/pallas_topk.py:38",
                  "counter": "scan_topk_unpacked", "entry": at_path["entry"],
+                 "layout": st.scan_layout(d, False), "kloop_ms": u_kloop_ms,
+                 "was_ms": u_was_ms, "was_entry": "simt",
+                 "ptxas": kernel_ptxas(kernel_lib, "scan_topk_unpacked", "resident"),
                  "max_abs_err": at_path["b5_max_abs_err"],
                  "max_err_over_terms": at_path["b5_max_err_over_terms"],
                  "ms": u_ms, "plain_ms": u_plain_ms,
@@ -3397,6 +3445,300 @@ def phase_bench_knobs(torch):
     return failures
 
 
+# ------------------------------------------------------------- the high-d path ----
+
+# AutoIndex sends every L2 corpus with d >= HIGH_D (512) to the exact scan:
+# the repo's own high-d configuration, ann-mnist-784-euclidean (BASELINE.json
+# configs[1]), and the corpus shape of ann-benchmarks' gist-960-euclidean,
+# both made with bench.py's gauss generator (16 intrinsic dimensions) from
+# the seed.
+MNIST_SHAPE = (70_000, 784)
+GIST_SHAPE = (1_000_000, 960)
+HIGHD_Q = 16_384            # the 784 line's queries: search_batch and the graph's stream
+GIST_Q = 4096
+HIGHD_RUNS = 3              # timed exact searches: median QPS and spread
+HIGHD_K100_Q = 4096         # l2_topk_stream at k=100, packed against unpacked
+HIGHD_EFS = (32, 48, 64, 96, 128, 192, 256, 384)  # the graph's sweep, up to 0.999
+RECALL_HIGHD_GRAPH = 0.98
+PLAIN_SLICE = 256           # queries of the plain versions at 1M x 960 ([B, N] f32 each)
+SHARED_LIMIT = 232448       # bytes of shared memory a block may use on the H100
+SCAN_EXPECTED = {"scan_topk": "wgmma", "scan_topk_unpacked": "wgmma",
+                 "codec_scores_ids": "bulk", "codec_scores": "bulk"}
+# the graph's codec carries id rows only where d % 128 == 0 (the JAX codec's
+# layout): at d = 784 its scores are B3's (``codec_scores``), not B1's
+HIGHD_GRAPH_CODEC = "codec_scores_ids" if MNIST_SHAPE[1] % 128 == 0 else "codec_scores"
+
+
+def entry_faults_of(label, counts):
+    """Every launch of a kernel in ``counts`` (a line's launch counts from
+    zero) through the entry the high-d shapes select."""
+    return [f"{label}: {counts[f'{c}.{e}']} of {counts[c]} {c} launches took {e}"
+            for c, e in SCAN_EXPECTED.items() if counts[f"{c}.{e}"] != counts[c]]
+
+
+def exact_auto(torch, X, Q, kth, label, failures, k=10):
+    """``AutoIndex("L2")`` over ``X``: the engine it chooses (must be the
+    scan), set-up seconds to the first answer, recall@10 of ``search_batch``
+    on ``Q`` against ``kth`` and its QPS (median of ``HIGHD_RUNS`` searches,
+    spread (max - min) / median)."""
+    from hnsw_tpu_torch import AutoIndex
+
+    a = AutoIndex("L2", device="cuda")
+    t0 = time.time()
+    a.parallel_insert(zip(X, range(len(X))))
+    engine = a.choose_engine()
+    a.build()
+    ids, _ = a.search_batch(Q, k)  # the first search builds the scan's program
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    recall = recall_fp64(X, Q, kth, ids, k)
+    qps = []
+    for _ in range(HIGHD_RUNS):
+        t0 = time.time()
+        a.search_batch(Q, k)
+        qps.append(len(Q) / (time.time() - t0))
+    med = float(np.median(qps))
+    if engine != "scan" or a.engine_name != "scan":
+        failures.append(f"{label}: AutoIndex('L2') chose {engine!r}, not 'scan'")
+    if recall < RECALL_EXACT:
+        failures.append(f"{label}: exact recall@10 {recall:.5f} < {RECALL_EXACT}")
+    return a, {"engine": engine, "set_up_to_first_answer_s": first_s, "recall_at_10": recall,
+               "queries": len(Q), "qps": med, "qps_runs": qps,
+               "qps_spread": (max(qps) - min(qps)) / med}
+
+
+def highd_graph(torch, X, Q, kth, failures, k=10):
+    """The 784 corpus through the graph at the reference's mnist settings (M=24,
+    efC=400, level scale 0.5; bench.py's kept pruned links, batch 16384, cap
+    96; the int8 codec, whose kernel, B1 with id rows or B3 without, must take
+    "bulk"), then ``device_search_stream`` over ``HIGHD_EFS`` until recall@10
+    reaches 0.999: recall and streamed QPS (the queries twice, after the call
+    that builds each ef's program)."""
+    from hnsw_tpu_torch.ops.beam_search import device_search_stream
+    from hnsw_tpu_torch.ops.codec_scores import codec_entry
+
+    h, build_s, mem = build_path1(torch, X)
+    codec = h.device_codec()
+    entry = None if codec is None else codec_entry(X.shape[1], codec.M0, codec.id_rows)
+    if codec is None or entry != "bulk":
+        failures.append(f"highd_graph: the int8 codec's scores must take 'bulk' at "
+                        f"d={X.shape[1]}; entry {entry}")
+    Qs = np.concatenate([Q, Q])
+    sweep = {}
+    for ef in HIGHD_EFS:
+        ids, _ = device_search_stream(h, Q, k, ef, batch=16384, expand=4)
+        oid = np.where(ids >= 0, h._origin[np.clip(ids, 0, h._nb_point - 1)], -1)
+        r = recall_fp64(X, Q, kth, oid, k)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        device_search_stream(h, Qs, k, ef, batch=16384, expand=4)
+        sweep[ef] = {"recall_at_10": r, "qps": len(Qs) / (time.time() - t0)}
+        if r >= RECALL_EXACT:
+            break
+    at = {floor: next((ef for ef, v in sweep.items() if v["recall_at_10"] >= floor), None)
+          for floor in (RECALL_HIGHD_GRAPH, RECALL_EXACT)}
+    if at[RECALL_HIGHD_GRAPH] is None:
+        failures.append(f"highd_graph: recall@10 below {RECALL_HIGHD_GRAPH} at every ef "
+                        f"{list(sweep)}")
+    h.drop_programs()
+    return {"build_s": build_s, **mem, "codec_M0": None if codec is None else codec.M0,
+            "codec_id_rows": None if codec is None else codec.id_rows,
+            "codec_kernel": HIGHD_GRAPH_CODEC, "codec_entry": entry,
+            "stream_queries": len(Qs), "sweep": sweep,
+            "ef_at_0.98": at[RECALL_HIGHD_GRAPH], "ef_at_0.999": at[RECALL_EXACT]}
+
+
+def scan_launcher(torch, st, kernel_lib, packed, entry, layout, qs, Xs, xsq, acc):
+    """One launch of B2 (``packed``) or B5 through its library's launch
+    function with the entry and layout named, not through the wrapper (not
+    counted): the other entry's and layout's times on the same shape."""
+    tn, grp = st.SCAN_TN, st.SCAN_GROUP
+    B, d = qs.shape
+    N = Xs.shape[0]
+    G, _, acc, n_blocks, LB = st._geometry(N, tn, grp, acc)
+    name = "scan_topk" if packed else "scan_topk_unpacked"
+    lib = kernel_lib.load(name)
+    stream = torch.cuda.current_stream().cuda_stream
+    head = (qs.data_ptr(), Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, grp, acc)
+    codes = (int(Xs.dtype == torch.bfloat16), kernel_lib.SCAN_ENTRIES.index(entry),
+             st.SCAN_LAYOUTS.index(layout))
+    out = torch.empty((n_blocks, B, 2 * G), dtype=torch.int32, device=Xs.device)
+    if packed:
+        fn, args = lib.scan_topk_launch, (*head, LB, *codes, out.data_ptr(), stream)
+    else:
+        outd = torch.empty((n_blocks, B, 2 * G), dtype=torch.float32, device=Xs.device)
+        fn, args = (lib.scan_topk_unpacked_launch,
+                    (*head, *codes, outd.data_ptr(), out.data_ptr(), stream))
+    return lambda: kernel_lib.check(fn(*args), f"{name}.{entry} ({layout})")
+
+
+def simt_shared_bytes(d, packed):
+    """Shared memory the f32-FMA entry asks for at depth ``d`` (its launch
+    functions in ``scan_topk.cu`` and ``scan_topk_unpacked.cu``): the queries
+    [d][64] and the staging tile [32][129] in f32, plus |q|^2 (packed) or
+    B5's id words [32][256]."""
+    return (d * 64 + 32 * 129 + (64 if packed else 32 * 256)) * 4
+
+
+def kernel_ptxas(kernel_lib, source, layout):
+    """ptxas's registers and spills of ``source``'s tensor-core kernel in
+    ``layout``."""
+    kernel = "scan_kloop_kernel" if layout == "kloop" else "scan_tile_kernel"
+    return next(({k: e[k] for k in ("registers", "spill_stores", "spill_loads")}
+                 for e in kernel_lib.ptxas_report((source,))[source] if kernel in e["entry"]),
+                None)
+
+
+def scan_row(torch, st, kernel_lib, name, qs, Xs, xsq, acc, check, line, plain_q=None):
+    """A kernels-line row for B2 or B5 at a high-d shape (B = ``len(qs)``
+    queries, bf16): the wrapper's ms in turns with the library call (bf16
+    matmul + topk) and the f32-FMA entry ("was", where its shared memory
+    fits), back-to-back ms, the plain version's ms (on ``plain_q``, a slice
+    where [B, N] intermediates would not fit), the bound and the epilogue's,
+    and ``check`` (``compare_scans``' result at this shape)."""
+    packed = name == "B2"
+    tn, grp = st.SCAN_TN, st.SCAN_GROUP
+    B, d = qs.shape
+    Np = Xs.shape[0]
+    n_blocks = st._geometry(Np, tn, grp, acc)[3]
+    wrap = st.scan_packed if packed else st.scan_unpacked
+    plain = st.scan_packed_plain if packed else st.scan_unpacked_plain
+    plain_q = qs if plain_q is None else plain_q
+
+    def library():
+        gq = torch.matmul(qs, Xs.T)
+        return torch.topk(xsq[None, :] - 2.0 * gq.float(), 18, dim=1, largest=False)
+
+    fns = [lambda: wrap(qs, Xs, xsq, tn, grp, acc), library]
+    simt_bytes = simt_shared_bytes(d, packed)
+    if simt_bytes <= SHARED_LIMIT:
+        fns.append(scan_launcher(torch, st, kernel_lib, packed, "simt", "resident", qs, Xs,
+                                 xsq, acc))
+    times = cuda_ms_turns(torch, fns, rounds=3)
+    ms, lib_ms = times[:2]
+    plain_ms = cuda_ms(torch, lambda: plain(plain_q, Xs, xsq, tn, grp, acc), warmup=1, iters=3)
+    flops = 2 * B * Np * d
+    nbytes = Np * d * 2 + Np * 4 + B * d * 2 + (1 if packed else 2) * n_blocks * B * 256 * 4
+    bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    instr = B2_EPILOGUE_INSTR if packed else B5_EPILOGUE_INSTR
+    layout = st.scan_layout(d, packed)
+    source = "scan_topk" if packed else "scan_topk_unpacked"
+    row = {"name": name, "route": "cuda",
+           "source": f"hnsw_tpu_torch/csrc/{source}.cu",
+           "replaces": "hnsw_tpu/ops/pallas_topk.py:106" if packed
+           else "hnsw_tpu/ops/pallas_topk.py:38",
+           "counter": source, "line": line, "shape": f"B={B} N={Np} d={d} bf16 acc={acc}",
+           "entry": st.scan_entry(Xs.dtype, d, packed), "layout": layout,
+           "ptxas": kernel_ptxas(kernel_lib, source, layout),
+           "max_abs_err": check["b2_max_abs_err" if packed else "b5_max_abs_err"],
+           "ms": ms, "ms_back_to_back": cuda_ms_queued(
+               torch, lambda: wrap(qs, Xs, xsq, tn, grp, acc), n=5),
+           "plain_ms": plain_ms, "plain_queries": len(plain_q),
+           "bound_ms": bms, "bound_by": by,
+           "epilogue_bound_ms": B * Np * instr / CUDA_CORE_INSTR_PER_S * 1e3,
+           "tflops": flops / ms / 1e9, "bound_share": bms / ms, "library_ms": lib_ms,
+           "was_ms": times[2] if len(times) > 2 else None,
+           "was_entry": "simt", "simt_shared_bytes": simt_bytes,
+           "shapes_checked": [check]}
+    if row["was_ms"] is None:
+        row["was_note"] = (f"the simt entry asks for {simt_bytes} bytes of shared memory "
+                           f"(the block's limit is {SHARED_LIMIT}): it never launched here")
+    return row
+
+
+def phase_highd(torch, seed, kernels, k=10):
+    """The high-d path, three lines each with its launch counts from zero:
+    ``highd_mnist`` (AutoIndex's scan at 70k x 784, ``l2_topk_stream`` at
+    k=100 packed and unpacked), ``highd_graph`` (the same corpus through the
+    graph), ``highd_gist`` (AutoIndex's scan at 1M x 960); then, outside the
+    counted windows, B2 and B5 against their plain versions at 784 and B2 at
+    960 (``kernels``). Returns (failures, kernel rows, {line: counts})."""
+    from hnsw_tpu_torch.ops import kernel_lib
+    from hnsw_tpu_torch.ops import scan_topk as st
+
+    failures, rows, counts = [], [], {}
+    tn, grp = st.SCAN_TN, st.SCAN_GROUP
+    # ---- 70k x 784: the exact engine AutoIndex chooses ----
+    X, Q = f32_dataset("gauss", np.random.default_rng(seed), MNIST_SHAPE[0], HIGHD_Q,
+                       MNIST_SHAPE[1], 16)
+    t0 = time.time()
+    kth = matmul_kth(torch, X, Q, k)
+    truth_s = time.time() - t0
+    kernel_lib.reset_launch_counts()
+    a, exact = exact_auto(torch, X, Q, kth, "highd_mnist", failures, k)
+    Xd, xsq, Xscan, perm, acc, programs = a.engine._scan_device()
+    k100 = {}
+    for name, packed in (("unpacked", False), ("packed", True)):
+        kw = dict(tn=tn, group=grp, acc=acc, overfetch=a.engine.SCAN_OVERFETCH, packed=packed,
+                  Xscan=Xscan, batch=EXACT_BATCH, programs=programs)
+        _, idx = st.l2_topk_stream(Q[:HIGHD_K100_Q], Xd, xsq, 100, **kw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        st.l2_topk_stream(Q[:HIGHD_K100_Q], Xd, xsq, 100, **kw)
+        k100[name] = (idx, HIGHD_K100_Q / (time.time() - t0))
+    same = float((np.sort(k100["unpacked"][0], 1) == np.sort(k100["packed"][0], 1))
+                 .all(1).mean())
+    if same < B2_SET_EQUAL:
+        failures.append(f"highd_mnist: k=100 unpacked and packed ids set-equal on {same:.4f}")
+    counts["highd_mnist"] = dict(kernel_lib.LAUNCHES)
+    failures += entry_faults_of("highd_mnist", counts["highd_mnist"])
+    emit({"phase": "highd_mnist", "n": MNIST_SHAPE[0], "d": MNIST_SHAPE[1], "seed": seed,
+          "truth_s": truth_s, **exact, "scan_layout": {
+              p: st.scan_layout(MNIST_SHAPE[1], p) for p in (True, False)},
+          "k100": {"queries": HIGHD_K100_Q, "set_equal_frac": same,
+                   "unpacked_qps": k100["unpacked"][1], "packed_qps": k100["packed"][1]},
+          "launches": {c: v for c, v in counts["highd_mnist"].items() if v},
+          "failures": failures})
+    # ---- the same corpus through the graph ----
+    kernel_lib.reset_launch_counts()
+    graph = highd_graph(torch, X, Q, kth, failures, k)
+    counts["highd_graph"] = dict(kernel_lib.LAUNCHES)
+    failures += entry_faults_of("highd_graph", counts["highd_graph"])
+    ef98 = graph["ef_at_0.98"]
+    emit({"phase": "highd_graph", **graph, "exact_qps": exact["qps"],
+          "graph_over_exact_qps_at_0.98": None if ef98 is None
+          else graph["sweep"][ef98]["qps"] / exact["qps"],
+          "launches": {c: v for c, v in counts["highd_graph"].items() if v}})
+    if kernels:
+        qs = st.scan_copy(torch.as_tensor(Q[:EXACT_BATCH], device="cuda"))
+        label = f"highd B={EXACT_BATCH} N={Xd.shape[0]} d={MNIST_SHAPE[1]} bf16 acc={acc}"
+        check = compare_scans(torch, st, kernel_lib, qs, Xscan, xsq, acc, label, "wgmma",
+                              failures)
+        rows += [scan_row(torch, st, kernel_lib, name, qs, Xscan, xsq, acc, check,
+                          "highd_mnist") for name in ("B2", "B5")]
+    a.engine.drop_programs()
+    del a, Xd, xsq, Xscan, programs, X, Q
+    torch.cuda.empty_cache()
+    # ---- 1M x 960 ----
+    X, Q = f32_dataset("gauss", np.random.default_rng(seed), GIST_SHAPE[0], GIST_Q,
+                       GIST_SHAPE[1], 16)
+    t0 = time.time()
+    kth = matmul_kth(torch, X, Q, k)
+    truth_s = time.time() - t0
+    torch.cuda.empty_cache()
+    kernel_lib.reset_launch_counts()
+    a, exact = exact_auto(torch, X, Q, kth, "highd_gist", failures, k)
+    counts["highd_gist"] = dict(kernel_lib.LAUNCHES)
+    failures += entry_faults_of("highd_gist", counts["highd_gist"])
+    emit({"phase": "highd_gist", "n": GIST_SHAPE[0], "d": GIST_SHAPE[1], "seed": seed,
+          "truth_s": truth_s, **exact,
+          "launches": {c: v for c, v in counts["highd_gist"].items() if v}})
+    if kernels:
+        Xd, xsq, Xscan, perm, acc, programs = a.engine._scan_device()
+        a.engine.drop_programs()
+        qs = st.scan_copy(torch.as_tensor(Q[:EXACT_BATCH], device="cuda"))
+        label = f"highd B={PLAIN_SLICE} N={Xd.shape[0]} d={GIST_SHAPE[1]} bf16 acc={acc}"
+        check = compare_scans(torch, st, kernel_lib, qs[:PLAIN_SLICE], Xscan, xsq, acc,
+                              label, "wgmma", failures)
+        rows.append(scan_row(torch, st, kernel_lib, "B2", qs, Xscan, xsq, acc, check,
+                             "highd_gist", plain_q=qs[:PLAIN_SLICE]))
+        del Xd, xsq, Xscan, programs
+    a.engine.drop_programs()
+    del a, X, Q
+    torch.cuda.empty_cache()
+    return failures, rows, counts
+
+
 def profiled(torch, label, fn, top=12, warm=True):
     """Run ``fn`` under torch.profiler (after one untraced call with
     ``warm``, so a search program is built before its window); emit device
@@ -3417,8 +3759,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="env,kernels,build,gt,exact_program,serve,program,bench,persist,"
-                            "serve2,filters,native,metrics,ivf,sharded,graft,build_budget,"
-                            "user_pivots,topk_gathered,bench_knobs")
+                            "serve2,filters,native,metrics,ivf,sharded,highd,graft,"
+                            "build_budget,user_pivots,topk_gathered,bench_knobs")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, trace one served batch per operating "
@@ -3449,6 +3791,13 @@ def main():
     if "kernels" in phases:
         rows, f = scan_rows(torch, X, Q)
         failures += f
+    later = {}  # the lines after the paths and highd's, each with its counts from zero
+    if "highd" in phases:
+        # first, on an empty card: its 784-d graph build peaks at 31 GB
+        f, r, lines = phase_highd(torch, args.seed, "kernels" in phases)
+        failures += f
+        rows += r
+        later.update(lines)
     # ---- path 1: counts run from zero over build, gt and serve ----
     kernel_lib.reset_launch_counts()
     h = build_s = None
@@ -3494,7 +3843,6 @@ def main():
             replays[f"path2 k=100 {name}"] = r["launches_per_replay"]
     path2 = dict(kernel_lib.LAUNCHES)
     # ---- the later lines, each with its counts from zero ----
-    later = {}
     if h is not None and bf is not None and "filters" in phases:
         kernel_lib.reset_launch_counts()
         failures += phase_filters(torch, h, bf, X, Q)
@@ -3545,7 +3893,7 @@ def main():
         check, f = scan_on_clustered(torch, *scan4)
         failures += f
         for r in rows:
-            if r["name"] == "B2":
+            if r["name"] == "B2" and "line" not in r:  # the d = 128 row
                 r["shapes_checked"].append(check)
     scan4 = None
     torch.cuda.empty_cache()
@@ -3650,6 +3998,14 @@ def main():
                             "scans, not one")
     for r in rows:
         c = r.pop("counter")
+        if "line" in r:  # a high-d row: its launches are its own line's
+            cnt = paths.get(r["line"], {})
+            r["launches"] = cnt.get(c, 0)
+            r["launches_by_entry"] = {k.split(".")[1]: v for k, v in cnt.items()
+                                      if k.startswith(c + ".")}
+            if r["launches"] == 0:
+                failures.append(f"kernel {r['name']} never launched on {r['line']}")
+            continue
         if r["name"] in ("B2", "B5"):
             r["launches_per_replay"] = {w: l.get(c, 0) for w, l in replays.items()
                                         if l.get(c, 0) or r["name"] == "B2"}
@@ -3677,7 +4033,10 @@ def main():
     # index, which carries no id rows, and the sharded "pallas" scan),
     # bench_knobs B2 (20k rows: below the codec's 32,768, no B1);
     # build_budget, user_pivots and topk_gathered none of the five
-    for name, counters in (("filters", ("codec_scores_ids", "scan_topk")),
+    for name, counters in (("highd_mnist", ("scan_topk", "scan_topk_unpacked")),
+                           ("highd_graph", (HIGHD_GRAPH_CODEC,)),
+                           ("highd_gist", ("scan_topk",)),
+                           ("filters", ("codec_scores_ids", "scan_topk")),
                            ("graft", ("codec_scores", "scan_topk")),
                            ("cards", ("codec_scores", "scan_topk")),
                            ("bench_knobs", ("scan_topk",)),

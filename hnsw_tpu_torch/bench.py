@@ -64,7 +64,8 @@ import torch
 
 from .ops import kernel_lib, program
 from .ops.program import ProgramCache
-from .ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk_stream, pad_corpus, scan_acc
+from .ops.scan_topk import (SCAN_GROUP, SCAN_TN, l2_topk_stream, pad_corpus, scan_acc,
+                            scan_copy)
 from .utils.device import resolve_device
 
 # the reference's comparable row: SIFT1M M=64 efC=1600 -> 15,258 QPS @ 0.9907
@@ -230,14 +231,15 @@ def device_info(device) -> dict:
 # ---- the exact engine and ground truth ----
 
 def scan_corpus(X: np.ndarray, device):
-    """The exact engine's corpus on ``device``: ``(X, |x|^2, bf16 copy, perm,
-    acc, programs)``, the tuple of ``BruteForceIndex._scan_device`` (shuffled
+    """The exact engine's corpus on ``device``: ``(X, |x|^2, bf16 copy (zero
+    columns up to the kernel's 16-column step, ``scan_copy``), perm, acc,
+    programs)``, the tuple of ``BruteForceIndex._scan_device`` (shuffled
     padded rows; ``perm`` maps scan row -> row of ``X``; ``programs`` the
     ``ProgramCache`` of the scan's captured programs, one per k and query
     dtype)."""
     Xp, xsq, perm = pad_corpus(X, tn=SCAN_TN)
     Xd = torch.as_tensor(Xp, device=device)
-    return (Xd, torch.as_tensor(xsq, device=device), Xd.to(torch.bfloat16), perm,
+    return (Xd, torch.as_tensor(xsq, device=device), scan_copy(Xd), perm,
             scan_acc(Xp.shape[0]), ProgramCache())
 
 
@@ -535,8 +537,10 @@ def measure_hnsw(cfg: Config, h, X, Q, kth) -> dict:
 def entry_faults(before: dict, after: dict, d: int, codec) -> list:
     """On the card: B2 (``scan_topk``) and, with an id-row ``codec``, B1
     (``codec_scores_ids``) launched between the two ``KERNEL_LAUNCHES``
-    readings, every launch through the entry its shape selects (``wgmma`` and
-    ``bulk`` at d=128)."""
+    readings, every launch through the entry its shape selects: ``wgmma`` for
+    the bf16 scan at every d up to ``WGMMA_MAX_D`` (784 and 960 included),
+    ``bulk`` for B1 where ``codec_entry`` names it (d=128 and d=784 among
+    them)."""
     from .ops.codec_scores import codec_entry
     from .ops.scan_topk import scan_entry
 

@@ -2,30 +2,62 @@
 //
 // scan_topk.cu (packed keep-2, kernel B2) and scan_topk_unpacked.cu (unpacked
 // keep-2, kernel B5) include this header and differ only in the epilogue
-// functor they hand to scan_tile_kernel and in their final store.
+// functor they hand to the kernels below and in their final store.
 //
 // What a block does. It owns QT = 128 queries x one span of the corpus, with
-// two warpgroups of 64 query rows each. The query tile [128 x d] bf16 is
-// loaded once and stays in shared memory for the whole span. The span's
-// corpus rows stream through a ring of 2-4 stages of [128 rows x d] bf16 plus
-// the rows' 128 |x|^2 floats; every copy is asynchronous (TMA tensor-map loads
-// with the 128-byte swizzle for the vectors, one bulk copy for |x|^2), is
-// started by one thread, and completes on the stage's "full" mbarrier; the
-// warps hand a stage back through its "empty" mbarrier (one arrival each). A
-// warpgroup multiplies its 64 query rows with the stage's 128 corpus rows by
-// wgmma.mma_async m64n128k16 (bf16 in, f32 accumulate, both operands K-major:
-// queries and corpus are row-major with d contiguous, so nothing is
-// transposed), d/16 steps per 128-row sub-tile. The instruction's N = 128 is
-// exactly the 128 lane groups of the scan: accumulator column c is lane c, so
-// each accumulator element belongs to one keep-2 cell of the thread that
-// holds it, and a thread's 64 cells (2 query rows x 32 lanes) live in its
-// registers for the whole span. No candidate leaves the SM until the span is
-// done.
+// two warpgroups of 64 query rows each. A warpgroup multiplies its 64 query
+// rows with 128 corpus rows at a time (a sub-tile) by wgmma.mma_async
+// m64n128k16 (bf16 in, f32 accumulate, both operands K-major: queries and
+// corpus are row-major with d contiguous, so nothing is transposed), d/16
+// steps per sub-tile. The instruction's N = 128 is exactly the 128 lane groups
+// of the scan: accumulator column c is lane c, so each accumulator element
+// belongs to one keep-2 cell of the thread that holds it, and a thread's 64
+// cells (2 query rows x 32 lanes) live in its registers for the whole span.
+// No candidate leaves the SM until the span is done. Every copy is
+// asynchronous (TMA tensor-map loads of [128 rows x 64 columns] bf16 boxes
+// with the 128-byte swizzle, one bulk copy for a sub-tile's 128 |x|^2
+// floats), is started by one thread, and completes on its stage's "full"
+// mbarrier; the warps hand a stage back through its "empty" mbarrier (one
+// arrival each).
 //
-// The epilogue (about 7 CUDA-core instructions per element) is as large as
-// the product, so the two warpgroups take turns on the tensor cores (two
-// named barriers order their wgmma launches): while one reduces sub-tile s into
-// its cells the other multiplies. One block per SM.
+// Two layouts of the same product, chosen by the host from d alone
+// (ops/scan_topk.py::scan_layout):
+//
+//  * resident (scan_tile_kernel; d up to 256 packed, 192 unpacked). The query
+//    tile [128 x d] is loaded once and stays in shared memory for the whole
+//    span; the corpus streams through a ring of 2-4 stages of [128 rows x d]
+//    plus the rows' |x|^2. At d = 128 the epilogue (about 7 CUDA-core
+//    instructions per element) is as large as the product, so the two
+//    warpgroups take turns on the tensor cores (two named barriers order
+//    their wgmma launches): while one reduces sub-tile s into its cells the
+//    other multiplies. Past d = 256 two stages no longer fit beside the tile.
+//  * K-looped (scan_kloop_kernel; any d). A ring stage holds one 64-column
+//    box of the query tile and the same box of the sub-tile's corpus rows,
+//    32 KB whatever d is; the warpgroup walks the depth box by box and the
+//    epilogue runs once per sub-tile, after the last box. The query boxes are
+//    read again for every sub-tile: a block's tile, 128 d 2 bytes (245 KB at
+//    d = 960), stays in L2.
+//    Each box's product goes into fresh accumulators, and the CUDA cores add
+//    it to the sub-tile's sum in f32. The tensor cores' f32 accumulation
+//    truncates at every step, so its error grows with the steps chained into
+//    one accumulator: chaining a whole sub-tile put B5's values 1.77e-6 (d =
+//    784) and 2.13e-6 (d = 960) of their terms from a chain of FMAs, against
+//    5.0e-7 at d = 128 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py); summed
+//    per box, 2.1e-7 and 2.3e-7 of an fp64 evaluation (tools/scan_accuracy.py).
+//    The sum takes 64 more registers, so the epilogues keep their second
+//    places in shared memory here ([64 cells][256 threads], 64 KB; B5's
+//    beside its id words), and read the sub-tile's |x|^2 from L2: the ring
+//    then holds 5 stages (B2) or 3 (B5). Each stage goes back as soon as its
+//    box's product has completed.
+//    The two warpgroups multiply together, not in turns: a turn per sub-tile
+//    would need all its boxes in the ring at once (13 stages at d = 784), and
+//    past d = 512 the product is 4-8x the epilogue.
+//    Measured on the same card (tools/scan_variants.py, B = 2048): the copies
+//    alone (no product) take 60-75% of the whole kernel at d = 960 and the time
+//    per box follows the boxes in flight, not the bytes: CTAs in pairs
+//    sharing each corpus box by TMA multicast (25% fewer bytes from L2), an
+//    L2 prefetch of the corpus boxes 8-32 boxes ahead, and one f32 sum per
+//    two boxes each measured no faster than this layout.
 //
 // No producer warp, no setmaxnreg. 64 accumulators and 128 words of cell
 // state need about 245 registers a thread with everything else. A block of
@@ -34,18 +66,17 @@
 // spilled per thread, re-read and re-written every sub-tile through L1, and
 // ran 20-30% slower than this layout: 256 threads under __launch_bounds__(256,
 // 1) may use 255 registers each and spill nothing. The copies are started by
-// thread 0 right after it has started its warpgroup's product for the
-// sub-tile, so their cost hides in the wait for that product; they run
-// stages - 2 sub-tiles ahead, so the stage they refill was left by both
-// warpgroups an iteration ago and thread 0 does not wait for it.
+// thread 0 right after it has started its warpgroup's product, so their cost
+// hides in the wait for that product. In the resident layout they run stages
+// - 2 sub-tiles ahead, so the stage they refill was left by both warpgroups
+// an iteration ago and thread 0 does not wait for it; in the K-looped layout
+// stages - 1 boxes ahead.
 //
-// Depth. d must be a multiple of 16 (one wgmma step). The vectors are copied
-// in boxes of 64 columns (128 bytes, the swizzle width); a d that is not a
-// multiple of 64 reads its last box past the row's end, which the tensor map
-// fills with zeros, and skips the wgmma steps of the zero part. A query tile
-// past B is zero-filled the same way and never stored. Shared memory bounds
-// d: the host side picks the number of stages and refuses a d that leaves
-// fewer than two.
+// Depth. d must be a multiple of 16 (one wgmma step): the host gives the bf16
+// copies zero columns up to it. A d that is not a multiple of 64 reads its
+// last box past the row's end, which the tensor map fills with zeros, and
+// skips the wgmma steps of the zero part. A query tile past B is zero-filled
+// the same way and never stored.
 //
 // Accumulator layout of m64n128 (thread t of the warpgroup, warp w = t / 32,
 // lane l = t % 32): element 4 j + 2 h + e is query row 16 w + l / 4 + 8 h,
@@ -82,6 +113,15 @@ constexpr int XSQ_BYTES = LANES * 4;
 constexpr int THREADS = 256;
 constexpr int MAX_STAGES = 4;
 constexpr int SMEM_LIMIT = 232448;  // bytes a block may use on sm_90
+
+// The K-looped layout's ring (measurement hook for tools/scan_variants.py:
+// -DSCAN_KLOOP_MAX_STAGES=n caps it).
+#ifndef SCAN_KLOOP_MAX_STAGES
+#define SCAN_KLOOP_MAX_STAGES 8
+#endif
+
+constexpr int KSTAGE = 2 * CHUNK;  // one K-looped stage: query box, then corpus box
+constexpr int KLOOP_MAX_STAGES = SCAN_KLOOP_MAX_STAGES;
 
 // ---------------------------------------------------------------- PTX helpers
 
@@ -150,6 +190,32 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] = A[64 x 16] * B[128 x 16]^T: the first step of a fresh sum.
+// Its accumulators are outputs only, so the compiler may reuse their
+// registers until this step (the K-looped layout's sums live elsewhere).
+__device__ __forceinline__ void wgmma_m64n128k16_first(float (&d)[64], uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, 0, 1, 1, 0, 0;\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),
+        "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]),
+        "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
+        "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]),
+        "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db));
 }
 
 // A thread's place in the m64n128 accumulator: its first query row
@@ -329,6 +395,125 @@ scan_tile_kernel(const __grid_constant__ CUtensorMap map_q,
 #endif
 }
 
+// ------------------------------------------------------- the K-looped kernel
+
+// One 64-column box's product into fresh accumulators: `steps` steps of 16
+// columns, 32 bytes further per step inside the swizzled 128-byte row.
+__device__ __forceinline__ void box_product(float (&a)[64], uint64_t desc_a, uint64_t desc_b,
+                                            int steps) {
+  wgmma_m64n128k16_first(a, desc_a, desc_b);
+  if (steps == 4) {
+#pragma unroll
+    for (int ks = 1; ks < 4; ++ks) wgmma_m64n128k16(a, desc_a + 2 * ks, desc_b + 2 * ks, 1);
+  } else {
+    for (int ks = 1; ks < steps; ++ks) wgmma_m64n128k16(a, desc_a + 2 * ks, desc_b + 2 * ks, 1);
+  }
+}
+
+template <class Epilogue>
+__global__ void __launch_bounds__(THREADS, 1)
+scan_kloop_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_x,
+                  const __nv_bfloat16* __restrict__ q, const float* __restrict__ xsq, int B,
+                  int d, int tn, int group, int acc, int n_tiles, int stages,
+                  typename Epilogue::Params params) {
+  extern __shared__ uint8_t smem_raw[];
+  // stage bases must sit on 1024 bytes for the 128-byte swizzle
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const int kch = (d + KBOX - 1) / KBOX;                // boxes per sub-tile
+  const int last_steps = (d - (kch - 1) * KBOX) / 16;  // wgmma steps of the last box
+  const uint32_t extra_off = (uint32_t)stages * KSTAGE;
+  const uint32_t full_bar = base + extra_off + Epilogue::kExtraSmem;  // [stages]
+  const uint32_t empty_bar = full_bar + 8 * KLOOP_MAX_STAGES;        // [stages]
+
+  const int q0 = blockIdx.x * QT;
+  const int span = blockIdx.y;
+  const int tiles_here = min(acc, n_tiles - span * acc);
+  const int n_sub = tiles_here * group;  // 128-row sub-tiles of this span
+  const int n_box = n_sub * kch;
+  const size_t row_base = (size_t)span * acc * tn;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 8);  // one arrival per warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // warp-uniform by construction; the shuffle lets the compiler know it
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x % 32;
+  const bool producer = threadIdx.x == 0;
+
+  // Box j (column box j % kch of sub-tile j / kch) goes to stage j % stages,
+  // stages - 1 boxes before it is read. Thread 0 refills a stage once it has
+  // started the product of box j: the stage of box j + stages - 1 held box
+  // j - 1, which its own warp has handed back; the other warpgroup may be up
+  // to a box behind.
+  int pj = 0;  // producer: boxes started (its other state follows from pj, to spare registers)
+  auto load_next = [&]() {
+    const int sub = pj / kch, c = pj - sub * kch, lap = pj / stages, pst = pj - lap * stages;
+    // a fresh stage is empty: the first lap's waits (parity 1) pass
+    mbar_wait(empty_bar + 8 * pst, (lap & 1) ^ 1);
+    const uint32_t fb = full_bar + 8 * pst;
+    mbar_expect_tx(fb, KSTAGE);
+    const uint32_t sb = base + pst * KSTAGE;
+    tma_load_2d(sb, &map_q, fb, c * KBOX, q0);
+    tma_load_2d(sb + CHUNK, &map_x, fb, c * KBOX, (int)(row_base + (size_t)sub * LANES));
+    ++pj;
+  };
+  if (producer)
+    for (int j = 0; j < min(stages - 1, n_box); ++j) load_next();
+
+  Epilogue epi;
+  epi.init(params, base_ptr + extra_off, (int)threadIdx.x);
+  epi.row_setup(q, d, B, my_rows(q0).row0);
+  // this thread's first |x|^2 of the span, read from device memory (L2) by the
+  // epilogue: lanes 8 j + 2 (lane % 4) + {0, 1} of each sub-tile
+  const float* xs0 = xsq + row_base + 2 * (lane % 4);
+
+  // a: one box's product, fresh for each box; t: the sub-tile's f32 sum of them
+  float a[64], t[64];
+  int st = 0;
+  uint32_t ph = 0;
+  for (int it = 0; it < n_sub; ++it) {
+    for (int c = 0; c < kch; ++c) {
+      mbar_wait(full_bar + 8 * st, ph);
+      const uint32_t sb = base + st * KSTAGE;
+      wgmma_fence();
+#ifndef SCAN_TILE_NO_PRODUCT
+      box_product(a, make_desc(sb + wg * (64 * 128)), make_desc(sb + CHUNK),
+                  c < kch - 1 ? 4 : last_steps);
+#endif
+      wgmma_commit();
+      // the copies start while the product runs
+      if (producer && pj < n_box) load_next();
+      __syncwarp();
+      wgmma_wait0();
+      fence_acc(a);
+      // the stage is read: hand it back
+      if (lane == 0) mbar_arrive(empty_bar + 8 * st);
+      if (++st == stages) { st = 0; ph ^= 1; }
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) t[i] = a[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) t[i] += a[i];
+      }
+    }
+#ifdef SCAN_TILE_NO_EPILOGUE
+    if (it == n_sub - 1)
+#endif
+    epi.update(t, xs0 + (size_t)it * LANES, it);
+  }
+  const Rows r = my_rows(blockIdx.x * QT);
+  epi.store(params, (int)blockIdx.y, B, r.row0, r.l4, (size_t)blockIdx.y * acc * tn);
+}
+
 // ---------------------------------------------------------------- host side
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -378,28 +563,43 @@ inline int pick_stages(int d, size_t* smem_bytes) {
   return stages;
 }
 
-// Launch the tensor-core scan. q [B, d] and X [Np, d] bf16 row-major.
+// Stages of the K-looped ring that fit beside the epilogue's own bytes.
 template <class Epilogue>
+inline int pick_kloop_stages(size_t* smem_bytes) {
+  const size_t fixed = 1024 + Epilogue::kExtraSmem + 8 * 2 * KLOOP_MAX_STAGES;
+  int stages = KLOOP_MAX_STAGES;
+  while (stages >= 2 && fixed + stages * (size_t)KSTAGE > (size_t)SMEM_LIMIT) --stages;
+  *smem_bytes = fixed + stages * (size_t)KSTAGE;
+  return stages;
+}
+
+// Launch the tensor-core scan in `layout` 0 (resident, with Epilogue) or 1
+// (K-looped, with KloopEpilogue, which takes the same Params). q [B, d] and X
+// [Np, d] bf16 row-major.
+template <class Epilogue, class KloopEpilogue>
 inline int launch(const void* q, const void* X, const void* xsq, int B, int Np, int d, int tn,
-                  int group, int acc, typename Epilogue::Params params, cudaStream_t s) {
-  if (d % 16 != 0 || d <= 0) return (int)cudaErrorInvalidValue;
+                  int group, int acc, int layout, typename Epilogue::Params params,
+                  cudaStream_t s) {
+  if (d % 16 != 0 || d <= 0 || (layout != 0 && layout != 1)) return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  const int stages = pick_stages<Epilogue>(d, &smem);
+  const int stages =
+      layout ? pick_kloop_stages<KloopEpilogue>(&smem) : pick_stages<Epilogue>(d, &smem);
   if (stages < 2) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mx;
   int rc = make_map(&mq, q, B, d);
   if (rc) return rc;
   rc = make_map(&mx, X, Np, d);
   if (rc) return rc;
-  cudaError_t e = cudaFuncSetAttribute(scan_tile_kernel<Epilogue>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = scan_tile_kernel<Epilogue>;
+  if (layout) kernel = scan_kloop_kernel<KloopEpilogue>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = Np / tn;
   const int spans = (n_tiles + acc - 1) / acc;
   const dim3 grid((B + QT - 1) / QT, spans), block(THREADS);
-  scan_tile_kernel<Epilogue><<<grid, block, smem, s>>>(
-      mq, mx, (const __nv_bfloat16*)q, (const float*)xsq, B, d, tn, group, acc, n_tiles, stages,
-      params);
+  kernel<<<grid, block, smem, s>>>(mq, mx, (const __nv_bfloat16*)q, (const float*)xsq, B, d, tn,
+                                   group, acc, n_tiles, stages, params);
   return (int)cudaGetLastError();
 }
 

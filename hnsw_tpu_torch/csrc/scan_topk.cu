@@ -17,23 +17,32 @@
 // Bound on the H100: operations. 2*B*N*d flops (105 GFLOP at B=2048,
 // N=200704, d=128) against 51 MB of bf16 corpus: ~0.11 ms at the bf16
 // tensor-core peak; the keep-2 update (7 CUDA-core instructions per element:
-// add, fma, max, and-or, max, min, min) is bounded by the instruction rate at about
-// the same time.
+// add, fma, max, and-or, max, min, min) is bounded by the instruction rate at
+// about the same time. The epilogue's cost does not grow with d, the
+// product's does: at d = 784 (B=2048, N=71680: 230 GFLOP, 0.233 ms) and d =
+// 960 (N=1001472, 1M rows padded: 3.94 TFLOP, 3.98 ms) the product alone sets
+// the bound.
 //
 // Two entries, chosen by the wrapper from dtype and d (never as a fallback):
 //
-//  * entry 1, "wgmma": bf16 inputs with d a multiple of 16. The tile product
-//    of scan_tile.cuh (TMA ring, wgmma m64n128k16, two warpgroups in
-//    turns) with the epilogue below: a thread keeps the packed pair (m1, m2)
-//    of its 64 cells in 128 registers and updates them without a branch,
-//    m2 = min(m2, max(m1, p)); m1 = min(m1, p). Sums are f32 sums of exact
-//    bf16 products in the tensor core's order, not a chain of FMAs.
+//  * entry 1, "wgmma": bf16 inputs (the host pads d to a multiple of 16).
+//    The tile product of scan_tile.cuh (TMA ring, wgmma m64n128k16) in the
+//    layout the wrapper names: `layout` 0 keeps the query tile resident and
+//    the two warpgroups take turns (d <= 256), 1 walks the depth in 64-column
+//    boxes (any d). Its epilogue below: a thread keeps the packed pair
+//    (m1, m2) of its 64 cells in 128 registers (the K-looped layout: m2 in
+//    shared memory) and updates them without a branch, m2 = min(m2, max(m1,
+//    p)); m1 = min(m1, p). Sums are f32 sums of exact bf16 products in the
+//    tensor core's order (the K-looped layout: per 64-column box, the boxes
+//    added in f32), not a chain of FMAs.
 //  * entry 0, "simt": f32 inputs (the scan's full-precision contract: TF32
-//    would keep 10 mantissa bits) and any other d. f32 FMAs in a classic
+//    would keep 10 mantissa bits). f32 FMAs in a classic
 //    register-tiled layout: a block owns 64 queries x one span; each of its
 //    256 threads holds a 4-query x 8-lane accumulator tile and the keep-2
 //    state of those 32 cells in registers; the queries sit transposed in
 //    shared memory, corpus rows stream through a [32 x 129] f32 staging tile.
+//    It also takes bf16 inputs, which the wrapper never sends: chip_smoke.py
+//    times it on the tensor-core entry's shapes as that entry's "was".
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -167,21 +176,35 @@ int launch(const void* q, const void* X, const void* xsq, int B, int Np, int d,
 }
 }  // namespace
 
-// Epilogue of the tensor-core entry: packed keep-2 in registers. (A named
-// type: it instantiates a __global__ template.)
-struct PackedEpilogue {
-  static constexpr int kExtraSmem = 0;
-  struct Params {
-    int32_t* out;
-    int32_t hi_mask;
-  };
-  int32_t m1[64], m2[64];
+struct PackedParams {
+  int32_t* out;
+  int32_t hi_mask;
+};
+
+// Epilogue of the tensor-core entry: packed keep-2, a thread's 64 first
+// places in registers. With kSharedM2 (the K-looped layout, whose per-box
+// products take 64 more registers) the second places live in shared memory,
+// [64 cells][256 threads] so that no two threads of a warp share a bank,
+// read for every candidate and written only where it enters second place.
+// (A named type: it instantiates a __global__ template.)
+template <bool kSharedM2>
+struct PackedEpilogueT {
+  static constexpr int kExtraSmem = kSharedM2 ? 64 * 256 * 4 : 0;
+  using Params = PackedParams;
+  int32_t m1[64];
+  int32_t m2r[kSharedM2 ? 1 : 64];
+  int32_t* m2s;  // this thread's column of second places (kSharedM2)
   float qs0, qs1;
   int32_t hi_mask;
 
-  __device__ __forceinline__ void init(const Params& p, uint8_t*, int) {
+  __device__ __forceinline__ void init(const Params& p, uint8_t* extra, int ctid) {
+    if constexpr (kSharedM2) m2s = reinterpret_cast<int32_t*>(extra) + ctid;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) { m1[i] = 0x7FFFFFFF; m2[i] = 0x7FFFFFFF; }
+    for (int i = 0; i < 64; ++i) {
+      m1[i] = 0x7FFFFFFF;
+      if constexpr (kSharedM2) m2s[i * 256] = 0x7FFFFFFF;
+      else m2r[i] = 0x7FFFFFFF;
+    }
     hi_mask = p.hi_mask;
   }
 
@@ -213,7 +236,12 @@ struct PackedEpilogue {
           const float s = (e ? x.y : x.x) + (h ? qs1 : qs0);
           const float v = fmaxf(fmaf(-2.0f, a[i], s), 0.0f);
           const int32_t p = (__float_as_int(v) & hi_mask) | loc;
-          m2[i] = min(m2[i], max(m1[i], p));
+          if constexpr (kSharedM2) {
+            // p < m2 is where the second place changes: to max(m1, p)
+            if (p < m2s[i * 256]) m2s[i * 256] = max(m1[i], p);
+          } else {
+            m2r[i] = min(m2r[i], max(m1[i], p));
+          }
           m1[i] = min(m1[i], p);
         }
     }
@@ -230,23 +258,28 @@ struct PackedEpilogue {
       for (int j = 0; j < 16; ++j) {
         const int i = 4 * j + 2 * h, c = 8 * j + 2 * l4;
         *reinterpret_cast<int2*>(o + c) = make_int2(m1[i], m1[i + 1]);
-        *reinterpret_cast<int2*>(o + LANES + c) = make_int2(m2[i], m2[i + 1]);
+        int2* o2 = reinterpret_cast<int2*>(o + LANES + c);
+        if constexpr (kSharedM2) *o2 = make_int2(m2s[i * 256], m2s[(i + 1) * 256]);
+        else *o2 = make_int2(m2r[i], m2r[i + 1]);
       }
     }
   }
 };
+using PackedEpilogue = PackedEpilogueT<false>;       // resident layout
+using PackedKloopEpilogue = PackedEpilogueT<true>;   // K-looped layouts
 
 extern "C" int scan_topk_launch(const void* q, const void* X, const void* xsq,
                                 int B, int Np, int d, int tn, int group,
-                                int acc, int LB, int bf16, int entry, void* out,
-                                void* stream) {
+                                int acc, int LB, int bf16, int entry, int layout,
+                                void* out, void* stream) {
   if (B == 0) return 0;
   if (tn != group * LANES || Np % tn != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (entry == 1) {
     if (!bf16) return (int)cudaErrorInvalidValue;
-    PackedEpilogue::Params p{(int32_t*)out, ~((1 << LB) - 1)};
-    return scan_tile::launch<PackedEpilogue>(q, X, xsq, B, Np, d, tn, group, acc, p, s);
+    PackedParams p{(int32_t*)out, ~((1 << LB) - 1)};
+    return scan_tile::launch<PackedEpilogue, PackedKloopEpilogue>(q, X, xsq, B, Np, d, tn,
+                                                                  group, acc, layout, p, s);
   }
   if (bf16) return launch<__nv_bfloat16>(q, X, xsq, B, Np, d, tn, group, acc, LB, out, s);
   return launch<float>(q, X, xsq, B, Np, d, tn, group, acc, LB, out, s);

@@ -37,19 +37,25 @@
 //
 // Two entries, chosen by the wrapper from dtype and d (never as a fallback):
 //
-//  * entry 1, "wgmma": bf16 inputs with d a multiple of 16. The tile product
-//    of scan_tile.cuh with the epilogue below: the values of a thread's 64
-//    cells in 128 registers, updated without a branch (m2 = min(m2, max(m1,
-//    v)); m1 = min(m1, v)); the id word is read for every candidate, the new
-//    word formed by one byte permute, and written back under the predicate
-//    `v < m2`: with read and write inside `if (v < m2)` some lane of a warp
-//    takes the branch at almost every candidate (112 rows a cell), and each
-//    divergent branch then waits for its own load. The 64 KB
-//    of id words leave room for three stages of the ring at d=128 (the packed
-//    scan has four). Sums are f32 sums of exact bf16 products in the tensor
-//    core's order, so values agree with a chain of FMAs to f32 rounding of
-//    the terms |x|^2 and 2 q.x, not bit for bit.
-//  * entry 0, "simt": f32 inputs (full-precision contract) and any other d.
+//  * entry 1, "wgmma": bf16 inputs (the host pads d to a multiple of 16).
+//    The tile product of scan_tile.cuh, in the layout the wrapper names
+//    (`layout` 0, the resident query tile, up to d = 192; 1, K-looped, any d),
+//    with the epilogue below: the values of a thread's 64 cells in 128
+//    registers (the K-looped layout: the second values in shared memory),
+//    updated without a branch (m2 = min(m2, max(m1, v)); m1 = min(m1, v));
+//    the id word is read for every candidate, the new word formed by one
+//    byte permute, and written back under the predicate `v < m2`: with read
+//    and write inside `if (v < m2)` some lane of a warp takes the branch at
+//    almost every candidate (112 rows a cell), and each divergent branch then
+//    waits for its own load. The 64 KB of id words leave room for three
+//    stages of the resident ring at d=128 (the packed scan has four) and,
+//    beside the 64 KB of second values, three of the K-looped one (packed:
+//    five). Sums are f32 sums of exact bf16 products in the tensor core's
+//    order (K-looped: per 64-column box, the boxes added in f32), so values
+//    agree with a chain of FMAs to f32 rounding of the terms |x|^2 and 2 q.x,
+//    not bit for bit.
+//  * entry 0, "simt": f32 inputs (full-precision contract; bf16 inputs only
+//    where chip_smoke.py times it as the tensor-core entry's "was").
 //    f32 FMAs in a register-tiled layout: a block owns 64 queries x one span,
 //    each of its 256 threads a 4-query x 8-lane accumulator tile and the
 //    keep-2 state of those 32 cells. A first version that kept 96 words of
@@ -202,29 +208,44 @@ int launch(const void* q, const void* X, const void* xsq, int B, int Np, int d,
 
 }  // namespace
 
+struct UnpackedParams {
+  float* outd;
+  int32_t* outi;
+};
+
 // Epilogue of the tensor-core entry: keep-2 values in registers, the two
-// candidates' local offsets in one shared-memory word per cell. (A named
-// type: it instantiates a __global__ template.)
-struct UnpackedEpilogue {
-  static constexpr int kExtraSmem = 64 * 256 * 4;  // [64 cells][256 threads]
-  struct Params {
-    float* outd;
-    int32_t* outi;
-  };
-  float m1[64], m2[64];
+// candidates' local offsets in one shared-memory word per cell. With
+// kSharedM2 (the K-looped layout, whose per-box products take 64 more
+// registers) the second values live in shared memory too, beside the id
+// words. (A named type: it instantiates a __global__ template.)
+template <bool kSharedM2>
+struct UnpackedEpilogueT {
+  // [64 cells][256 threads] id words, then (kSharedM2) as many second values
+  static constexpr int kExtraSmem = (kSharedM2 ? 2 : 1) * 64 * 256 * 4;
+  using Params = UnpackedParams;
+  float m1[64];
+  float m2r[kSharedM2 ? 1 : 64];
   uint32_t* Ls;  // this thread's column of id words
+  float* m2s;    // this thread's column of second values (kSharedM2)
 
   __device__ __forceinline__ void init(const Params&, uint8_t* extra, int ctid) {
     Ls = reinterpret_cast<uint32_t*>(extra) + ctid;
+    if constexpr (kSharedM2) m2s = reinterpret_cast<float*>(extra) + 64 * 256 + ctid;
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       m1[i] = CUDART_INF_F;
-      m2[i] = CUDART_INF_F;
+      if constexpr (kSharedM2) m2s[i * 256] = CUDART_INF_F;
+      else m2r[i] = CUDART_INF_F;
       Ls[i * 256] = 0u;
     }
   }
 
   __device__ __forceinline__ void row_setup(const __nv_bfloat16*, int, int, int) {}
+
+  __device__ __forceinline__ float second(int i) const {
+    if constexpr (kSharedM2) return m2s[i * 256];
+    else return m2r[i];
+  }
 
   __device__ __forceinline__ void update(const float (&a)[64], const float* xs,
                                          uint32_t loc) {
@@ -241,12 +262,17 @@ struct UnpackedEpilogue {
           // the word is read for every candidate and written back under a
           // predicate, so the 64 cells' reads overlap instead of each waiting
           // inside its own divergent branch.
-          const bool in2 = v < m2[i];
+          const bool in2 = v < second(i);
           const uint32_t L = Ls[i * 256];
           // first place: (old first -> second, loc -> first); second: loc -> second
           const uint32_t Ln = __byte_perm(L, loc, v < m1[i] ? 0x1054u : 0x5410u);
           if (in2) Ls[i * 256] = Ln;
-          m2[i] = fminf(m2[i], fmaxf(m1[i], v));
+          if constexpr (kSharedM2) {
+            // v < m2 is where the second value changes: to max(m1, v)
+            if (in2) m2s[i * 256] = fmaxf(m1[i], v);
+          } else {
+            m2r[i] = fminf(m2r[i], fmaxf(m1[i], v));
+          }
           m1[i] = fminf(m1[i], v);
         }
     }
@@ -266,7 +292,8 @@ struct UnpackedEpilogue {
         // tn = group * 128, so a local offset l is row l * 128 + lane of the span
         const int32_t r = (int32_t)row_base + c;
         *reinterpret_cast<float2*>(p.outd + o + c) = make_float2(m1[i], m1[i + 1]);
-        *reinterpret_cast<float2*>(p.outd + o + LANES + c) = make_float2(m2[i], m2[i + 1]);
+        *reinterpret_cast<float2*>(p.outd + o + LANES + c) =
+            make_float2(second(i), second(i + 1));
         *reinterpret_cast<int2*>(p.outi + o + c) =
             make_int2(r + (int32_t)(La & 0xFFFFu) * LANES, r + 1 + (int32_t)(Lb & 0xFFFFu) * LANES);
         *reinterpret_cast<int2*>(p.outi + o + LANES + c) =
@@ -275,11 +302,13 @@ struct UnpackedEpilogue {
     }
   }
 };
+using UnpackedEpilogue = UnpackedEpilogueT<false>;      // resident layout
+using UnpackedKloopEpilogue = UnpackedEpilogueT<true>;  // K-looped layouts
 
 extern "C" int scan_topk_unpacked_launch(const void* q, const void* X,
                                          const void* xsq, int B, int Np, int d,
                                          int tn, int group, int acc, int bf16,
-                                         int entry, void* outd, void* outi,
+                                         int entry, int layout, void* outd, void* outi,
                                          void* stream) {
   if (B == 0) return 0;
   if (tn != group * LANES || Np % tn != 0 || (long long)acc * group > 65536)
@@ -287,8 +316,9 @@ extern "C" int scan_topk_unpacked_launch(const void* q, const void* X,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (entry == 1) {
     if (!bf16) return (int)cudaErrorInvalidValue;
-    UnpackedEpilogue::Params p{(float*)outd, (int32_t*)outi};
-    return scan_tile::launch<UnpackedEpilogue>(q, X, xsq, B, Np, d, tn, group, acc, p, s);
+    UnpackedParams p{(float*)outd, (int32_t*)outi};
+    return scan_tile::launch<UnpackedEpilogue, UnpackedKloopEpilogue>(q, X, xsq, B, Np, d, tn,
+                                                                      group, acc, layout, p, s);
   }
   if (bf16)
     return launch<__nv_bfloat16>(q, X, xsq, B, Np, d, tn, group, acc, outd, outi, s);

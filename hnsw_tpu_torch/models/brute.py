@@ -115,11 +115,12 @@ class BruteForceIndex:
 
     def _scan_device(self):
         if self._dev_scan is None:
-            from ..ops.scan_topk import pad_corpus, scan_acc, SCAN_TN
+            from ..ops.scan_topk import pad_corpus, scan_acc, scan_copy, SCAN_TN
             # shuffled row order (perm maps scan row -> our row), see pad_corpus
             Xp, xsq, perm = pad_corpus(self._X.astype(np.float32), tn=SCAN_TN)
             Xd = torch.as_tensor(Xp, device=self.device)
-            Xscan = None if self.SCAN_DTYPE is None else Xd.to(self.SCAN_DTYPE)
+            # bf16 with zero columns up to the kernel's 16-column step
+            Xscan = None if self.SCAN_DTYPE is None else scan_copy(Xd, self.SCAN_DTYPE)
             self._dev_scan = (Xd, torch.as_tensor(xsq, device=self.device),
                               Xscan, perm, scan_acc(Xp.shape[0]), self._programs)
         return self._dev_scan

@@ -168,9 +168,10 @@ def _bind(name: str, lib):
                                             _I, _I, _I, _P, _P, _P]
         lib.codec_scores_launch.restype = _I
     elif name == "scan_topk":
-        # (q, X, xsq, B, Np, d, tn, group, acc, LB, bf16, entry, out, stream)
+        # (q, X, xsq, B, Np, d, tn, group, acc, LB, bf16, entry, layout, out,
+        #  stream)
         lib.scan_topk_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                         _I, _I, _I, _P, _P]
+                                         _I, _I, _I, _I, _P, _P]
         lib.scan_topk_launch.restype = _I
     elif name == "codec_scores_gathered":
         # (q, blk, csq, qsn, scale_ptr, B, K, d, form, entry, out, stream)
@@ -178,9 +179,10 @@ def _bind(name: str, lib):
                                                      _I, _I, _I, _P, _P]
         lib.codec_scores_gathered_launch.restype = _I
     elif name == "scan_topk_unpacked":
-        # (q, X, xsq, B, Np, d, tn, group, acc, bf16, entry, outd, outi, stream)
+        # (q, X, xsq, B, Np, d, tn, group, acc, bf16, entry, layout, outd, outi,
+        #  stream)
         lib.scan_topk_unpacked_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
-                                                  _I, _I, _I, _P, _P, _P]
+                                                  _I, _I, _I, _I, _P, _P, _P]
         lib.scan_topk_unpacked_launch.restype = _I
 
 

@@ -27,13 +27,18 @@ stays at ``spans * 2 * 128`` words per query. Bound on the H100: operations
 
 Each kernel has two entries, chosen here from dtype and ``d`` alone
 (``scan_entry``), never after a failed build or launch: ``"wgmma"``, the
-tensor-core tile product of ``csrc/scan_tile.cuh`` (bf16 queries and corpus,
-``d`` a multiple of 16 that fits its shared-memory ring), whose grid is
-``B/128 x spans`` blocks (224 at B = 2048 over the 200k corpus); and
-``"simt"``, the register-tiled f32-FMA kernel (``B/64 x spans`` blocks), for
-f32 inputs (whose contract is full f32: TF32 would keep 10 mantissa bits) and
-every other ``d``. ``kernel_lib.LAUNCHES["scan_topk.wgmma"]`` etc. count the
-launches of each entry.
+tensor-core tile product of ``csrc/scan_tile.cuh``, for bf16 queries and
+corpus at any ``d`` up to ``WGMMA_MAX_D``, whose grid is ``B/128 x spans``
+blocks (224 at B = 2048 over the 200k corpus); and ``"simt"``, the
+register-tiled f32-FMA kernel (``B/64 x spans`` blocks), for f32 inputs, whose
+contract is full f32 (TF32 would keep 10 mantissa bits).
+``kernel_lib.LAUNCHES["scan_topk.wgmma"]`` etc. count the launches of each
+entry. The tensor-core entry runs one of two layouts of the same product,
+also chosen from ``d`` alone (``scan_layout``): the query tile resident in
+shared memory up to ``RESIDENT_MAX_D``, the depth walked in 64-column boxes
+above. Its step is 16 columns: the bf16 copies carry zero columns up to
+``scan_depth(d)`` (``scan_copy``; ``l2_topk`` pads the queries to the copy's
+width), which change no ``q.x``, while ``|x|^2`` comes from the f32 rows.
 """
 
 from __future__ import annotations
@@ -68,31 +73,96 @@ def _geometry(N: int, tn: int, group: int, acc: int):
     return G, n_tiles, acc, n_blocks, LB
 
 
-# Largest d the tensor-core entry takes: the query tile, two stages of the
-# ring and the epilogue's own bytes must fit in 227 KB of shared memory
-# (``scan_tile::pick_stages``). The unpacked epilogue keeps 64 KB of id words.
-WGMMA_MAX_D = {True: 256, False: 192}  # keyed by ``packed``
+# Largest (padded) d of the resident layout, by ``packed``: the query tile,
+# two stages of the ring and the epilogue's own bytes must fit in 227 KB of
+# shared memory (``scan_tile::pick_stages``; the unpacked epilogue keeps 64 KB
+# of id words). Above it the K-looped layout, whose ring holds 64-column boxes
+# whatever d is.
+RESIDENT_MAX_D = {True: 256, False: 192}
+# Largest d a bf16 scan takes. The K-looped layout has no shared-memory limit
+# on d, but every block reads its [128 x d] query tile again from L2 for each
+# 128-row sub-tile: 1 MB a block at d = 4096, 16 MB for a 2048-query batch's
+# 16 tiles, a third of the card's 50 MB L2 beside the streaming corpus.
+# Checked on the card up to d = 1536 (``chip_smoke.py``'s kernels phase).
+WGMMA_MAX_D = 4096
+# the launch functions' ``layout`` argument is the index into these
+SCAN_LAYOUTS = ("resident", "kloop")
+
+
+def scan_depth(d: int) -> int:
+    """Columns of a bf16 scan copy of ``d``-column rows: ``d`` rounded up to
+    the tensor-core product's 16-column step."""
+    return -(-int(d) // 16) * 16
+
+
+def scan_copy(X, dtype=torch.bfloat16):
+    """The scan-precision copy of rows ``X`` [n, d] (corpus or queries): in
+    bf16 with zero columns up to ``scan_depth(d)``; any other dtype as it is."""
+    d = X.shape[1]
+    if dtype != torch.bfloat16 or d == scan_depth(d):
+        return X.to(dtype)
+    out = torch.zeros((X.shape[0], scan_depth(d)), dtype=dtype, device=X.device)
+    out[:, :d] = X
+    return out
 
 
 def scan_entry(dtype, d: int, packed: bool = True) -> str:
     """Which kernel entry a CUDA scan of this dtype and depth takes:
-    ``"wgmma"`` for bf16 with ``d`` a multiple of 16 up to
-    ``WGMMA_MAX_D[packed]``, else ``"simt"``. A choice by shape: the entry it
-    names either launches or raises."""
-    if dtype == torch.bfloat16 and d % 16 == 0 and 0 < d <= WGMMA_MAX_D[bool(packed)]:
+    ``"wgmma"`` for bf16 (``d`` padded to ``scan_depth(d)``) up to
+    ``WGMMA_MAX_D``, ``"simt"`` for f32. A choice by shape: the entry it names
+    either launches or raises; a bf16 scan past ``WGMMA_MAX_D`` raises here."""
+    if dtype == torch.bfloat16:
+        if not 0 < scan_depth(d) <= WGMMA_MAX_D:
+            raise ValueError(f"the bf16 scan takes 0 < d <= {WGMMA_MAX_D} "
+                             f"(WGMMA_MAX_D); got d={d}: scan in f32")
         return "wgmma"
     return "simt"
 
 
-def _check_card_geometry(G: int, tn: int, group: int, qs, Xs, packed: bool) -> str:
-    """Raises on what the CUDA scan does not take; returns the entry."""
+def scan_layout(d: int, packed: bool = True) -> str:
+    """The tensor-core entry's layout for a bf16 scan of depth ``d``:
+    ``"resident"`` (query tile in shared memory, the two warpgroups in turns)
+    up to ``RESIDENT_MAX_D[packed]``, ``"kloop"`` (64-column boxes) above."""
+    return "resident" if scan_depth(d) <= RESIDENT_MAX_D[bool(packed)] else "kloop"
+
+
+def _check_card_geometry(G: int, tn: int, group: int, qs, Xs, packed: bool):
+    """Raises on what the CUDA scan does not take; returns the entry and the
+    index of its layout (the launch functions' ``entry`` and ``layout``)."""
     if G != 128:
         raise ValueError(f"the CUDA scan runs 128 lane groups (tn = 128 * group); "
                          f"got tn={tn} group={group}")
     if Xs.dtype not in (torch.bfloat16, torch.float32) or qs.dtype != Xs.dtype:
         raise ValueError("the CUDA scan takes bf16 or f32 queries and corpus "
                          "of one type")
-    return scan_entry(Xs.dtype, qs.shape[1], packed)
+    d = qs.shape[1]
+    if Xs.shape[1] != d:
+        raise ValueError(f"queries of {d} columns against a corpus of {Xs.shape[1]}")
+    entry = scan_entry(Xs.dtype, d, packed)
+    if entry == "wgmma" and d != scan_depth(d):
+        raise ValueError(f"the bf16 scan steps 16 columns: pad the copies to "
+                         f"scan_depth(d) = {scan_depth(d)} columns (scan_copy); got d={d}")
+    return entry, SCAN_LAYOUTS.index(scan_layout(d, packed))
+
+
+# Columns of one TMA box of the tensor-core kernels: the K-looped layout sums
+# each box's product in f32 (``csrc/scan_tile.cuh``), and the plain versions
+# sum q.x the same way.
+SCAN_BOX = 64
+
+
+def box_dots(qs, Xs):
+    """q.x of every query and row, [B, N] f32, as the K-looped kernels sum it:
+    f32 sums of the products over each 64-column box, the boxes' sums added in
+    f32 (the resident layout and the f32-FMA entry chain one sum; up to d =
+    256 the two orders stay within the scans' tolerances). One f32 sum over
+    hundreds of columns drifts further from the exact value than the kernels'
+    box sums do (``tools/scan_accuracy.py``)."""
+    qf, xf = qs.to(torch.float32), Xs.to(torch.float32)
+    g = qf[:, :SCAN_BOX] @ xf[:, :SCAN_BOX].T
+    for c in range(SCAN_BOX, qs.shape[1], SCAN_BOX):
+        g += qf[:, c:c + SCAN_BOX] @ xf[:, c:c + SCAN_BOX].T
+    return g
 
 
 def scan_packed_plain(qs, Xs, xsq, tn: int, group: int, acc: int):
@@ -100,13 +170,14 @@ def scan_packed_plain(qs, Xs, xsq, tn: int, group: int, acc: int):
     ``[n_blocks, B, 2G]`` (per lane group: smallest, then second smallest).
 
     ``qs``/``Xs`` are the scan-precision query and corpus (bf16 or f32); the
-    inner products are f32 products of those values, as the kernel's."""
+    inner products are f32 products of those values summed per 64-column box
+    (``box_dots``)."""
     B, d = qs.shape
     N = Xs.shape[0]
     G, n_tiles, acc, n_blocks, LB = _geometry(N, tn, group, acc)
     qf = qs.to(torch.float32)
     qsq = (qf * qf).sum(1, keepdim=True)
-    g = qf @ Xs.to(torch.float32).T  # [B, N]
+    g = box_dots(qs, Xs)  # [B, N]
     d2 = torch.clamp_min(xsq.to(torch.float32)[None, :] + qsq - 2.0 * g, 0.0)
     ai = d2.contiguous().view(torch.int32).reshape(B, n_tiles, group, G)
     t = torch.arange(n_tiles, device=qs.device) % acc
@@ -131,7 +202,7 @@ def scan_packed(qs, Xs, xsq, tn: int, group: int, acc: int):
     B, d = qs.shape
     N = Xs.shape[0]
     G, n_tiles, acc, n_blocks, LB = _geometry(N, tn, group, acc)
-    entry = _check_card_geometry(G, tn, group, qs, Xs, packed=True)
+    entry, layout = _check_card_geometry(G, tn, group, qs, Xs, packed=True)
     dev = Xs.device
     qs = qs.to(dev).contiguous()
     Xs = Xs.contiguous()
@@ -145,8 +216,8 @@ def scan_packed(qs, Xs, xsq, tn: int, group: int, acc: int):
         kernel_lib.launch("scan_topk", entry, lib.scan_topk_launch, qs.data_ptr(),
                           Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, group, acc, LB,
                           int(Xs.dtype == torch.bfloat16),
-                          kernel_lib.SCAN_ENTRIES.index(entry), out.data_ptr(), stream,
-                          card=dev.index)
+                          kernel_lib.SCAN_ENTRIES.index(entry), layout, out.data_ptr(),
+                          stream, card=dev.index)
     return out
 
 
@@ -164,7 +235,7 @@ def scan_unpacked_plain(qs, Xs, xsq, tn: int, group: int, acc: int):
     N = Xs.shape[0]
     G, n_tiles, acc, n_blocks, _ = _geometry(N, tn, group, acc)
     dev = qs.device
-    g = qs.to(torch.float32) @ Xs.to(torch.float32).T  # [B, N]
+    g = box_dots(qs, Xs)  # [B, N]
     a = (xsq.to(torch.float32)[None, :] - 2.0 * g).reshape(B, n_tiles, group, G)
     idx = torch.arange(group, device=dev, dtype=torch.int32)[None, None, :, None]
     m1 = a.min(2).values
@@ -212,7 +283,7 @@ def scan_unpacked(qs, Xs, xsq, tn: int, group: int, acc: int):
     B, d = qs.shape
     N = Xs.shape[0]
     G, n_tiles, acc, n_blocks, _ = _geometry(N, tn, group, acc)
-    entry = _check_card_geometry(G, tn, group, qs, Xs, packed=False)
+    entry, layout = _check_card_geometry(G, tn, group, qs, Xs, packed=False)
     if acc * group > 65536:
         raise ValueError(f"the unpacked CUDA scan holds a span's row offsets in "
                          f"16 bits (acc * group <= 65536); got acc={acc} group={group}")
@@ -230,7 +301,7 @@ def scan_unpacked(qs, Xs, xsq, tn: int, group: int, acc: int):
         kernel_lib.launch(
             "scan_topk_unpacked", entry, lib.scan_topk_unpacked_launch,
             qs.data_ptr(), Xs.data_ptr(), xsq.data_ptr(), B, N, d, tn, group, acc,
-            int(Xs.dtype == torch.bfloat16), kernel_lib.SCAN_ENTRIES.index(entry),
+            int(Xs.dtype == torch.bfloat16), kernel_lib.SCAN_ENTRIES.index(entry), layout,
             outd.data_ptr(), outi.data_ptr(), stream, card=dev.index)
     return outd, outi
 
@@ -276,6 +347,8 @@ def l2_topk(q, X, xsq, k: int, tn: int = SCAN_TN, group: int = SCAN_GROUP,
     qf = q.to(device=X.device, dtype=torch.float32)
     Xs = X if Xscan is None else Xscan
     qs = qf.to(Xs.dtype)
+    if Xs.shape[1] > d:  # the copy's zero columns (scan_copy)
+        qs = torch.nn.functional.pad(qs, (0, Xs.shape[1] - d))
     if packed:
         scan = scan_packed_plain if plain else scan_packed
         cv = scan(qs, Xs, xsq, tn, group, acc).permute(1, 0, 2).reshape(B, -1)

@@ -62,7 +62,8 @@ from ..ops import program
 from ..ops.insert_rounds import (BuildTensors, HostBuildState, RoundConfig, _next_pow2,
                                  round_step)
 from ..ops.program import POOL_SHARE, CallProgram, ProgramCache, SearchProgram
-from ..ops.scan_topk import SCAN_GROUP, SCAN_TN, l2_topk, refine_width, scan_acc
+from ..ops.scan_topk import (SCAN_GROUP, SCAN_TN, l2_topk, refine_width, scan_acc,
+                             scan_depth)
 from ..ops.stream import fetch_host, pipelined_stream, upload_batch
 from ..utils.device import resolve_device
 
@@ -482,7 +483,8 @@ class ShardedHnsw:
         return self._to_external(st, *run(torch.as_tensor(q, device=self.devices[0])))
 
     def _scan_arrays(self, tn: int):
-        """Per-shard bf16 scan copy padded to a multiple of ``tn`` rows, and
+        """Per-shard bf16 scan copy padded to a multiple of ``tn`` rows (and
+        with zero columns up to the kernel's 16-column step, ``scan_depth``), and
         its squared norms with 3e38 past the live rows so that padding never
         enters a top-k (the sharded counterpart of ``pad_corpus``); cached per
         graph version."""
@@ -494,8 +496,9 @@ class ShardedHnsw:
         Np = -(-st.cap1 // tn) * tn
         Xp, xsqp = [], []
         for v, sq, n in zip(st.vectors, st.sqnorms, st.n_live):
-            vb = torch.zeros((Np, v.shape[1]), dtype=torch.bfloat16, device=v.device)
-            vb[: st.cap1] = v.to(torch.bfloat16)
+            vb = torch.zeros((Np, scan_depth(v.shape[1])), dtype=torch.bfloat16,
+                             device=v.device)
+            vb[: st.cap1, : v.shape[1]] = v.to(torch.bfloat16)
             xs = torch.full((Np,), 3.0e38, dtype=torch.float32, device=v.device)
             xs[:n] = sq[:n]
             Xp.append(vb)

@@ -67,6 +67,38 @@ def test_choose_engine_matches_reference(rng, rule):
     assert got == [want, want], got
 
 
+@pytest.mark.parametrize("d", [784, 600])
+def test_high_d_scan_matches_reference(rng, d):
+    """At d >= HIGH_D (the real threshold; only SCAN_MIN lowered) both
+    packages choose the exact scan for an L2 corpus, and the port's engine,
+    through its bf16 scan (the kernel's plain version on the CPU; the copy
+    padded with zero columns to ``scan_depth(d)`` where d = 600 is not a
+    multiple of 16) and the f32 refine, returns the reference's ids."""
+    from hnsw_tpu_torch.ops.scan_topk import scan_depth
+
+    n, nq, k = 2000, 16, 10
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    Q = rng.standard_normal((nq, d)).astype(np.float32)
+    pairs = list(zip(X, range(n)))
+    t = T.AutoIndex(dist="L2", device="cpu")
+    j = J.AutoIndex(dist="L2")
+    for a in (t, j):
+        a.SCAN_MIN = 100
+        a.parallel_insert(pairs)
+    assert d >= T.AutoIndex.HIGH_D == J.AutoIndex.HIGH_D
+    assert t.choose_engine() == j.choose_engine() == "scan"
+    eng = t.engine
+    eng.SCAN_MIN_POINTS = n  # the scan route at this n, as past 32,768 rows
+    assert eng._use_scan()
+    Xscan = eng._scan_device()[2]
+    assert Xscan.dtype == torch.bfloat16 and Xscan.shape[1] == scan_depth(d)
+    assert bool((Xscan[:, d:] == 0).all())
+    ti, td = t.search_batch(Q, k)
+    ji, jd = j.search_batch(Q, k)
+    np.testing.assert_array_equal(ti, np.asarray(ji))
+    np.testing.assert_allclose(td, np.asarray(jd), rtol=1e-5)
+
+
 def test_thresholds_match_reference():
     for k in ("SCAN_MIN", "HIGH_D", "SCAN_BUDGET", "IVF_BUDGET", "IVF_CLUSTEREDNESS"):
         assert getattr(T.AutoIndex, k) == getattr(J.AutoIndex, k), k

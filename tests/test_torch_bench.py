@@ -258,9 +258,16 @@ def test_entry_faults():
     simt = dict(good, **{"scan_topk.wgmma": 0, "scan_topk.simt": 4})
     assert bench.entry_faults(before, simt, 128, codec) == [
         "B2: 0 of 4 launches took the wgmma entry"]
-    # the entries follow the shape: at d=40 B2 takes simt and B1 rows
+    # the entries follow the shape: at d=40 B2 takes wgmma (its bf16 copy padded
+    # to 48 columns) and B1 rows
     assert bench.entry_faults(before, simt, 40, codec) == [
+        "B2: 0 of 4 launches took the wgmma entry",
         "B1: 0 of 18 launches took the rows entry"]
+    rows = dict(good, **{"codec_scores_ids.bulk": 0, "codec_scores_ids.rows": 18})
+    assert bench.entry_faults(before, rows, 40, codec) == []
+    # at d=784 the codec carries no id rows (d % 128 != 0): B2 alone, wgmma
+    assert bench.entry_faults(before, dict(none, **{"scan_topk": 4, "scan_topk.wgmma": 4}),
+                              784, SimpleNamespace(M0=48, id_rows=0)) == []
 
 
 def test_main_end_to_end_on_cpu(monkeypatch):

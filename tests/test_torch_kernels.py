@@ -438,25 +438,118 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
     (torch.bfloat16, 128, True, "wgmma"), (torch.bfloat16, 128, False, "wgmma"),
     (torch.bfloat16, 16, True, "wgmma"), (torch.bfloat16, 48, False, "wgmma"),
     (torch.bfloat16, 256, True, "wgmma"), (torch.bfloat16, 192, False, "wgmma"),
-    (torch.bfloat16, 256, False, "simt"),   # 64 KB of id words: no room for two stages
-    (torch.bfloat16, 272, True, "simt"),    # the ring does not fit
-    (torch.bfloat16, 40, True, "simt"), (torch.bfloat16, 100, False, "simt"),  # d % 16
+    (torch.bfloat16, 256, False, "wgmma"),  # past the resident ring: the K-looped layout
+    (torch.bfloat16, 272, True, "wgmma"),
+    (torch.bfloat16, 40, True, "wgmma"), (torch.bfloat16, 100, False, "wgmma"),  # padded
     (torch.float32, 128, True, "simt"), (torch.float32, 128, False, "simt"),  # full f32
     (torch.float32, 40, True, "simt"),
+    (torch.bfloat16, 784, True, "wgmma"), (torch.bfloat16, 784, False, "wgmma"),
+    (torch.bfloat16, 960, True, "wgmma"), (torch.bfloat16, 1536, False, "wgmma"),
+    (torch.bfloat16, st.WGMMA_MAX_D, True, "wgmma"), (torch.float32, 784, True, "simt"),
 ])
 def test_scan_entry_is_chosen_by_dtype_and_depth(dtype, d, packed, entry):
     """The wrapper picks the kernel entry from dtype and ``d`` alone: bf16
-    with ``d`` a multiple of 16 that fits the shared-memory ring takes the
-    tensor-core entry, f32 (whose contract is full f32) and every other ``d``
-    the f32-FMA entry. Both names index the launch functions' ``entry``
-    argument and have a launch counter."""
+    takes the tensor-core entry at every depth up to ``WGMMA_MAX_D`` (its
+    copies padded with zero columns to ``scan_depth(d)``), f32 (whose
+    contract is full f32) the f32-FMA entry. Both names index the launch
+    functions' ``entry`` argument and have a launch counter."""
     assert st.scan_entry(dtype, d, packed) == entry
-    q = torch.zeros((4, d), dtype=dtype)
-    X = torch.zeros((256, d), dtype=dtype)
-    assert st._check_card_geometry(128, 256, 2, q, X, packed) == entry
+    w = st.scan_depth(d) if dtype == torch.bfloat16 else d
+    q = torch.zeros((4, w), dtype=dtype)
+    X = torch.zeros((256, w), dtype=dtype)
+    got, layout = st._check_card_geometry(128, 256, 2, q, X, packed)
+    assert got == entry
+    if entry == "wgmma":
+        assert st.SCAN_LAYOUTS[layout] == st.scan_layout(d, packed)
     assert kernel_lib.SCAN_ENTRIES.index(entry) == (1 if entry == "wgmma" else 0)
     name = "scan_topk" if packed else "scan_topk_unpacked"
     assert f"{name}.{entry}" in kernel_lib.LAUNCHES
+
+
+@pytest.mark.parametrize("d,packed,layout", [
+    (128, True, "resident"), (128, False, "resident"), (40, True, "resident"),
+    (256, True, "resident"), (192, False, "resident"), (184, False, "resident"),
+    (250, True, "resident"), (256, False, "kloop"), (260, True, "kloop"),
+    (784, True, "kloop"), (784, False, "kloop"), (960, True, "kloop"),
+])
+def test_scan_layout_is_chosen_by_depth(d, packed, layout):
+    """The tensor-core entry keeps the query tile resident while two ring
+    stages fit beside it (``RESIDENT_MAX_D``, of the padded depth) and walks
+    the depth in 64-column boxes above."""
+    assert st.scan_layout(d, packed) == layout
+    assert st.SCAN_LAYOUTS.index(layout) == (0 if layout == "resident" else 1)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_bf16_scan_past_its_depth_or_unpadded_raises(packed):
+    """A bf16 scan the tensor-core entry cannot launch raises before any
+    launch (nothing falls back to the f32-FMA entry): past ``WGMMA_MAX_D``,
+    and a copy that is not padded to the 16-column step."""
+    d = st.WGMMA_MAX_D + 1
+    with pytest.raises(ValueError, match="WGMMA_MAX_D"):
+        st.scan_entry(torch.bfloat16, d, packed)
+    q = torch.zeros((4, st.scan_depth(d)), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="WGMMA_MAX_D"):
+        st._check_card_geometry(128, 256, 2, q, q, packed)
+    q = torch.zeros((4, 100), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scan_copy"):
+        st._check_card_geometry(128, 256, 2, q, q, packed)
+    with pytest.raises(ValueError, match="columns"):
+        st._check_card_geometry(128, 256, 2, q, torch.zeros((256, 112), dtype=torch.bfloat16),
+                                packed)
+
+
+@pytest.mark.parametrize("d", [100, 40])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_scan_copy_pads_zero_columns_and_keeps_the_answer(rng, d, packed):
+    """The bf16 scan copy carries zero columns up to ``scan_depth(d)``; the
+    plain scan through ``l2_topk`` (which pads the queries to the copy's
+    width) gives the unpadded copy's answer, ids equal and distances the
+    same f32 refine."""
+    n, B, k = 3000, 8, 10
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    Q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
+    Xp, xsq, _ = st.pad_corpus(X)
+    Xt = torch.from_numpy(Xp)
+    pad = st.scan_copy(Xt)
+    assert pad.dtype == torch.bfloat16 and pad.shape == (Xp.shape[0], st.scan_depth(d))
+    assert st.scan_depth(d) % 16 == 0 and st.scan_depth(d) - d < 16
+    assert bool((pad[:, d:] == 0).all()) and torch.equal(pad[:, :d], Xt.to(torch.bfloat16))
+    assert torch.equal(st.scan_copy(Xt, torch.float32), Xt)
+    args = (Q, Xt, torch.from_numpy(xsq), k)
+    dp, ip_ = st.l2_topk(*args, Xscan=pad, acc=1, packed=packed)
+    du, iu = st.l2_topk(*args, Xscan=Xt.to(torch.bfloat16), acc=1, packed=packed)
+    np.testing.assert_array_equal(np.sort(ip_.numpy(), 1), np.sort(iu.numpy(), 1))
+    np.testing.assert_allclose(dp.numpy(), du.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("d,acc", [(784, 3), (100, 1)])
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_plain_scans_match_pallas_at_high_d(rng, d, acc, k, packed):
+    """The port's plain scans through ``l2_topk`` against ``pallas_l2_topk``
+    (interpreted) at the JAX package's high-d geometry (``tn = pick_tn(d)``,
+    512 at d = 784, and ``group = tn // 128``) on a ragged tail (d = 784: 4
+    tiles in spans of 3 + 1), at k = 10 and k = 100: ids equal as sets,
+    distances within the d = 128 cases' rtol (the same direct f32 refine over
+    the same finalists); at k = 10 the ids are the true neighbours."""
+    n, B = (2000, 8) if d == 784 else (3000, 16)
+    tn = jtopk.pick_tn(d)
+    group = tn // 128
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    Q = rng.standard_normal((B, d)).astype(np.float32)
+    Xp, xsq, perm = jtopk.pad_corpus(X, tn=tn)
+    dj, ij = jtopk.pallas_l2_topk(jnp.asarray(Q), jnp.asarray(Xp), jnp.asarray(xsq),
+                                  k, tn=tn, group=group, interpret=True, acc=acc,
+                                  packed=packed)
+    dt, it = st.l2_topk(torch.from_numpy(Q), torch.from_numpy(Xp), torch.from_numpy(xsq),
+                        k, tn=tn, group=group, acc=acc, packed=packed)
+    np.testing.assert_array_equal(np.sort(it.numpy(), 1), np.sort(np.array(ij), 1))
+    np.testing.assert_allclose(dt.numpy(), np.array(dj), rtol=1e-5)
+    if k == 10:  # at k = 100 a keep-2 cell of 12 rows drops true neighbours on both sides
+        truth = ((Q[:, None, :].astype(np.float64) - X[None]) ** 2).sum(-1)
+        for b in range(B):
+            assert set(perm[it[b]].tolist()) == set(np.argsort(truth[b])[:k].tolist())
 
 
 def test_card_geometry_raises_on_what_the_kernels_do_not_take():
@@ -618,19 +711,23 @@ def test_kernels_match_plain_on_card(rng):
                 torch.testing.assert_close(cs.codec_scores_gathered(*args, entry=ent),
                                            cs.codec_scores_gathered_plain(*args),
                                            rtol=SC_RTOL, atol=SC_ATOL)
-    # B2 and B5. bf16 at d=128 and at d=48 (one partly filled 64-column box)
-    # takes the tensor-core entry: B=100 is not a multiple of its 128-query
-    # tile, the 5 tiles split into spans of 2 + 2 + 1, the last tile holds
-    # 1240 padding rows. f32 (full-precision contract) and d=40 take the
-    # f32-FMA entry.
+    # B2 and B5. bf16 takes the tensor-core entry at every depth: d=128 and
+    # d=48 (one partly filled 64-column box) in the resident layout, d=100 too
+    # (its copies padded to 112 columns), d=240 resident for B2 and K-looped
+    # for B5, d=784 (13 boxes, the last a quarter full) K-looped for both: B=100
+    # is not a multiple of its 128-query tile, the 5 tiles split into spans of
+    # 2 + 2 + 1, the last tile holds 1240 padding rows. f32 (full-precision
+    # contract) takes the f32-FMA entry at d=128 and d=40.
     tn, grp, acc = st.SCAN_TN, st.SCAN_GROUP, 2
     for d, dtype, entry in ((128, torch.bfloat16, "wgmma"), (48, torch.bfloat16, "wgmma"),
+                            (100, torch.bfloat16, "wgmma"), (240, torch.bfloat16, "wgmma"),
+                            (784, torch.bfloat16, "wgmma"),
                             (128, torch.float32, "simt"), (40, torch.float32, "simt")):
         X = rng.standard_normal((9000, d)).astype(np.float32)
         Xp, xsq, _ = st.pad_corpus(X)
         Xd, xd = torch.from_numpy(Xp).to(dev), torch.from_numpy(xsq).to(dev)
         Q = torch.from_numpy(rng.standard_normal((100, d)).astype(np.float32)).to(dev)
-        qs, Xs = Q.to(dtype), Xd.to(dtype)
+        qs, Xs = st.scan_copy(Q, dtype), st.scan_copy(Xd, dtype)
         kernel_lib.reset_launch_counts()
         # the packed output itself: the decoded value drops LB mantissa bits and
         # the two sides sum in different orders (rtol 1e-4); a near-tie may swap
