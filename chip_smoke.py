@@ -11,8 +11,12 @@ Phases, each printing one JSON line. Path 1 (build and serve):
   kernels  B2 and B5 against their plain versions: the scan outputs themselves
            (B2: loc bits, decoded distances; B5: f32 values, row ids) through
            the tensor-core entry at 200k x 128 with B=2048 and at a ragged
-           shape, through the f32-FMA entry on a small f32 case; then the ids
-           and distances after the refine
+           shape; then the ids and distances after the refine. On f32 inputs
+           (the full-precision scan, entry tf32x3) at the same 200k x 128
+           shape, at d = 40, 128, 784, 960 and 1536 and at a ragged shape, and
+           the rows "B2 f32" and "B5 f32" there (their launches read on
+           ``highd_mnist_f32``; the plain versions' f32 products with TF32
+           off, as the script sets it)
   build    First the ``build_extend`` line: the widen pass
            (``set_extend_candidates(True)``) on 20k of the rows, M=8, batch
            2048, at efC 16 (every round widens) and 48 (steady rounds
@@ -165,7 +169,7 @@ After path 5's counts are read, B3 against its plain version on shard 0's
 codec at path 5's shape.
 
 The high-d path (``highd``; it runs right after ``kernels``, before path 1,
-while the card holds nothing else), three lines each with its launch counts from
+while the card holds nothing else), five lines each with its launch counts from
 zero: ``highd_mnist``, 70k x 784 rows (ann-mnist-784-euclidean's shape,
 bench.py's gauss generator from the seed): ``AutoIndex("L2")`` must choose the
 scan (d >= HIGH_D); ``search_batch`` of 16,384 f32 queries, recall@10 >= 0.999
@@ -178,12 +182,19 @@ until recall@10 reaches 0.999 (>= 0.98 required), streamed QPS beside the
 exact engine's; ``highd_gist``, 1M x 960 rows (gist-960-euclidean's shape):
 ``AutoIndex("L2")`` must choose the scan, recall@10 >= 0.999 over 4096
 queries, QPS. Every B2 and B5 launch takes "wgmma" (the K-looped layout at
-these depths), every B1 and B3 launch "bulk". With ``kernels``, after each
-line's counts are read, B2 and B5 at (B=2048, 71,680 x 784) and B2 at
-(B=2048, 1,001,472 x 960) against their plain versions (at 960 on 256
-queries), timed as the d=128 rows, with the f32-FMA entry's time on the same
-shape where its shared memory fits ("was"): three more rows on the kernels
-line, each with its ``line``.
+these depths), every B1 and B3 launch "bulk". ``highd_mnist_f32`` and
+``highd_gist_f32``: the same two corpora through ``BruteForceIndex`` with
+``SCAN_DTYPE = None``, the full-precision first stage (at 784 k=10 over the
+16,384 queries and ``l2_topk_stream`` at k=100 packed and unpacked, set-equal;
+at 960 k=10 over 4096 queries): recall@10 >= 0.999 against the same fp64
+truth, QPS and spread, every B2 and B5 launch through "tf32x3" (none
+"simt"). With ``kernels``, after each line's counts are read, B2 and B5 at
+(B=2048, 71,680 x 784) and B2 at (B=2048, 1,001,472 x 960) against their
+plain versions (at 960 on 256 queries), timed as the d=128 rows, with the
+f32-FMA entry's time on the same shape where its shared memory fits
+("was"), in bf16 and in f32 ("B2 f32", "B5 f32": also failing where slower
+than their library call, an f32 matmul with TF32 off + topk, or than the
+f32-FMA entry): six more rows on the kernels line, each with its ``line``.
 
 The later lines, each with its launch counts from zero (``launches_by_path``):
 
@@ -244,7 +255,10 @@ version and a one-call PyTorch yardstick, and the bound the card allows for
 the same work; the two scans also the bound of their epilogue (CUDA-core
 instruction rate), the achieved TFLOP/s, the kernel entry and layout that ran
 (with ptxas's registers and spills), the same shape through the f32-FMA entry
-(``was_ms``) and, at d=128, through the K-looped layout (``kloop_ms``), and
+(``was_ms``) and, at d=128, through the K-looped layout (``kloop_ms``); the f32
+rows their bound as three tf32 products at the TF32 rate (495 TFLOP/s) with one
+pass of f32 FMAs beside it (``fma_floor_ms``), ``bound_share`` and the ring's
+stages; and
 their time when 20 launches are queued back to back (``ms`` is timed in turns
 with the yardstick, whose 1.6 GB product evicts the corpus from L2 in between).
 ``--profile`` then traces one served batch per operating point, one
@@ -288,6 +302,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Card peaks used for bounds (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 # CUDA-core instruction rate, thread instructions a second: the f32 peak
 # counts one FMA (2 flops) per lane and clock.
@@ -657,6 +672,9 @@ def cuda_ms_queued(torch, fn, n=20):
     return s.elapsed_time(e) / n
 
 
+F32_SMALL = (9000, 300, 2)  # (rows, queries, tiles per span) of the f32 checks
+
+
 def compare_scans(torch, st, kernel_lib, qs, Xs, xsq, acc, label, want_entry, failures):
     """Both scans' raw outputs against their plain versions on one input:
     B2's loc bits and decoded distances (against one quantum of the packed
@@ -769,12 +787,20 @@ def scan_rows(torch, X, Q):
             torch, st, kernel_lib, st.scan_copy(Qh), Xhs, torch.as_tensor(xh, device=dev), 2,
             f"B=300 N=10240 d={dd} bf16 acc=2 ({st.scan_layout(dd)})", "wgmma", failures))
     del Xh, xh, Qh, Xhs
-    # f32 (full-precision contract)
-    Xf, xf, _ = st.pad_corpus(rng.standard_normal((9000, 40)).astype(np.float32))
-    Qf = torch.as_tensor(rng.standard_normal((100, 40)).astype(np.float32), device=dev)
-    checks.append(compare_scans(
-        torch, st, kernel_lib, Qf, torch.as_tensor(Xf, device=dev),
-        torch.as_tensor(xf, device=dev), 2, "f32 B=100 N=10240 d=40 acc=2", "simt", failures))
+    # f32 (full-precision contract): the tf32x3 entry, K-looped in 32-column
+    # boxes, at d = 40 (a last box of 8 columns), 128, 784 (the last box half
+    # full), 960 and 1536; and a ragged shape (B=1000, 15 tiles in spans of 4,
+    # d=100: a last wgmma step half past d, read from the tensor map's zero fill)
+    f32_checks = [compare_scans(torch, st, kernel_lib, qb, Xd, xsq, acc,
+                                f"path B={Bq} N={Np} d={d} f32 acc={acc}", "tf32x3", failures)]
+    for dd, (n, B, acc_f) in [(40, F32_SMALL), (128, F32_SMALL), (784, F32_SMALL),
+                              (960, F32_SMALL), (1536, F32_SMALL), (100, (30000, 1000, 4))]:
+        Xf, xf, _ = st.pad_corpus(rng.standard_normal((n, dd)).astype(np.float32))
+        Qf = torch.as_tensor(rng.standard_normal((B, dd)).astype(np.float32), device=dev)
+        f32_checks.append(compare_scans(
+            torch, st, kernel_lib, Qf, torch.as_tensor(Xf, device=dev),
+            torch.as_tensor(xf, device=dev), acc_f,
+            f"f32 B={B} N={Xf.shape[0]} d={dd} acc={acc_f}", "tf32x3", failures))
     del Xr, xr, Qr, Xf, xf, Qf
     at_path = checks[0]
     # after decode, overfetch and refine, as the exact engine serves
@@ -863,6 +889,12 @@ def scan_rows(torch, X, Q):
                  "library_ms": u_lib_ms, "id_equal_frac": at_path["b5_id_equal_frac"],
                  "refined_max_abs_err": float((du - dup).abs().max()),
                  "set_equal_frac": u_frac, "set_equal_packed_frac": vs_packed})
+    # ---- B2 and B5 on f32 inputs (the tf32x3 entry) at the path's shape; their
+    # launches are read on the high-d path's f32 line, which drives the entry
+    f32_rows = [scan_row(torch, st, kernel_lib, name, qb, Xd, xsq, acc, f32_checks[0],
+                         "highd_mnist_f32", failures=failures) for name in ("B2 f32", "B5 f32")]
+    f32_rows[0]["shapes_checked"] = f32_checks
+    rows += f32_rows
     emit({"phase": "kernels", "rows": rows, "failures": failures})
     return rows, failures
 
@@ -2370,7 +2402,8 @@ def scan_on_clustered(torch, bf, X, Q, kth, k=10):
     shape ``BruteForceIndex`` gives it (the shuffled, padded 1M corpus in bf16,
     2048-query batches), and where the exact scan's misses come from: the
     engine's answers through the kernel and through the plain version, an f32
-    scan (B2's simt entry), and a wider overfetch, each scored against the
+    scan (B2's tf32x3 entry, every launch counted), and a wider overfetch,
+    each scored against the
     matmul truth. Runs after path 4's counts are read: these are comparisons.
     Returns (the raw-output check, failures)."""
     from hnsw_tpu_torch.ops import kernel_lib
@@ -2398,13 +2431,24 @@ def scan_on_clustered(torch, bf, X, Q, kth, k=10):
                 "plain": dict(Xscan=Xs, overfetch=of, plain=True),
                 "f32_scan": dict(Xscan=None, overfetch=of),
                 "overfetch_54": dict(Xscan=Xs, overfetch=54)}
-    ids = {name: answers(**kw) for name, kw in variants.items()}
+    ids, f32_launches = {}, None
+    for name, kw in variants.items():
+        before = dict(kernel_lib.LAUNCHES)
+        ids[name] = answers(**kw)
+        if name == "f32_scan":  # the full-precision scan: every launch tf32x3
+            f32_launches = {c: v - before[c] for c, v in kernel_lib.LAUNCHES.items()
+                            if v > before[c]}
+            if (f32_launches.get("scan_topk.tf32x3", 0) == 0
+                    or f32_launches.get("scan_topk.tf32x3") != f32_launches.get("scan_topk")):
+                failures.append(f"path 4: the f32 scan's launches {f32_launches}, not all "
+                                "tf32x3")
     recall = {name: recall_fp64(X, Q, kth, i, k) for name, i in ids.items()}
     same = float((np.sort(ids["kernel"], 1) == np.sort(ids["plain"], 1)).all(1).mean())
     if same < B2_SET_EQUAL:
         failures.append(f"path 4: B2's answers set-equal to its plain version's on "
                         f"{same:.4f} of queries")
     emit({"phase": "ivf_scan", "check": check, "recall_at_10": recall,
+          "f32_scan_launches": f32_launches,
           "kernel_set_equal_plain_frac": same, "overfetch": of, "failures": failures})
     return check, failures
 
@@ -3461,26 +3505,47 @@ HIGHD_K100_Q = 4096         # l2_topk_stream at k=100, packed against unpacked
 HIGHD_EFS = (32, 48, 64, 96, 128, 192, 256, 384)  # the graph's sweep, up to 0.999
 RECALL_HIGHD_GRAPH = 0.98
 PLAIN_SLICE = 256           # queries of the plain versions at 1M x 960 ([B, N] f32 each)
-SHARED_LIMIT = 232448       # bytes of shared memory a block may use on the H100
 SCAN_EXPECTED = {"scan_topk": "wgmma", "scan_topk_unpacked": "wgmma",
                  "codec_scores_ids": "bulk", "codec_scores": "bulk"}
+# the f32 lines (``SCAN_DTYPE = None``): every scan through the tf32x3 entry
+SCAN_F32_EXPECTED = {"scan_topk": "tf32x3", "scan_topk_unpacked": "tf32x3"}
 # the graph's codec carries id rows only where d % 128 == 0 (the JAX codec's
 # layout): at d = 784 its scores are B3's (``codec_scores``), not B1's
 HIGHD_GRAPH_CODEC = "codec_scores_ids" if MNIST_SHAPE[1] % 128 == 0 else "codec_scores"
 
 
-def entry_faults_of(label, counts):
+def entry_faults_of(label, counts, expected=SCAN_EXPECTED):
     """Every launch of a kernel in ``counts`` (a line's launch counts from
-    zero) through the entry the high-d shapes select."""
+    zero) through the entry the high-d shapes select (``expected``: the bf16
+    lines', or ``SCAN_F32_EXPECTED`` for the f32 scan's lines)."""
     return [f"{label}: {counts[f'{c}.{e}']} of {counts[c]} {c} launches took {e}"
-            for c, e in SCAN_EXPECTED.items() if counts[f"{c}.{e}"] != counts[c]]
+            for c, e in expected.items() if counts[f"{c}.{e}"] != counts[c]]
+
+
+def timed_exact(torch, index, X, Q, kth, label, failures, t0, k=10):
+    """An exact index's first answer on ``Q`` (which builds its scan program;
+    seconds since ``t0``, its set-up's start), recall@10 against ``kth``, and
+    QPS: median of ``HIGHD_RUNS`` searches, spread (max - min) / median."""
+    ids, _ = index.search_batch(Q, k)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    recall = recall_fp64(X, Q, kth, ids, k)
+    qps = []
+    for _ in range(HIGHD_RUNS):
+        t0 = time.time()
+        index.search_batch(Q, k)
+        qps.append(len(Q) / (time.time() - t0))
+    med = float(np.median(qps))
+    if recall < RECALL_EXACT:
+        failures.append(f"{label}: exact recall@10 {recall:.5f} < {RECALL_EXACT}")
+    return {"set_up_to_first_answer_s": first_s, "recall_at_10": recall,
+            "queries": len(Q), "qps": med, "qps_runs": qps,
+            "qps_spread": (max(qps) - min(qps)) / med}
 
 
 def exact_auto(torch, X, Q, kth, label, failures, k=10):
     """``AutoIndex("L2")`` over ``X``: the engine it chooses (must be the
-    scan), set-up seconds to the first answer, recall@10 of ``search_batch``
-    on ``Q`` against ``kth`` and its QPS (median of ``HIGHD_RUNS`` searches,
-    spread (max - min) / median)."""
+    scan), then ``timed_exact``."""
     from hnsw_tpu_torch import AutoIndex
 
     a = AutoIndex("L2", device="cuda")
@@ -3488,23 +3553,51 @@ def exact_auto(torch, X, Q, kth, label, failures, k=10):
     a.parallel_insert(zip(X, range(len(X))))
     engine = a.choose_engine()
     a.build()
-    ids, _ = a.search_batch(Q, k)  # the first search builds the scan's program
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    recall = recall_fp64(X, Q, kth, ids, k)
-    qps = []
-    for _ in range(HIGHD_RUNS):
-        t0 = time.time()
-        a.search_batch(Q, k)
-        qps.append(len(Q) / (time.time() - t0))
-    med = float(np.median(qps))
+    out = timed_exact(torch, a, X, Q, kth, label, failures, t0, k)
     if engine != "scan" or a.engine_name != "scan":
         failures.append(f"{label}: AutoIndex('L2') chose {engine!r}, not 'scan'")
-    if recall < RECALL_EXACT:
-        failures.append(f"{label}: exact recall@10 {recall:.5f} < {RECALL_EXACT}")
-    return a, {"engine": engine, "set_up_to_first_answer_s": first_s, "recall_at_10": recall,
-               "queries": len(Q), "qps": med, "qps_runs": qps,
-               "qps_spread": (max(qps) - min(qps)) / med}
+    return a, {"engine": engine, **out}
+
+
+def exact_f32(torch, X, Q, kth, label, failures, k=10):
+    """``BruteForceIndex`` with ``SCAN_DTYPE = None`` over ``X``: the
+    full-precision first stage, the f32 corpus scanned through the tf32x3
+    entry; then ``timed_exact``."""
+    from hnsw_tpu_torch import BruteForceIndex
+
+    bf = BruteForceIndex("L2", device="cuda")
+    bf.SCAN_DTYPE = None
+    t0 = time.time()
+    bf.parallel_insert(X)
+    return bf, {"scan_dtype": "f32", **timed_exact(torch, bf, X, Q, kth, label, failures, t0, k)}
+
+
+def k100_pair(torch, st, engine, X, Q, kth, label, failures):
+    """``l2_topk_stream`` at k=100 over the exact engine's scan copy, unpacked
+    (B5) and packed (B2), on ``HIGHD_K100_Q`` queries: the two id sets equal
+    on >= ``B2_SET_EQUAL`` of the queries, the unpacked answer's recall@10
+    (its first 10) against ``kth``, and each one's QPS (a second call, after
+    the one that builds its program)."""
+    Xd, xsq, Xscan, perm, acc, programs = engine._scan_device()
+    nq = HIGHD_K100_Q
+    out = {}
+    for name, packed in (("unpacked", False), ("packed", True)):
+        kw = dict(tn=st.SCAN_TN, group=st.SCAN_GROUP, acc=acc,
+                  overfetch=engine.SCAN_OVERFETCH, packed=packed, Xscan=Xscan,
+                  batch=EXACT_BATCH, programs=programs)
+        _, idx = st.l2_topk_stream(Q[:nq], Xd, xsq, 100, **kw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        st.l2_topk_stream(Q[:nq], Xd, xsq, 100, **kw)
+        out[name] = (idx, nq / (time.time() - t0))
+    same = float((np.sort(out["unpacked"][0], 1) == np.sort(out["packed"][0], 1))
+                 .all(1).mean())
+    if same < B2_SET_EQUAL:
+        failures.append(f"{label}: k=100 unpacked and packed ids set-equal on {same:.4f}")
+    rows = perm[np.clip(out["unpacked"][0][:, :10], 0, len(perm) - 1)]
+    return {"queries": nq, "set_equal_frac": same,
+            "unpacked_recall_at_10": recall_fp64(X, Q, kth[:nq], rows, 10),
+            "unpacked_qps": out["unpacked"][1], "packed_qps": out["packed"][1]}
 
 
 def highd_graph(torch, X, Q, kth, failures, k=10):
@@ -3572,31 +3665,30 @@ def scan_launcher(torch, st, kernel_lib, packed, entry, layout, qs, Xs, xsq, acc
     return lambda: kernel_lib.check(fn(*args), f"{name}.{entry} ({layout})")
 
 
-def simt_shared_bytes(d, packed):
-    """Shared memory the f32-FMA entry asks for at depth ``d`` (its launch
-    functions in ``scan_topk.cu`` and ``scan_topk_unpacked.cu``): the queries
-    [d][64] and the staging tile [32][129] in f32, plus |q|^2 (packed) or
-    B5's id words [32][256]."""
-    return (d * 64 + 32 * 129 + (64 if packed else 32 * 256)) * 4
-
-
-def kernel_ptxas(kernel_lib, source, layout):
+def kernel_ptxas(kernel_lib, source, layout, f32=False):
     """ptxas's registers and spills of ``source``'s tensor-core kernel in
-    ``layout``."""
+    ``layout``, over bf16 or (``f32``, the tf32x3 entry) f32 rows."""
     kernel = "scan_kloop_kernel" if layout == "kloop" else "scan_tile_kernel"
     return next(({k: e[k] for k in ("registers", "spill_stores", "spill_loads")}
-                 for e in kernel_lib.ptxas_report((source,))[source] if kernel in e["entry"]),
-                None)
+                 for e in kernel_lib.ptxas_report((source,))[source]
+                 if kernel in e["entry"] and ("bfloat16" in e["entry"]) != f32), None)
 
 
-def scan_row(torch, st, kernel_lib, name, qs, Xs, xsq, acc, check, line, plain_q=None):
-    """A kernels-line row for B2 or B5 at a high-d shape (B = ``len(qs)``
-    queries, bf16): the wrapper's ms in turns with the library call (bf16
-    matmul + topk) and the f32-FMA entry ("was", where its shared memory
-    fits), back-to-back ms, the plain version's ms (on ``plain_q``, a slice
-    where [B, N] intermediates would not fit), the bound and the epilogue's,
-    and ``check`` (``compare_scans``' result at this shape)."""
-    packed = name == "B2"
+def scan_row(torch, st, kernel_lib, name, qs, Xs, xsq, acc, check, line, plain_q=None,
+             failures=None):
+    """A kernels-line row for B2 or B5 (``name`` "B2", "B5", or with " f32"
+    for f32 inputs, the tf32x3 entry) at a shape of the path ``line`` runs (B =
+    ``len(qs)`` queries): the wrapper's ms in turns with the library call (one
+    matmul in the inputs' type, TF32 off for f32, + topk) and the f32-FMA
+    entry ("was", where its shared memory fits), back-to-back ms, the plain
+    version's ms (on ``plain_q``, a slice where [B, N] intermediates would not
+    fit), the bound and the epilogue's, and ``check`` (``compare_scans``'
+    result at this shape). The bound of an f32 row is its three tf32 products
+    at the TF32 rate (or its bytes), with one pass of f32 FMAs beside it
+    (``fma_floor_ms``); an f32 row slower than its library call or than the
+    f32-FMA entry adds to ``failures``."""
+    packed = name.startswith("B2")
+    f32 = Xs.dtype == torch.float32
     tn, grp = st.SCAN_TN, st.SCAN_GROUP
     B, d = qs.shape
     Np = Xs.shape[0]
@@ -3610,26 +3702,33 @@ def scan_row(torch, st, kernel_lib, name, qs, Xs, xsq, acc, check, line, plain_q
         return torch.topk(xsq[None, :] - 2.0 * gq.float(), 18, dim=1, largest=False)
 
     fns = [lambda: wrap(qs, Xs, xsq, tn, grp, acc), library]
-    simt_bytes = simt_shared_bytes(d, packed)
-    if simt_bytes <= SHARED_LIMIT:
+    simt_bytes = st.scan_smem("simt", d, packed)[0]
+    if simt_bytes <= st.SMEM_LIMIT:
         fns.append(scan_launcher(torch, st, kernel_lib, packed, "simt", "resident", qs, Xs,
                                  xsq, acc))
     times = cuda_ms_turns(torch, fns, rounds=3)
     ms, lib_ms = times[:2]
+    was_ms = times[2] if len(times) > 2 else None
     plain_ms = cuda_ms(torch, lambda: plain(plain_q, Xs, xsq, tn, grp, acc), warmup=1, iters=3)
     flops = 2 * B * Np * d
-    nbytes = Np * d * 2 + Np * 4 + B * d * 2 + (1 if packed else 2) * n_blocks * B * 256 * 4
-    bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    esize = Xs.element_size()
+    nbytes = (Np * d * esize + Np * 4 + B * d * esize
+              + (1 if packed else 2) * n_blocks * B * 256 * 4)
+    bms, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS) if f32 else bound_ms(nbytes, flops,
+                                                                            BF16_FLOPS)
     instr = B2_EPILOGUE_INSTR if packed else B5_EPILOGUE_INSTR
-    layout = st.scan_layout(d, packed)
+    entry = st.scan_entry(Xs.dtype, d, packed)
+    layout = st.scan_layout(d, packed, Xs.dtype)
     source = "scan_topk" if packed else "scan_topk_unpacked"
     row = {"name": name, "route": "cuda",
            "source": f"hnsw_tpu_torch/csrc/{source}.cu",
            "replaces": "hnsw_tpu/ops/pallas_topk.py:106" if packed
            else "hnsw_tpu/ops/pallas_topk.py:38",
-           "counter": source, "line": line, "shape": f"B={B} N={Np} d={d} bf16 acc={acc}",
-           "entry": st.scan_entry(Xs.dtype, d, packed), "layout": layout,
-           "ptxas": kernel_ptxas(kernel_lib, source, layout),
+           "counter": source, "line": line,
+           "shape": f"B={B} N={Np} d={d} {'f32' if f32 else 'bf16'} acc={acc}",
+           "entry": entry, "layout": layout,
+           "ptxas": kernel_ptxas(kernel_lib, source, layout, f32),
+           "stages": st.scan_smem(entry, d, packed)[1],
            "max_abs_err": check["b2_max_abs_err" if packed else "b5_max_abs_err"],
            "ms": ms, "ms_back_to_back": cuda_ms_queued(
                torch, lambda: wrap(qs, Xs, xsq, tn, grp, acc), n=5),
@@ -3637,27 +3736,38 @@ def scan_row(torch, st, kernel_lib, name, qs, Xs, xsq, acc, check, line, plain_q
            "bound_ms": bms, "bound_by": by,
            "epilogue_bound_ms": B * Np * instr / CUDA_CORE_INSTR_PER_S * 1e3,
            "tflops": flops / ms / 1e9, "bound_share": bms / ms, "library_ms": lib_ms,
-           "was_ms": times[2] if len(times) > 2 else None,
-           "was_entry": "simt", "simt_shared_bytes": simt_bytes,
+           "was_ms": was_ms, "was_entry": "simt", "simt_shared_bytes": simt_bytes,
            "shapes_checked": [check]}
-    if row["was_ms"] is None:
+    if f32:
+        row["fma_floor_ms"] = flops / F32_FLOPS * 1e3
+        row["library"] = "f32 torch.matmul (allow_tf32 False) + torch.topk"
+        if ms > lib_ms:
+            failures.append(f"{name} at {row['shape']}: {ms:.3f} ms is slower than its library "
+                            f"call {lib_ms:.3f} ms")
+        if was_ms is not None and ms > was_ms:
+            failures.append(f"{name} at {row['shape']}: {ms:.3f} ms is slower than the simt "
+                            f"entry's {was_ms:.3f} ms")
+    if was_ms is None:
         row["was_note"] = (f"the simt entry asks for {simt_bytes} bytes of shared memory "
-                           f"(the block's limit is {SHARED_LIMIT}): it never launched here")
+                           f"(the block's limit is {st.SMEM_LIMIT}): it never launched here")
     return row
 
 
 def phase_highd(torch, seed, kernels, k=10):
-    """The high-d path, three lines each with its launch counts from zero:
+    """The high-d path, five lines each with its launch counts from zero:
     ``highd_mnist`` (AutoIndex's scan at 70k x 784, ``l2_topk_stream`` at
     k=100 packed and unpacked), ``highd_graph`` (the same corpus through the
-    graph), ``highd_gist`` (AutoIndex's scan at 1M x 960); then, outside the
-    counted windows, B2 and B5 against their plain versions at 784 and B2 at
-    960 (``kernels``). Returns (failures, kernel rows, {line: counts})."""
+    graph), ``highd_mnist_f32`` (``BruteForceIndex`` with ``SCAN_DTYPE =
+    None`` on the same corpus: the f32 scan, entry tf32x3, at k=10 and at
+    k=100 packed and unpacked), ``highd_gist`` (AutoIndex's scan at 1M x 960)
+    and ``highd_gist_f32`` (the f32 scan there); then, outside the counted
+    windows, B2 and B5 against their plain versions at 784 and B2 at 960, in
+    bf16 and in f32 (``kernels``). Returns (failures, kernel rows, {line:
+    counts})."""
     from hnsw_tpu_torch.ops import kernel_lib
     from hnsw_tpu_torch.ops import scan_topk as st
 
     failures, rows, counts = [], [], {}
-    tn, grp = st.SCAN_TN, st.SCAN_GROUP
     # ---- 70k x 784: the exact engine AutoIndex chooses ----
     X, Q = f32_dataset("gauss", np.random.default_rng(seed), MNIST_SHAPE[0], HIGHD_Q,
                        MNIST_SHAPE[1], 16)
@@ -3666,28 +3776,14 @@ def phase_highd(torch, seed, kernels, k=10):
     truth_s = time.time() - t0
     kernel_lib.reset_launch_counts()
     a, exact = exact_auto(torch, X, Q, kth, "highd_mnist", failures, k)
+    k100 = k100_pair(torch, st, a.engine, X, Q, kth, "highd_mnist", failures)
     Xd, xsq, Xscan, perm, acc, programs = a.engine._scan_device()
-    k100 = {}
-    for name, packed in (("unpacked", False), ("packed", True)):
-        kw = dict(tn=tn, group=grp, acc=acc, overfetch=a.engine.SCAN_OVERFETCH, packed=packed,
-                  Xscan=Xscan, batch=EXACT_BATCH, programs=programs)
-        _, idx = st.l2_topk_stream(Q[:HIGHD_K100_Q], Xd, xsq, 100, **kw)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        st.l2_topk_stream(Q[:HIGHD_K100_Q], Xd, xsq, 100, **kw)
-        k100[name] = (idx, HIGHD_K100_Q / (time.time() - t0))
-    same = float((np.sort(k100["unpacked"][0], 1) == np.sort(k100["packed"][0], 1))
-                 .all(1).mean())
-    if same < B2_SET_EQUAL:
-        failures.append(f"highd_mnist: k=100 unpacked and packed ids set-equal on {same:.4f}")
     counts["highd_mnist"] = dict(kernel_lib.LAUNCHES)
     failures += entry_faults_of("highd_mnist", counts["highd_mnist"])
     emit({"phase": "highd_mnist", "n": MNIST_SHAPE[0], "d": MNIST_SHAPE[1], "seed": seed,
           "truth_s": truth_s, **exact, "scan_layout": {
               p: st.scan_layout(MNIST_SHAPE[1], p) for p in (True, False)},
-          "k100": {"queries": HIGHD_K100_Q, "set_equal_frac": same,
-                   "unpacked_qps": k100["unpacked"][1], "packed_qps": k100["packed"][1]},
-          "launches": {c: v for c, v in counts["highd_mnist"].items() if v},
+          "k100": k100, "launches": {c: v for c, v in counts["highd_mnist"].items() if v},
           "failures": failures})
     # ---- the same corpus through the graph ----
     kernel_lib.reset_launch_counts()
@@ -3707,7 +3803,30 @@ def phase_highd(torch, seed, kernels, k=10):
         rows += [scan_row(torch, st, kernel_lib, name, qs, Xscan, xsq, acc, check,
                           "highd_mnist") for name in ("B2", "B5")]
     a.engine.drop_programs()
-    del a, Xd, xsq, Xscan, programs, X, Q
+    del a, Xd, xsq, Xscan, programs
+    torch.cuda.empty_cache()
+    # ---- the same corpus through the f32 scan (SCAN_DTYPE None) ----
+    kernel_lib.reset_launch_counts()
+    bf, exact32 = exact_f32(torch, X, Q, kth, "highd_mnist_f32", failures, k)
+    k100 = k100_pair(torch, st, bf, X, Q, kth, "highd_mnist_f32", failures)
+    counts["highd_mnist_f32"] = dict(kernel_lib.LAUNCHES)
+    failures += entry_faults_of("highd_mnist_f32", counts["highd_mnist_f32"],
+                                SCAN_F32_EXPECTED)
+    emit({"phase": "highd_mnist_f32", "n": MNIST_SHAPE[0], "d": MNIST_SHAPE[1], **exact32,
+          "bf16_recall_at_10": exact["recall_at_10"], "bf16_qps": exact["qps"],
+          "k100": k100, "launches": {c: v for c, v in counts["highd_mnist_f32"].items() if v}})
+    if kernels:
+        Xd, xsq, _, _, acc, _ = bf._scan_device()
+        qf = torch.as_tensor(Q[:EXACT_BATCH], device="cuda")
+        label = f"highd B={EXACT_BATCH} N={Xd.shape[0]} d={MNIST_SHAPE[1]} f32 acc={acc}"
+        check = compare_scans(torch, st, kernel_lib, qf, Xd, xsq, acc, label, "tf32x3",
+                              failures)
+        rows += [scan_row(torch, st, kernel_lib, name, qf, Xd, xsq, acc, check,
+                          "highd_mnist_f32", failures=failures)
+                 for name in ("B2 f32", "B5 f32")]
+        del Xd, xsq, qf
+    bf.drop_programs()
+    del bf, X, Q
     torch.cuda.empty_cache()
     # ---- 1M x 960 ----
     X, Q = f32_dataset("gauss", np.random.default_rng(seed), GIST_SHAPE[0], GIST_Q,
@@ -3732,9 +3851,30 @@ def phase_highd(torch, seed, kernels, k=10):
                               label, "wgmma", failures)
         rows.append(scan_row(torch, st, kernel_lib, "B2", qs, Xscan, xsq, acc, check,
                              "highd_gist", plain_q=qs[:PLAIN_SLICE]))
-        del Xd, xsq, Xscan, programs
+        del Xd, xsq, Xscan, programs, qs
     a.engine.drop_programs()
-    del a, X, Q
+    del a
+    torch.cuda.empty_cache()
+    # ---- the f32 scan at 1M x 960 ----
+    kernel_lib.reset_launch_counts()
+    bf, exact32 = exact_f32(torch, X, Q, kth, "highd_gist_f32", failures, k)
+    counts["highd_gist_f32"] = dict(kernel_lib.LAUNCHES)
+    failures += entry_faults_of("highd_gist_f32", counts["highd_gist_f32"], SCAN_F32_EXPECTED)
+    emit({"phase": "highd_gist_f32", "n": GIST_SHAPE[0], "d": GIST_SHAPE[1], **exact32,
+          "bf16_recall_at_10": exact["recall_at_10"], "bf16_qps": exact["qps"],
+          "launches": {c: v for c, v in counts["highd_gist_f32"].items() if v}})
+    if kernels:
+        Xd, xsq, _, _, acc, _ = bf._scan_device()
+        bf.drop_programs()
+        qf = torch.as_tensor(Q[:EXACT_BATCH], device="cuda")
+        label = f"highd B={PLAIN_SLICE} N={Xd.shape[0]} d={GIST_SHAPE[1]} f32 acc={acc}"
+        check = compare_scans(torch, st, kernel_lib, qf[:PLAIN_SLICE], Xd, xsq, acc, label,
+                              "tf32x3", failures)
+        rows.append(scan_row(torch, st, kernel_lib, "B2 f32", qf, Xd, xsq, acc, check,
+                             "highd_gist_f32", plain_q=qf[:PLAIN_SLICE], failures=failures))
+        del Xd, xsq, qf
+    bf.drop_programs()
+    del bf, X, Q
     torch.cuda.empty_cache()
     return failures, rows, counts
 
@@ -3998,8 +4138,11 @@ def main():
                             "scans, not one")
     for r in rows:
         c = r.pop("counter")
-        if "line" in r:  # a high-d row: its launches are its own line's
-            cnt = paths.get(r["line"], {})
+        if "line" in r:  # a high-d or f32 row: its launches are its own line's
+            if r["line"] not in paths:  # (the d = 128 f32 rows without highd)
+                r["launches"] = None
+                continue
+            cnt = paths[r["line"]]
             r["launches"] = cnt.get(c, 0)
             r["launches_by_entry"] = {k.split(".")[1]: v for k, v in cnt.items()
                                       if k.startswith(c + ".")}
@@ -4035,7 +4178,9 @@ def main():
     # build_budget, user_pivots and topk_gathered none of the five
     for name, counters in (("highd_mnist", ("scan_topk", "scan_topk_unpacked")),
                            ("highd_graph", (HIGHD_GRAPH_CODEC,)),
+                           ("highd_mnist_f32", ("scan_topk", "scan_topk_unpacked")),
                            ("highd_gist", ("scan_topk",)),
+                           ("highd_gist_f32", ("scan_topk",)),
                            ("filters", ("codec_scores_ids", "scan_topk")),
                            ("graft", ("codec_scores", "scan_topk")),
                            ("cards", ("codec_scores", "scan_topk")),

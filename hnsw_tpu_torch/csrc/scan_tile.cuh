@@ -59,6 +59,15 @@
 //    L2 prefetch of the corpus boxes 8-32 boxes ahead, and one f32 sum per
 //    two boxes each measured no faster than this layout.
 //
+//  * K-looped over f32 rows (scan_kloop_kernel<.., float>, entry "tf32x3",
+//    any d up to the host's WGMMA_MAX_D): the full-precision scan. A box is
+//    32 f32 columns (128 bytes, the same 16 KB and swizzle); it is split in
+//    shared memory into tf32 parts, x = hi + lo, and q.x is summed from three
+//    tf32 products a box, wgmma m64n128k8 (see the kernel). TF32 keeps 10
+//    mantissa bits; the three products keep about 22, within a few f32
+//    roundings of an f32 product, at three passes of the tensor cores' TF32
+//    rate (495 TFLOP/s) against one of the CUDA cores' f32 FMA rate (67).
+//
 // No producer warp, no setmaxnreg. 64 accumulators and 128 words of cell
 // state need about 245 registers a thread with everything else. A block of
 // two consumer warpgroups and a producer warpgroup (384 threads, consumers
@@ -72,11 +81,14 @@
 // an iteration ago and thread 0 does not wait for it; in the K-looped layout
 // stages - 1 boxes ahead.
 //
-// Depth. d must be a multiple of 16 (one wgmma step): the host gives the bf16
-// copies zero columns up to it. A d that is not a multiple of 64 reads its
-// last box past the row's end, which the tensor map fills with zeros, and
-// skips the wgmma steps of the zero part. A query tile past B is zero-filled
-// the same way and never stored.
+// Depth. bf16: d must be a multiple of 16 (one wgmma step): the host gives
+// the bf16 copies zero columns up to it. f32: a multiple of 4, the tensor
+// map's 16-byte row stride (the f32 rows themselves, no copy, at every d the
+// paths run); a last step past d reads the map's zero fill. A d that is not a
+// multiple of the box reads its last box past the row's end, which the tensor
+// map fills with zeros; bf16 skips the wgmma steps of the zero part, f32 runs
+// them (box_product_3x). A query tile past B is zero-filled the same way and
+// never stored.
 //
 // Accumulator layout of m64n128 (thread t of the warpgroup, warp w = t / 32,
 // lane l = t % 32): element 4 j + 2 h + e is query row 16 w + l / 4 + 8 h,
@@ -87,6 +99,7 @@
 //   struct Params                        plain data, passed by value
 //   init(params, extra_smem, ctid)       ctid: thread 0..255
 //   row_setup(q, d, B, row0)             the thread's query rows row0, row0 + 8
+//                                        (q bf16 or f32: a template)
 //   update(acc[64], xs, loc)             one sub-tile: xs points at the thread's
 //                                        first |x|^2 (lane 2 (l % 4)), loc is
 //                                        the sub-tile's offset in the span
@@ -167,28 +180,33 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
          (1ull << 62);
 }
 
+// The 64 accumulators of an m64n128 product as inline-asm operands %0-%63:
+// SCAN_ACC64(SCAN_RW) reads and writes them, SCAN_ACC64(SCAN_WO) only writes.
+#define SCAN_RW(x) "+f"(x)
+#define SCAN_WO(x) "=f"(x)
+#define SCAN_ACC64(C)                                                                        \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]), C(d[8]), C(d[9]),   \
+      C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15]), C(d[16]), C(d[17]),         \
+      C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]), C(d[24]), C(d[25]),         \
+      C(d[26]), C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31]), C(d[32]), C(d[33]),         \
+      C(d[34]), C(d[35]), C(d[36]), C(d[37]), C(d[38]), C(d[39]), C(d[40]), C(d[41]),         \
+      C(d[42]), C(d[43]), C(d[44]), C(d[45]), C(d[46]), C(d[47]), C(d[48]), C(d[49]),         \
+      C(d[50]), C(d[51]), C(d[52]), C(d[53]), C(d[54]), C(d[55]), C(d[56]), C(d[57]),         \
+      C(d[58]), C(d[59]), C(d[60]), C(d[61]), C(d[62]), C(d[63])
+#define SCAN_ACC_LIST                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "          \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "          \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+
 // D[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T, bf16 in, f32 out.
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
                                                  int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SCAN_ACC_LIST
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
+      : SCAN_ACC64(SCAN_RW)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -198,23 +216,31 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 __device__ __forceinline__ void wgmma_m64n128k16_first(float (&d)[64], uint64_t da,
                                                        uint64_t db) {
   asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SCAN_ACC_LIST
       "%64, %65, 0, 1, 1, 0, 0;\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
-        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
-        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),
-        "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]),
-        "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
-        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
-        "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]),
-        "=f"(d[62]), "=f"(d[63])
+      : SCAN_ACC64(SCAN_WO)
+      : "l"(da), "l"(db));
+}
+
+// D[64 x 128] += A[64 x 8] * B[128 x 8]^T, tf32 in (the 32-bit words' top
+// 19 bits), f32 out. tf32 takes K-major operands only: no transpose flags.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SCAN_ACC_LIST
+      "%64, %65, p, 1, 1;\n}\n"
+      : SCAN_ACC64(SCAN_RW)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] = A[64 x 8] * B[128 x 8]^T: the first step of a fresh tf32 sum.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_first(float (&d)[64], uint64_t da,
+                                                           uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SCAN_ACC_LIST
+      "%64, %65, 0, 1, 1;\n"
+      : SCAN_ACC64(SCAN_WO)
       : "l"(da), "l"(db));
 }
 
@@ -397,7 +423,7 @@ scan_tile_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ------------------------------------------------------- the K-looped kernel
 
-// One 64-column box's product into fresh accumulators: `steps` steps of 16
+// One bf16 box's product into fresh accumulators: `steps` steps of 16
 // columns, 32 bytes further per step inside the swizzled 128-byte row.
 __device__ __forceinline__ void box_product(float (&a)[64], uint64_t desc_a, uint64_t desc_b,
                                             int steps) {
@@ -410,20 +436,97 @@ __device__ __forceinline__ void box_product(float (&a)[64], uint64_t desc_a, uin
   }
 }
 
-template <class Epilogue>
+// One f32 box's q.x into fresh accumulators from its tf32 parts, q = qh + ql
+// and x = xh + xl: the two small products first (ql xh, then qh xl), the
+// large one qh xh last, so that the corrections are summed at their own
+// scale before the large terms join; ql xl (below 2^-20 of q x) is left out.
+// Always the box's four steps of 8 columns: past d the tensor map's zero fill
+// adds nothing, and a branch on the step count made ptxas serialize every
+// wgmma of the kernel (warning C7520, "compiler-inserted WG.AR in divergent
+// path": the products took 41 ms alone at 1M x 960, tools/scan_variants.py).
+__device__ __forceinline__ void box_product_3x(float (&a)[64], uint64_t qh, uint64_t ql,
+                                               uint64_t xh, uint64_t xl) {
+  wgmma_m64n128k8_tf32_first(a, ql, xh);
+#pragma unroll
+  for (int ks = 1; ks < 4; ++ks) wgmma_m64n128k8_tf32(a, ql + 2 * ks, xh + 2 * ks, 1);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) wgmma_m64n128k8_tf32(a, qh + 2 * ks, xl + 2 * ks, 1);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) wgmma_m64n128k8_tf32(a, qh + 2 * ks, xh + 2 * ks, 1);
+}
+
+// The split of an f32 box into tf32 parts, x = hi + lo. The tensor cores read
+// an f32 word's top 19 bits and ignore its low 13 (checked on the card: the
+// kernel built so agrees with its plain version within the f32 tolerances of
+// chip_smoke.py), so the box as loaded is hi = x truncated to tf32, and only
+// lo is written: x - hi, exact in f32, rounded to tf32 (cvt.rna: read
+// truncated it would lean toward zero, which the tests' model of the sum puts
+// at 1.5x the error). lo goes to the same offset of the lo area, which has
+// the box's 1024-byte-aligned swizzled layout: an element's place is the same
+// in both. Writing a rounded hi over the box as well measured 13% slower.
+__device__ __forceinline__ void split_one(const uint8_t* box, uint8_t* lo, int i) {
+  const float4 v = reinterpret_cast<const float4*>(box)[i];
+  float r[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float rest = r[e] - __uint_as_float(__float_as_uint(r[e]) & 0xFFFFE000u);
+    uint32_t t;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(t) : "f"(rest));
+    r[e] = __uint_as_float(t);
+  }
+  reinterpret_cast<float4*>(lo)[i] = make_float4(r[0], r[1], r[2], r[3]);
+}
+
+// Four float4 of a box a thread, from `first`, `stride` apart.
+__device__ __forceinline__ void split_f4(const uint8_t* box, uint8_t* lo, int first,
+                                         int stride) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_one(box, lo, first + i * stride);
+}
+
+// Makes this thread's shared-memory writes visible to the tensor cores'
+// (asynchronous-proxy) reads; a barrier then orders them for all threads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The K-looped layout over bf16 (T = __nv_bfloat16, entry "wgmma") or f32
+// (T = float, entry "tf32x3") rows. A box is 128 bytes of a row: 64 bf16 or
+// 32 f32 columns; one wgmma step reads 32 bytes of it (k16 bf16, k8 tf32).
+//
+// f32: each box is split in shared memory after its TMA load, x = hi + lo
+// (split_f4): the box itself is hi, lo goes to a 32 KB area beside the ring
+// ([query lo][corpus lo]). A warpgroup splits its own 64 query rows; the 128
+// corpus rows are split by all 256 threads. Then q.x = qh xh + qh xl + ql xh
+// (box_product_3x), within a few f32 roundings of the f32 product. The
+// corpus is read once from device memory as f32 (no stored lo copy: that
+// would double the bytes every query tile reads through L2), and the queries
+// are split per box like the corpus, since their tile is read again for
+// every sub-tile anyway. Two 256-thread barriers a box: after the split
+// (every part written before either warpgroup's product reads it), and after
+// both products (the lo area is free for the next box). A stage holds one
+// query box and one corpus box (32 KB) in both types; beside the lo area the
+// ring holds 4 stages (B2) or 2 (B5) in f32, against 5 and 3 in bf16. (A
+// second lo area, so that box j + 1 is split while box j's products run,
+// left B2 three stages and measured no faster: tools/scan_variants.py shows
+// the split, the products and the copies adding up either way.)
+template <class Epilogue, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_kloop_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_x,
-                  const __nv_bfloat16* __restrict__ q, const float* __restrict__ xsq, int B,
+                  const T* __restrict__ q, const float* __restrict__ xsq, int B,
                   int d, int tn, int group, int acc, int n_tiles, int stages,
                   typename Epilogue::Params params) {
+  constexpr int kBox = 128 / (int)sizeof(T);  // columns of a box
+  constexpr bool kSplit = sizeof(T) == 4;     // f32: three tf32 products a box
   extern __shared__ uint8_t smem_raw[];
   // stage bases must sit on 1024 bytes for the 128-byte swizzle
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
-  const int kch = (d + KBOX - 1) / KBOX;                // boxes per sub-tile
-  const int last_steps = (d - (kch - 1) * KBOX) / 16;  // wgmma steps of the last box
-  const uint32_t extra_off = (uint32_t)stages * KSTAGE;
+  const int kch = (d + kBox - 1) / kBox;                // boxes per sub-tile
+  const int last_steps = (d - (kch - 1) * KBOX) / 16;  // bf16: wgmma steps of the last box
+  const uint32_t lo_off = (uint32_t)stages * KSTAGE;  // f32: the split's lo area
+  const uint32_t extra_off = lo_off + (kSplit ? KSTAGE : 0);
   const uint32_t full_bar = base + extra_off + Epilogue::kExtraSmem;  // [stages]
   const uint32_t empty_bar = full_bar + 8 * KLOOP_MAX_STAGES;        // [stages]
 
@@ -459,10 +562,14 @@ scan_kloop_kernel(const __grid_constant__ CUtensorMap map_q,
     // a fresh stage is empty: the first lap's waits (parity 1) pass
     mbar_wait(empty_bar + 8 * pst, (lap & 1) ^ 1);
     const uint32_t fb = full_bar + 8 * pst;
+#ifdef SCAN_TILE_NO_COPY  // measurement hook: the stage completes empty, nothing copied
+    mbar_arrive(fb);
+#else
     mbar_expect_tx(fb, KSTAGE);
     const uint32_t sb = base + pst * KSTAGE;
-    tma_load_2d(sb, &map_q, fb, c * KBOX, q0);
-    tma_load_2d(sb + CHUNK, &map_x, fb, c * KBOX, (int)(row_base + (size_t)sub * LANES));
+    tma_load_2d(sb, &map_q, fb, c * kBox, q0);
+    tma_load_2d(sb + CHUNK, &map_x, fb, c * kBox, (int)(row_base + (size_t)sub * LANES));
+#endif
     ++pj;
   };
   if (producer)
@@ -483,10 +590,28 @@ scan_kloop_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int c = 0; c < kch; ++c) {
       mbar_wait(full_bar + 8 * st, ph);
       const uint32_t sb = base + st * KSTAGE;
+      if constexpr (kSplit) {
+#ifndef SCAN_TILE_NO_SPLIT
+        const uint8_t* stage = base_ptr + st * KSTAGE;
+        uint8_t* lo = base_ptr + lo_off;
+        split_f4(stage + wg * (64 * 128), lo + wg * (64 * 128), (int)threadIdx.x % 128, 128);
+        split_f4(stage + CHUNK, lo + CHUNK, (int)threadIdx.x, 256);
+        fence_proxy_async();
+#endif
+        named_sync(1, 256);  // the box is split: either warpgroup may read it
+      }
       wgmma_fence();
 #ifndef SCAN_TILE_NO_PRODUCT
-      box_product(a, make_desc(sb + wg * (64 * 128)), make_desc(sb + CHUNK),
-                  c < kch - 1 ? 4 : last_steps);
+      if constexpr (kSplit) {
+        const uint32_t lo = base + lo_off;
+        const uint64_t qh = make_desc(sb + wg * (64 * 128)),
+                       ql = make_desc(lo + wg * (64 * 128)), xh = make_desc(sb + CHUNK),
+                       xl = make_desc(lo + CHUNK);
+        box_product_3x(a, qh, ql, xh, xl);
+      } else {
+        box_product(a, make_desc(sb + wg * (64 * 128)), make_desc(sb + CHUNK),
+                    c < kch - 1 ? 4 : last_steps);
+      }
 #endif
       wgmma_commit();
       // the copies start while the product runs
@@ -504,6 +629,8 @@ scan_kloop_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int i = 0; i < 64; ++i) t[i] += a[i];
       }
+      // both warpgroups' products have read the lo area: the next split may write it
+      if constexpr (kSplit) named_sync(2, 256);
     }
 #ifdef SCAN_TILE_NO_EPILOGUE
     if (it == n_sub - 1)
@@ -535,23 +662,27 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A [rows x d] row-major bf16 matrix cut into boxes of 128 rows x 64 columns
-// with the 128-byte swizzle; reads past either edge give zeros.
-inline int make_map(CUtensorMap* m, const void* ptr, int rows, int d) {
+// A [rows x d] row-major bf16 (or, with f32, f32) matrix cut into boxes of
+// 128 rows x 128 bytes (64 bf16 or 32 f32 columns) with the 128-byte swizzle;
+// reads past either edge give zeros. The row stride must be a multiple of 16
+// bytes.
+inline int make_map(CUtensorMap* m, const void* ptr, int rows, int d, bool f32) {
   EncodeTiledFn enc = encode_tiled_fn();
   if (!enc) return (int)cudaErrorNotSupported;
+  const cuuint64_t esize = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {KBOX, LANES};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), LANES};
   const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = enc(m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         2, const_cast<void*>(ptr), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // Stages that fit beside the query tile and the epilogue's own bytes.
+// (ops/scan_topk.py::scan_smem mirrors this and pick_kloop_stages.)
 template <class Epilogue>
 inline int pick_stages(int d, size_t* smem_bytes) {
   const int kch = (d + KBOX - 1) / KBOX;
@@ -563,44 +694,64 @@ inline int pick_stages(int d, size_t* smem_bytes) {
   return stages;
 }
 
-// Stages of the K-looped ring that fit beside the epilogue's own bytes.
+// Stages of the K-looped ring that fit beside the epilogue's own bytes and,
+// for f32 (`split`), the split's lo area.
 template <class Epilogue>
-inline int pick_kloop_stages(size_t* smem_bytes) {
-  const size_t fixed = 1024 + Epilogue::kExtraSmem + 8 * 2 * KLOOP_MAX_STAGES;
+inline int pick_kloop_stages(bool split, size_t* smem_bytes) {
+  const size_t fixed =
+      1024 + (split ? KSTAGE : 0) + Epilogue::kExtraSmem + 8 * 2 * KLOOP_MAX_STAGES;
   int stages = KLOOP_MAX_STAGES;
   while (stages >= 2 && fixed + stages * (size_t)KSTAGE > (size_t)SMEM_LIMIT) --stages;
   *smem_bytes = fixed + stages * (size_t)KSTAGE;
   return stages;
 }
 
-// Launch the tensor-core scan in `layout` 0 (resident, with Epilogue) or 1
-// (K-looped, with KloopEpilogue, which takes the same Params). q [B, d] and X
-// [Np, d] bf16 row-major.
-template <class Epilogue, class KloopEpilogue>
-inline int launch(const void* q, const void* X, const void* xsq, int B, int Np, int d, int tn,
-                  int group, int acc, int layout, typename Epilogue::Params params,
-                  cudaStream_t s) {
-  if (d % 16 != 0 || d <= 0 || (layout != 0 && layout != 1)) return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  const int stages =
-      layout ? pick_kloop_stages<KloopEpilogue>(&smem) : pick_stages<Epilogue>(d, &smem);
-  if (stages < 2) return (int)cudaErrorInvalidValue;
-  CUtensorMap mq, mx;
-  int rc = make_map(&mq, q, B, d);
-  if (rc) return rc;
-  rc = make_map(&mx, X, Np, d);
-  if (rc) return rc;
-  auto kernel = scan_tile_kernel<Epilogue>;
-  if (layout) kernel = scan_kloop_kernel<KloopEpilogue>;
-  cudaError_t e =
+template <class Kernel, typename T, class Params>
+inline int start(Kernel kernel, size_t smem, dim3 grid, cudaStream_t s, const CUtensorMap& mq,
+                 const CUtensorMap& mx, const T* q, const float* xsq, int B, int d, int tn,
+                 int group, int acc, int n_tiles, int stages, Params params) {
+  const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, THREADS, smem, s>>>(mq, mx, q, xsq, B, d, tn, group, acc, n_tiles, stages,
+                                     params);
+  return (int)cudaGetLastError();
+}
+
+// Launch the tensor-core scan: bf16 rows in `layout` 0 (resident, with
+// Epilogue) or 1 (K-looped, with KloopEpilogue, which takes the same Params);
+// f32 rows (`f32`, entry "tf32x3") in the K-looped layout only. q [B, d] and
+// X [Np, d] row-major; d a multiple of 16 for bf16 (one wgmma step), of 4 for
+// f32 (the tensor map's 16-byte row stride: a last step past d reads the
+// map's zero fill).
+template <class Epilogue, class KloopEpilogue>
+inline int launch(const void* q, const void* X, const void* xsq, int B, int Np, int d, int tn,
+                  int group, int acc, int layout, bool f32, typename Epilogue::Params params,
+                  cudaStream_t s) {
+  if (d <= 0 || d % (f32 ? 4 : 16) != 0 || (layout != 0 && layout != 1) || (f32 && layout != 1))
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  const int stages =
+      layout ? pick_kloop_stages<KloopEpilogue>(f32, &smem) : pick_stages<Epilogue>(d, &smem);
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mx;
+  int rc = make_map(&mq, q, B, d, f32);
+  if (rc) return rc;
+  rc = make_map(&mx, X, Np, d, f32);
+  if (rc) return rc;
   const int n_tiles = Np / tn;
   const int spans = (n_tiles + acc - 1) / acc;
-  const dim3 grid((B + QT - 1) / QT, spans), block(THREADS);
-  kernel<<<grid, block, smem, s>>>(mq, mx, (const __nv_bfloat16*)q, (const float*)xsq, B, d, tn,
-                                   group, acc, n_tiles, stages, params);
-  return (int)cudaGetLastError();
+  const dim3 grid((B + QT - 1) / QT, spans);
+  const float* xs = (const float*)xsq;
+  if (f32)
+    return start(scan_kloop_kernel<KloopEpilogue, float>, smem, grid, s, mq, mx, (const float*)q,
+                 xs, B, d, tn, group, acc, n_tiles, stages, params);
+  const __nv_bfloat16* qb = (const __nv_bfloat16*)q;
+  if (layout)
+    return start(scan_kloop_kernel<KloopEpilogue, __nv_bfloat16>, smem, grid, s, mq, mx, qb, xs, B,
+                 d, tn, group, acc, n_tiles, stages, params);
+  return start(scan_tile_kernel<Epilogue>, smem, grid, s, mq, mx, qb, xs, B, d, tn, group, acc,
+               n_tiles, stages, params);
 }
 
 }  // namespace scan_tile

@@ -23,7 +23,8 @@
 // 960 (N=1001472, 1M rows padded: 3.94 TFLOP, 3.98 ms) the product alone sets
 // the bound.
 //
-// Two entries, chosen by the wrapper from dtype and d (never as a fallback):
+// Three entries; the wrapper chooses from dtype and d (never as a fallback)
+// between the first two:
 //
 //  * entry 1, "wgmma": bf16 inputs (the host pads d to a multiple of 16).
 //    The tile product of scan_tile.cuh (TMA ring, wgmma m64n128k16) in the
@@ -35,14 +36,21 @@
 //    p)); m1 = min(m1, p). Sums are f32 sums of exact bf16 products in the
 //    tensor core's order (the K-looped layout: per 64-column box, the boxes
 //    added in f32), not a chain of FMAs.
-//  * entry 0, "simt": f32 inputs (the scan's full-precision contract: TF32
-//    would keep 10 mantissa bits). f32 FMAs in a classic
-//    register-tiled layout: a block owns 64 queries x one span; each of its
-//    256 threads holds a 4-query x 8-lane accumulator tile and the keep-2
-//    state of those 32 cells in registers; the queries sit transposed in
-//    shared memory, corpus rows stream through a [32 x 129] f32 staging tile.
-//    It also takes bf16 inputs, which the wrapper never sends: chip_smoke.py
-//    times it on the tensor-core entry's shapes as that entry's "was".
+//  * entry 2, "tf32x3": f32 inputs (the scan's full-precision contract) at
+//    any d up to the host's WGMMA_MAX_D (d a multiple of 4). The K-looped
+//    layout of scan_tile.cuh over f32 rows: each 32-column box split into
+//    tf32 parts in shared memory, q.x from three tf32 products a box summed
+//    in f32, the same epilogue. Bound on the H100: the three products, 3 *
+//    2 B N d flops at the TF32 rate (495 TFLOP/s), 2.5x under one pass of f32
+//    FMAs (67 TFLOP/s): 23.87 ms at (B=2048, 1M x 960).
+//  * entry 0, "simt": the first f32-FMA kernel, which the wrapper no longer
+//    names: chip_smoke.py times it as the tensor-core entries' "was" where
+//    its shared memory fits (d <= 842 here). A classic register-tiled layout:
+//    a block owns 64 queries x one span; each of its 256 threads holds a
+//    4-query x 8-lane accumulator tile and the keep-2 state of those 32
+//    cells in registers; the queries sit transposed in shared memory
+//    ([d][64] f32: past d = 842 they do not fit), corpus rows stream through
+//    a [32 x 129] f32 staging tile. It takes f32 or bf16 inputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -208,16 +216,16 @@ struct PackedEpilogueT {
     hi_mask = p.hi_mask;
   }
 
-  // |q|^2 of this thread's two query rows, from the bf16 values the product
-  // reads
-  __device__ __forceinline__ void row_setup(const __nv_bfloat16* __restrict__ q, int d, int B,
-                                            int row0) {
+  // |q|^2 of this thread's two query rows, from the values the product reads
+  // (bf16, or the f32 rows of the tf32x3 entry)
+  template <typename T>
+  __device__ __forceinline__ void row_setup(const T* __restrict__ q, int d, int B, int row0) {
     const int row1 = row0 + 8;
     qs0 = 0.f;
     qs1 = 0.f;
     for (int k = 0; k < d; ++k) {
-      const float u = row0 < B ? __bfloat162float(q[(size_t)row0 * d + k]) : 0.f;
-      const float v = row1 < B ? __bfloat162float(q[(size_t)row1 * d + k]) : 0.f;
+      const float u = row0 < B ? to_f(q[(size_t)row0 * d + k]) : 0.f;
+      const float v = row1 < B ? to_f(q[(size_t)row1 * d + k]) : 0.f;
       qs0 += u * u;
       qs1 += v * v;
     }
@@ -275,11 +283,11 @@ extern "C" int scan_topk_launch(const void* q, const void* X, const void* xsq,
   if (B == 0) return 0;
   if (tn != group * LANES || Np % tn != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (entry == 1) {
-    if (!bf16) return (int)cudaErrorInvalidValue;
+  if (entry == 1 || entry == 2) {  // wgmma on bf16, tf32x3 on f32
+    if (bf16 != (entry == 1)) return (int)cudaErrorInvalidValue;
     PackedParams p{(int32_t*)out, ~((1 << LB) - 1)};
-    return scan_tile::launch<PackedEpilogue, PackedKloopEpilogue>(q, X, xsq, B, Np, d, tn,
-                                                                  group, acc, layout, p, s);
+    return scan_tile::launch<PackedEpilogue, PackedKloopEpilogue>(
+        q, X, xsq, B, Np, d, tn, group, acc, layout, entry == 2, p, s);
   }
   if (bf16) return launch<__nv_bfloat16>(q, X, xsq, B, Np, d, tn, group, acc, LB, out, s);
   return launch<float>(q, X, xsq, B, Np, d, tn, group, acc, LB, out, s);

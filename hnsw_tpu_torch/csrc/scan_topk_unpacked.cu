@@ -35,7 +35,8 @@
 // words live in shared memory, [cell][thread] so that no two threads of a
 // warp share a bank. Global row ids are formed when the span is done.
 //
-// Two entries, chosen by the wrapper from dtype and d (never as a fallback):
+// Three entries; the wrapper chooses from dtype and d (never as a fallback)
+// between the first two:
 //
 //  * entry 1, "wgmma": bf16 inputs (the host pads d to a multiple of 16).
 //    The tile product of scan_tile.cuh, in the layout the wrapper names
@@ -54,9 +55,15 @@
 //    order (K-looped: per 64-column box, the boxes added in f32), so values
 //    agree with a chain of FMAs to f32 rounding of the terms |x|^2 and 2 q.x,
 //    not bit for bit.
-//  * entry 0, "simt": f32 inputs (full-precision contract; bf16 inputs only
-//    where chip_smoke.py times it as the tensor-core entry's "was").
-//    f32 FMAs in a register-tiled layout: a block owns 64 queries x one span,
+//  * entry 2, "tf32x3": f32 inputs (the full-precision contract) at any d up
+//    to the host's WGMMA_MAX_D (d a multiple of 4): the K-looped layout over
+//    f32 rows, each box split into tf32 parts in shared memory and q.x summed
+//    from three tf32 products (scan_tile.cuh), with the epilogue below. The
+//    split's 32 KB lo area beside the epilogue's 128 KB leaves two ring
+//    stages (bf16: three).
+//  * entry 0, "simt": the first f32-FMA kernel, which the wrapper no longer
+//    names (chip_smoke.py times it as the other entries' "was" where its
+//    shared memory fits: d <= 715 here). f32 FMAs in a register-tiled layout: a block owns 64 queries x one span,
 //    each of its 256 threads a 4-query x 8-lane accumulator tile and the
 //    keep-2 state of those 32 cells. A first version that kept 96 words of
 //    state in registers compiled to 180 registers, one block per SM, and ran
@@ -240,7 +247,8 @@ struct UnpackedEpilogueT {
     }
   }
 
-  __device__ __forceinline__ void row_setup(const __nv_bfloat16*, int, int, int) {}
+  template <typename T>
+  __device__ __forceinline__ void row_setup(const T*, int, int, int) {}
 
   __device__ __forceinline__ float second(int i) const {
     if constexpr (kSharedM2) return m2s[i * 256];
@@ -314,11 +322,11 @@ extern "C" int scan_topk_unpacked_launch(const void* q, const void* X,
   if (tn != group * LANES || Np % tn != 0 || (long long)acc * group > 65536)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (entry == 1) {
-    if (!bf16) return (int)cudaErrorInvalidValue;
+  if (entry == 1 || entry == 2) {  // wgmma on bf16, tf32x3 on f32
+    if (bf16 != (entry == 1)) return (int)cudaErrorInvalidValue;
     UnpackedParams p{(float*)outd, (int32_t*)outi};
-    return scan_tile::launch<UnpackedEpilogue, UnpackedKloopEpilogue>(q, X, xsq, B, Np, d, tn,
-                                                                      group, acc, layout, p, s);
+    return scan_tile::launch<UnpackedEpilogue, UnpackedKloopEpilogue>(
+        q, X, xsq, B, Np, d, tn, group, acc, layout, entry == 2, p, s);
   }
   if (bf16)
     return launch<__nv_bfloat16>(q, X, xsq, B, Np, d, tn, group, acc, outd, outi, s);

@@ -52,6 +52,8 @@ class BruteForceIndex:
     SCAN_MIN_POINTS = 32_768
     # Scan precision: bf16 corpus copy and queries, f32 products; the refine
     # re-scores refine_width(k, SCAN_OVERFETCH) finalists against the f32 corpus.
+    # None scans the f32 corpus itself (the full-precision first stage: entry
+    # "tf32x3" on the card), as the JAX package's SCAN_DTYPE = None does.
     SCAN_DTYPE: Optional[torch.dtype] = torch.bfloat16
     SCAN_OVERFETCH = 8
 
@@ -119,10 +121,13 @@ class BruteForceIndex:
             # shuffled row order (perm maps scan row -> our row), see pad_corpus
             Xp, xsq, perm = pad_corpus(self._X.astype(np.float32), tn=SCAN_TN)
             Xd = torch.as_tensor(Xp, device=self.device)
-            # bf16 with zero columns up to the kernel's 16-column step
-            Xscan = None if self.SCAN_DTYPE is None else scan_copy(Xd, self.SCAN_DTYPE)
+            # bf16 with zero columns up to the kernel's 16-column step; with
+            # SCAN_DTYPE None the f32 rows themselves (a zero-padded copy only
+            # where d is not a multiple of the f32 scan's 4-column step)
+            Xscan = scan_copy(Xd, self.SCAN_DTYPE or torch.float32)
             self._dev_scan = (Xd, torch.as_tensor(xsq, device=self.device),
-                              Xscan, perm, scan_acc(Xp.shape[0]), self._programs)
+                              None if Xscan is Xd else Xscan, perm, scan_acc(Xp.shape[0]),
+                              self._programs)
         return self._dev_scan
 
     def search_batch(self, queries, knbn: int, ef: int = 0, filter=None):

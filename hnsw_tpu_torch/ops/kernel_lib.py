@@ -11,12 +11,12 @@ every module of the package on a machine without ``nvcc``.
 ``LAUNCHES`` counts kernel launches per wrapper. A wrapper launches through
 ``launch``, which counts exactly the launches that CUDA accepted, so a
 caller can reset the counts, drive a path, and read which kernels that path
-went through. Every kernel has two entries, named by its wrapper from the
-shapes alone (``scan_topk.scan_entry``, ``codec_scores.codec_entry`` and
-``gathered_entry``): beside the wrapper's own count, ``<name>.<entry>`` says
-which entry each launch took (``wgmma``/``simt`` for the scans, ``bulk``/
-``rows`` for the fused codec scores, ``stream``/``rows`` for the gathered
-ones). ``CARD_LAUNCHES`` counts the same launches by card, ``(card index,
+went through. Every kernel has two or three entries, named by its wrapper
+from the shapes alone (``scan_topk.scan_entry``, ``codec_scores.codec_entry``
+and ``gathered_entry``): beside the wrapper's own count, ``<name>.<entry>``
+says which entry each launch took (``wgmma``/``tf32x3``/``simt`` for the
+scans, ``bulk``/``rows`` for the fused codec scores, ``stream``/``rows`` for
+the gathered ones). ``CARD_LAUNCHES`` counts the same launches by card, ``(card index,
 counter)``, for a caller that spreads work over several cards (the sharded
 tier): every card's share of a path is read there.
 """
@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the launch functions' ``entry`` argument is the index into these
-SCAN_ENTRIES = ("simt", "wgmma")
+SCAN_ENTRIES = ("simt", "wgmma", "tf32x3")
 CODEC_ENTRIES = ("rows", "bulk")
 GATHERED_ENTRIES = ("rows", "stream")
 ENTRIES = {"codec_scores_ids": CODEC_ENTRIES, "codec_scores": CODEC_ENTRIES,

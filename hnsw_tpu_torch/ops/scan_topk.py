@@ -25,20 +25,35 @@ group``) and about ``SCAN_SPANS`` spans per corpus, so the candidate buffer
 stays at ``spans * 2 * 128`` words per query. Bound on the H100: operations
 (see ``csrc/scan_topk.cu``).
 
-Each kernel has two entries, chosen here from dtype and ``d`` alone
-(``scan_entry``), never after a failed build or launch: ``"wgmma"``, the
-tensor-core tile product of ``csrc/scan_tile.cuh``, for bf16 queries and
-corpus at any ``d`` up to ``WGMMA_MAX_D``, whose grid is ``B/128 x spans``
-blocks (224 at B = 2048 over the 200k corpus); and ``"simt"``, the
-register-tiled f32-FMA kernel (``B/64 x spans`` blocks), for f32 inputs, whose
-contract is full f32 (TF32 would keep 10 mantissa bits).
-``kernel_lib.LAUNCHES["scan_topk.wgmma"]`` etc. count the launches of each
-entry. The tensor-core entry runs one of two layouts of the same product,
-also chosen from ``d`` alone (``scan_layout``): the query tile resident in
-shared memory up to ``RESIDENT_MAX_D``, the depth walked in 64-column boxes
-above. Its step is 16 columns: the bf16 copies carry zero columns up to
-``scan_depth(d)`` (``scan_copy``; ``l2_topk`` pads the queries to the copy's
-width), which change no ``q.x``, while ``|x|^2`` comes from the f32 rows.
+Each kernel has three entries; the wrapper names one from dtype and ``d``
+alone (``scan_entry``), never after a failed build or launch. ``"wgmma"``,
+the tensor-core tile product of ``csrc/scan_tile.cuh``, takes bf16 queries
+and corpus at any ``d`` up to ``WGMMA_MAX_D``; its grid is ``B/128 x spans``
+blocks (224 at B = 2048 over the 200k corpus). ``"tf32x3"`` takes f32 queries
+and corpus (the full-precision scan, ``l2_topk(Xscan=None)``) at the same
+depths: the same tile product in its K-looped layout, each 32-column box of
+f32 rows split in shared memory into tf32 parts ``x = hi + lo``
+(``tf32_split``) and ``q.x`` summed from three tf32 products ``qh xh + qh xl
++ ql xh`` (``tf32x3_dots``). TF32 alone would keep 10 mantissa bits; the
+three products keep about 22, within a few f32 roundings of an f32 product,
+at three passes of the TF32 rate (495 TFLOP/s) against one pass of the f32
+FMA rate (67). ``"simt"``, the first register-tiled f32-FMA kernel, is named by
+no wrapper any more: it asks for shared memory that grows with ``d`` and
+cannot launch past d = 842 packed, 715 unpacked (``scan_smem``);
+``chip_smoke.py`` times it as the others' "was". ``kernel_lib.LAUNCHES
+["scan_topk.wgmma"]`` etc. count the launches of each entry.
+
+The tensor-core entry runs one of two layouts of the same product, also
+chosen from ``d`` alone (``scan_layout``): for bf16 the query tile resident
+in shared memory up to ``RESIDENT_MAX_D``, the depth walked in 128-byte boxes
+above; f32 is always K-looped. Its step (``scan_depth``) is 16 columns for
+bf16 (one wgmma step: the bf16 copies carry zero columns up to it, which
+change no ``q.x``, while ``|x|^2`` comes from the f32 rows; ``l2_topk`` pads
+the queries to the copy's width) and 4 for f32: the f32 rows need only the
+tensor map's 16-byte row stride, a last wgmma step past ``d`` reading the
+map's zero fill, so the f32 scan runs on the f32 corpus itself with no copy
+at every d % 4 == 0 (a copy at any other d would be the whole corpus again;
+``scan_copy`` makes one only there).
 """
 
 from __future__ import annotations
@@ -76,54 +91,96 @@ def _geometry(N: int, tn: int, group: int, acc: int):
 # Largest (padded) d of the resident layout, by ``packed``: the query tile,
 # two stages of the ring and the epilogue's own bytes must fit in 227 KB of
 # shared memory (``scan_tile::pick_stages``; the unpacked epilogue keeps 64 KB
-# of id words). Above it the K-looped layout, whose ring holds 64-column boxes
+# of id words). Above it the K-looped layout, whose ring holds 128-byte boxes
 # whatever d is.
 RESIDENT_MAX_D = {True: 256, False: 192}
-# Largest d a bf16 scan takes. The K-looped layout has no shared-memory limit
-# on d, but every block reads its [128 x d] query tile again from L2 for each
-# 128-row sub-tile: 1 MB a block at d = 4096, 16 MB for a 2048-query batch's
-# 16 tiles, a third of the card's 50 MB L2 beside the streaming corpus.
-# Checked on the card up to d = 1536 (``chip_smoke.py``'s kernels phase).
+# Largest d the scan takes on the card, bf16 or f32. The K-looped layout has
+# no shared-memory limit on d, but every block reads its [128 x d] query tile
+# again from L2 for each 128-row sub-tile: 1 MB a block at d = 4096 in bf16
+# (2 MB in f32), 16 MB for a 2048-query batch's 16 tiles, a third of the
+# card's 50 MB L2 beside the streaming corpus. Whether that is a real limit
+# is not measured. Checked on the card up to d = 1536 (``chip_smoke.py``'s
+# kernels phase). Above it no entry launches (the JAX package answers there).
 WGMMA_MAX_D = 4096
 # the launch functions' ``layout`` argument is the index into these
 SCAN_LAYOUTS = ("resident", "kloop")
+# columns of the scan's step, by dtype: a wgmma step (bf16), the tensor map's
+# 16-byte row stride (f32)
+SCAN_STEP = {torch.bfloat16: 16, torch.float32: 4}
+# the CUDA entry of each scan dtype (``scan_entry``)
+SCAN_DTYPE_ENTRY = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
+# bytes of shared memory a block may use on sm_90 (``scan_tile::SMEM_LIMIT``)
+SMEM_LIMIT = 232448
 
 
-def scan_depth(d: int) -> int:
-    """Columns of a bf16 scan copy of ``d``-column rows: ``d`` rounded up to
-    the tensor-core product's 16-column step."""
-    return -(-int(d) // 16) * 16
+def scan_depth(d: int, dtype=torch.bfloat16) -> int:
+    """Columns of a scan copy of ``d``-column rows: ``d`` rounded up to the
+    scan's step for ``dtype`` (``SCAN_STEP``)."""
+    step = SCAN_STEP[dtype]
+    return -(-int(d) // step) * step
 
 
 def scan_copy(X, dtype=torch.bfloat16):
-    """The scan-precision copy of rows ``X`` [n, d] (corpus or queries): in
-    bf16 with zero columns up to ``scan_depth(d)``; any other dtype as it is."""
+    """The scan-precision copy of rows ``X`` [n, d] (corpus or queries) in
+    ``dtype``, bf16 or f32, with zero columns up to ``scan_depth(d, dtype)``;
+    any other dtype as it is. An f32 ``X`` whose ``d`` is already a step is
+    returned itself (no copy)."""
     d = X.shape[1]
-    if dtype != torch.bfloat16 or d == scan_depth(d):
+    if dtype not in SCAN_STEP or d == scan_depth(d, dtype):
         return X.to(dtype)
-    out = torch.zeros((X.shape[0], scan_depth(d)), dtype=dtype, device=X.device)
+    out = torch.zeros((X.shape[0], scan_depth(d, dtype)), dtype=dtype, device=X.device)
     out[:, :d] = X
     return out
 
 
 def scan_entry(dtype, d: int, packed: bool = True) -> str:
     """Which kernel entry a CUDA scan of this dtype and depth takes:
-    ``"wgmma"`` for bf16 (``d`` padded to ``scan_depth(d)``) up to
-    ``WGMMA_MAX_D``, ``"simt"`` for f32. A choice by shape: the entry it names
-    either launches or raises; a bf16 scan past ``WGMMA_MAX_D`` raises here."""
-    if dtype == torch.bfloat16:
-        if not 0 < scan_depth(d) <= WGMMA_MAX_D:
-            raise ValueError(f"the bf16 scan takes 0 < d <= {WGMMA_MAX_D} "
-                             f"(WGMMA_MAX_D); got d={d}: scan in f32")
-        return "wgmma"
-    return "simt"
+    ``"wgmma"`` for bf16, ``"tf32x3"`` for f32, each at every ``d`` up to
+    ``WGMMA_MAX_D`` (the copies padded to ``scan_depth(d, dtype)``). A choice
+    by shape: the entry it names either launches or raises; past
+    ``WGMMA_MAX_D`` it raises here, for both dtypes."""
+    if dtype not in SCAN_DTYPE_ENTRY:
+        raise ValueError(f"the CUDA scan takes bf16 or f32; got {dtype}")
+    if not 0 < scan_depth(d, dtype) <= WGMMA_MAX_D:
+        raise ValueError(f"the CUDA scan takes 0 < d <= {WGMMA_MAX_D} (WGMMA_MAX_D) in bf16 "
+                         f"and in f32; got d={d}: no entry launches past it")
+    return SCAN_DTYPE_ENTRY[dtype]
 
 
-def scan_layout(d: int, packed: bool = True) -> str:
-    """The tensor-core entry's layout for a bf16 scan of depth ``d``:
+def scan_layout(d: int, packed: bool = True, dtype=torch.bfloat16) -> str:
+    """The tensor-core entry's layout for a scan of depth ``d``: for bf16
     ``"resident"`` (query tile in shared memory, the two warpgroups in turns)
-    up to ``RESIDENT_MAX_D[packed]``, ``"kloop"`` (64-column boxes) above."""
+    up to ``RESIDENT_MAX_D[packed]``, ``"kloop"`` (128-byte boxes) above; f32
+    (``tf32x3``) always ``"kloop"``."""
+    if dtype == torch.float32:
+        return "kloop"
     return "resident" if scan_depth(d) <= RESIDENT_MAX_D[bool(packed)] else "kloop"
+
+
+def scan_smem(entry: str, d: int, packed: bool = True, layout: str | None = None):
+    """``(bytes, stages)``: the dynamic shared memory a launch of ``entry``
+    (in ``layout``, by default ``scan_layout``'s) at depth ``d`` asks for and
+    its ring's stages, as the launch functions compute them
+    (``scan_tile::pick_stages`` / ``pick_kloop_stages``; ``simt``, no ring:
+    the queries [d][64] and a [32][129] staging tile in f32, plus |q|^2
+    (packed) or B5's id words [32][256]). A launch refuses more than
+    ``SMEM_LIMIT`` bytes, or fewer than two stages (then the bytes are those
+    two would need)."""
+    if entry == "simt":
+        return (d * 64 + 32 * 129 + (64 if packed else 32 * 256)) * 4, 0
+    f32 = entry == "tf32x3"
+    layout = layout or scan_layout(d, packed, torch.float32 if f32 else torch.bfloat16)
+    box = 128 * 128  # one TMA box: 128 rows x 128 bytes
+    if layout == "resident":  # the query tile, then stages of [tile, 128 |x|^2]
+        tile = -(-d // 64) * box
+        fixed = 1024 + tile + (0 if packed else 64 * 256 * 4) + 8 * 9
+        step, stages = tile + 512, 4
+    else:  # stages of [query box, corpus box]; f32's lo area; the epilogue's bytes
+        fixed = 1024 + (2 * box if f32 else 0) + (1 if packed else 2) * 64 * 256 * 4 + 8 * 16
+        step, stages = 2 * box, 8
+    while stages >= 2 and fixed + stages * step > SMEM_LIMIT:
+        stages -= 1
+    return fixed + max(stages, 2) * step, stages
 
 
 def _check_card_geometry(G: int, tn: int, group: int, qs, Xs, packed: bool):
@@ -139,16 +196,19 @@ def _check_card_geometry(G: int, tn: int, group: int, qs, Xs, packed: bool):
     if Xs.shape[1] != d:
         raise ValueError(f"queries of {d} columns against a corpus of {Xs.shape[1]}")
     entry = scan_entry(Xs.dtype, d, packed)
-    if entry == "wgmma" and d != scan_depth(d):
-        raise ValueError(f"the bf16 scan steps 16 columns: pad the copies to "
-                         f"scan_depth(d) = {scan_depth(d)} columns (scan_copy); got d={d}")
-    return entry, SCAN_LAYOUTS.index(scan_layout(d, packed))
+    if d != scan_depth(d, Xs.dtype):
+        raise ValueError(f"the {entry} scan steps {SCAN_STEP[Xs.dtype]} columns: pad the "
+                         f"copies to scan_depth(d) = {scan_depth(d, Xs.dtype)} columns "
+                         f"(scan_copy); got d={d}")
+    return entry, SCAN_LAYOUTS.index(scan_layout(d, packed, Xs.dtype))
 
 
-# Columns of one TMA box of the tensor-core kernels: the K-looped layout sums
-# each box's product in f32 (``csrc/scan_tile.cuh``), and the plain versions
-# sum q.x the same way.
+# Columns of one TMA box of the bf16 tensor-core kernels: the K-looped layout
+# sums each box's product in f32 (``csrc/scan_tile.cuh``), and the plain
+# versions sum q.x the same way.
 SCAN_BOX = 64
+# Columns of one TMA box of the ``tf32x3`` entry (128 bytes of f32)
+TF32_BOX = 32
 
 
 def box_dots(qs, Xs):
@@ -157,11 +217,44 @@ def box_dots(qs, Xs):
     f32 (the resident layout and the f32-FMA entry chain one sum; up to d =
     256 the two orders stay within the scans' tolerances). One f32 sum over
     hundreds of columns drifts further from the exact value than the kernels'
-    box sums do (``tools/scan_accuracy.py``)."""
+    box sums do (``tools/scan_accuracy.py``). For f32 inputs this is the full
+    f32 product the ``tf32x3`` entry is held to (on the card with
+    ``torch.backends.cuda.matmul.allow_tf32`` False, its default)."""
     qf, xf = qs.to(torch.float32), Xs.to(torch.float32)
     g = qf[:, :SCAN_BOX] @ xf[:, :SCAN_BOX].T
     for c in range(SCAN_BOX, qs.shape[1], SCAN_BOX):
         g += qf[:, c:c + SCAN_BOX] @ xf[:, c:c + SCAN_BOX].T
+    return g
+
+
+def tf32_split(x):
+    """``(hi, lo)`` of f32 ``x`` as the ``tf32x3`` entry splits each box in
+    shared memory: ``hi`` is ``x`` truncated to tf32 (the box as loaded: the
+    tensor cores ignore an f32 word's low 13 bits), and ``lo`` is the rest
+    ``x - hi``, exact in f32, rounded to tf32 as ``cvt.rna.tf32.f32`` does (to
+    nearest, ties away from zero: the magnitude sits in the low 31 bits, so
+    adding half a tf32 ulp and clearing the low 13 bits does it for either
+    sign). Both hold tf32's bits; ``hi + lo`` is within half a tf32 ulp of the
+    rest, 2^-22 of ``x``."""
+    x = x.to(torch.float32).contiguous()
+    hi = (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    rest = (x - hi).view(torch.int32)
+    return hi, ((rest + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32x3_dots(qs, Xs):
+    """A CPU model of the ``tf32x3`` entry's q.x, [B, N] f32: per 32-column
+    box, ``ql xh + qh xl + qh xh`` of the tf32 parts (``tf32_split``; each
+    product of two tf32 values is exact in f32), the box sums added in f32.
+    The kernel sums each box in the tensor core's own order; the tests hold
+    this model to an fp64 evaluation."""
+    qh, ql = tf32_split(qs)
+    xh, xl = tf32_split(Xs)
+    g = None
+    for c in range(0, qs.shape[1], TF32_BOX):
+        s = slice(c, c + TF32_BOX)
+        box = ql[:, s] @ xh[:, s].T + qh[:, s] @ xl[:, s].T + qh[:, s] @ xh[:, s].T
+        g = box if g is None else g + box
     return g
 
 

@@ -99,6 +99,39 @@ def test_high_d_scan_matches_reference(rng, d):
     np.testing.assert_allclose(td, np.asarray(jd), rtol=1e-5)
 
 
+@pytest.mark.parametrize("d", [784, 602])
+def test_f32_scan_matches_reference(rng, d):
+    """``BruteForceIndex`` with ``SCAN_DTYPE = None``, the full-precision
+    first stage (the ``tf32x3`` entry on the card; its plain version here),
+    against the JAX package's ``BruteForceIndex`` under the same setting:
+    ids equal, distances the same f32 refine. The scan reads the f32 corpus
+    itself where d is a multiple of 4 (784) and a copy padded with zero
+    columns to ``scan_depth(d, float32)`` elsewhere (602 -> 604)."""
+    from hnsw_tpu_torch.ops.scan_topk import scan_depth
+
+    n, nq, k = 2000, 16, 10
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    Q = rng.standard_normal((nq, d)).astype(np.float32)
+    pairs = list(zip(X, range(n)))
+    t = T.BruteForceIndex(dist="L2", device="cpu")
+    j = J.BruteForceIndex(dist="L2")
+    for b in (t, j):
+        b.SCAN_DTYPE = None
+        b.parallel_insert(pairs)
+    t.SCAN_MIN_POINTS = n  # the scan route at this n, as past 32,768 rows
+    assert t._use_scan()
+    Xd, _, Xscan = t._scan_device()[:3]
+    if d % 4 == 0:
+        assert Xscan is None
+    else:
+        assert Xscan.dtype == torch.float32 and Xscan.shape[1] == scan_depth(d, torch.float32)
+        assert bool((Xscan[:, d:] == 0).all()) and torch.equal(Xscan[:, :d], Xd)
+    ti, td = t.search_batch(Q, k)
+    ji, jd = j.search_batch(Q, k)
+    np.testing.assert_array_equal(ti, np.asarray(ji))
+    np.testing.assert_allclose(td, np.asarray(jd), rtol=1e-5)
+
+
 def test_thresholds_match_reference():
     for k in ("SCAN_MIN", "HIGH_D", "SCAN_BUDGET", "IVF_BUDGET", "IVF_CLUSTEREDNESS"):
         assert getattr(T.AutoIndex, k) == getattr(J.AutoIndex, k), k

@@ -190,7 +190,8 @@ def test_cpu_wrappers_take_the_plain_version(rng):
         "codec_scores", "codec_scores.bulk", "codec_scores.rows",
         "codec_scores_gathered", "codec_scores_gathered.stream",
         "codec_scores_gathered.rows", "scan_topk", "scan_topk.wgmma", "scan_topk.simt",
-        "scan_topk_unpacked", "scan_topk_unpacked.wgmma", "scan_topk_unpacked.simt"}
+        "scan_topk.tf32x3", "scan_topk_unpacked", "scan_topk_unpacked.wgmma",
+        "scan_topk_unpacked.simt", "scan_topk_unpacked.tf32x3"}
 
 
 @pytest.mark.parametrize("d,M0,rid,entry", [
@@ -441,29 +442,76 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
     (torch.bfloat16, 256, False, "wgmma"),  # past the resident ring: the K-looped layout
     (torch.bfloat16, 272, True, "wgmma"),
     (torch.bfloat16, 40, True, "wgmma"), (torch.bfloat16, 100, False, "wgmma"),  # padded
-    (torch.float32, 128, True, "simt"), (torch.float32, 128, False, "simt"),  # full f32
-    (torch.float32, 40, True, "simt"),
+    # full f32: three tf32 products a box on the tensor cores, at every depth
+    (torch.float32, 128, True, "tf32x3"), (torch.float32, 128, False, "tf32x3"),
+    (torch.float32, 40, True, "tf32x3"),
     (torch.bfloat16, 784, True, "wgmma"), (torch.bfloat16, 784, False, "wgmma"),
     (torch.bfloat16, 960, True, "wgmma"), (torch.bfloat16, 1536, False, "wgmma"),
-    (torch.bfloat16, st.WGMMA_MAX_D, True, "wgmma"), (torch.float32, 784, True, "simt"),
+    (torch.bfloat16, st.WGMMA_MAX_D, True, "wgmma"), (torch.float32, 784, True, "tf32x3"),
+    (torch.float32, 784, False, "tf32x3"), (torch.float32, 960, True, "tf32x3"),
+    (torch.float32, 960, False, "tf32x3"), (torch.float32, 1536, True, "tf32x3"),
+    (torch.float32, st.WGMMA_MAX_D, False, "tf32x3"), (torch.float32, 100, True, "tf32x3"),
 ])
 def test_scan_entry_is_chosen_by_dtype_and_depth(dtype, d, packed, entry):
     """The wrapper picks the kernel entry from dtype and ``d`` alone: bf16
-    takes the tensor-core entry at every depth up to ``WGMMA_MAX_D`` (its
-    copies padded with zero columns to ``scan_depth(d)``), f32 (whose
-    contract is full f32) the f32-FMA entry. Both names index the launch
-    functions' ``entry`` argument and have a launch counter."""
+    takes the tensor-core entry ``wgmma`` at every depth up to
+    ``WGMMA_MAX_D`` (its copies padded with zero columns to
+    ``scan_depth(d)``), f32 (whose contract is full f32) the tensor-core
+    entry ``tf32x3`` at the same depths, in the K-looped layout. Every name
+    indexes the launch functions' ``entry`` argument and has a launch
+    counter."""
     assert st.scan_entry(dtype, d, packed) == entry
-    w = st.scan_depth(d) if dtype == torch.bfloat16 else d
+    w = st.scan_depth(d, dtype)
+    assert w == d or dtype == torch.bfloat16
     q = torch.zeros((4, w), dtype=dtype)
     X = torch.zeros((256, w), dtype=dtype)
     got, layout = st._check_card_geometry(128, 256, 2, q, X, packed)
     assert got == entry
-    if entry == "wgmma":
-        assert st.SCAN_LAYOUTS[layout] == st.scan_layout(d, packed)
-    assert kernel_lib.SCAN_ENTRIES.index(entry) == (1 if entry == "wgmma" else 0)
+    assert st.SCAN_LAYOUTS[layout] == st.scan_layout(d, packed, dtype)
+    assert kernel_lib.SCAN_ENTRIES.index(entry) == {"simt": 0, "wgmma": 1, "tf32x3": 2}[entry]
     name = "scan_topk" if packed else "scan_topk_unpacked"
     assert f"{name}.{entry}" in kernel_lib.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_every_scan_depth_fits_the_block(dtype, packed):
+    """Every depth the wrapper takes, ``0 < d <= WGMMA_MAX_D`` in either
+    dtype, names an entry whose launch asks for at most ``SMEM_LIMIT`` bytes
+    of shared memory with at least two ring stages (``scan_smem`` mirrors the
+    launch functions). The f32-FMA entry ("simt"), which f32 scans took
+    before, keeps its queries [d][64] in shared memory and asks for more past
+    d = 842 packed and 715 unpacked: there an f32 scan could not launch."""
+    for d in range(1, st.WGMMA_MAX_D + 1):
+        w = st.scan_depth(d, dtype)
+        entry = st.scan_entry(dtype, w, packed)
+        nbytes, stages = st.scan_smem(entry, w, packed)
+        assert nbytes <= st.SMEM_LIMIT and stages >= 2, (d, entry, nbytes, stages)
+    last = 842 if packed else 715
+    assert st.scan_smem("simt", last, packed)[0] <= st.SMEM_LIMIT
+    assert st.scan_smem("simt", last + 1, packed)[0] > st.SMEM_LIMIT
+    # the ring stages the launch functions pick (the K-looped bf16 ring: 5 and 3;
+    # f32 beside the split's 32 KB lo area: 4 and 2)
+    assert st.scan_smem("tf32x3", 960, packed)[1] == (4 if packed else 2)
+    assert st.scan_smem("wgmma", 960, packed)[1] == (5 if packed else 3)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_scan_past_its_depth_raises_for_both_dtypes(packed):
+    """Past ``WGMMA_MAX_D`` no entry launches, in bf16 or f32: the choice
+    raises before any launch, with a message that names the limit and no
+    other dtype to turn to. An f32 copy off the 4-column step raises too."""
+    d = st.WGMMA_MAX_D + 1
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="WGMMA_MAX_D") as err:
+            st.scan_entry(dtype, d, packed)
+        assert "bf16 and in f32" in str(err.value)
+        q = torch.zeros((4, st.scan_depth(d, dtype)), dtype=dtype)
+        with pytest.raises(ValueError, match="WGMMA_MAX_D"):
+            st._check_card_geometry(128, 256, 2, q, q, packed)
+    q = torch.zeros((4, 102), dtype=torch.float32)
+    with pytest.raises(ValueError, match="steps 4 columns"):
+        st._check_card_geometry(128, 256, 2, q, q, packed)
 
 
 @pytest.mark.parametrize("d,packed,layout", [
@@ -475,9 +523,10 @@ def test_scan_entry_is_chosen_by_dtype_and_depth(dtype, d, packed, entry):
 def test_scan_layout_is_chosen_by_depth(d, packed, layout):
     """The tensor-core entry keeps the query tile resident while two ring
     stages fit beside it (``RESIDENT_MAX_D``, of the padded depth) and walks
-    the depth in 64-column boxes above."""
+    the depth in 64-column boxes above; f32 is K-looped at every depth."""
     assert st.scan_layout(d, packed) == layout
     assert st.SCAN_LAYOUTS.index(layout) == (0 if layout == "resident" else 1)
+    assert st.scan_layout(d, packed, torch.float32) == "kloop"
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
@@ -550,6 +599,101 @@ def test_plain_scans_match_pallas_at_high_d(rng, d, acc, k, packed):
         truth = ((Q[:, None, :].astype(np.float64) - X[None]) ** 2).sum(-1)
         for b in range(B):
             assert set(perm[it[b]].tolist()) == set(np.argsort(truth[b])[:k].tolist())
+
+
+@pytest.mark.parametrize("d,packed", [(960, True), (784, False), (962, True)])
+@pytest.mark.parametrize("k", [10, 100])
+def test_plain_f32_scans_match_pallas_at_high_d(rng, d, packed, k):
+    """The full-precision scan (``Xscan=None`` on both sides: the f32 corpus
+    itself) through ``l2_topk`` against ``pallas_l2_topk`` (interpreted) at
+    the JAX package's geometry for the depth (``tn = pick_tn(d)``, 512 here,
+    ``group = tn // 128``), at k = 10 and 100: ids equal as sets, distances
+    the same direct f32 refine. At d = 962, off the f32 scan's 4-column step,
+    the port scans a zero-padded f32 copy (``scan_copy``, 964 columns), as
+    ``BruteForceIndex`` makes it: the answer is the reference's."""
+    n, B = 1500, 8
+    tn = jtopk.pick_tn(d)
+    group = tn // 128
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    Q = rng.standard_normal((B, d)).astype(np.float32)
+    Xp, xsq, perm = jtopk.pad_corpus(X, tn=tn)
+    dj, ij = jtopk.pallas_l2_topk(jnp.asarray(Q), jnp.asarray(Xp), jnp.asarray(xsq),
+                                  k, tn=tn, group=group, interpret=True, acc=2,
+                                  packed=packed, Xscan=None)
+    Xt = torch.from_numpy(Xp)
+    Xscan = st.scan_copy(Xt, torch.float32)
+    assert (Xscan is Xt) == (d % 4 == 0)
+    assert Xscan.shape[1] == st.scan_depth(d, torch.float32)
+    dt, it = st.l2_topk(torch.from_numpy(Q), Xt, torch.from_numpy(xsq), k, tn=tn,
+                        group=group, acc=2, packed=packed,
+                        Xscan=None if Xscan is Xt else Xscan)
+    np.testing.assert_array_equal(np.sort(it.numpy(), 1), np.sort(np.array(ij), 1))
+    np.testing.assert_allclose(dt.numpy(), np.array(dj), rtol=1e-5)
+
+
+def test_tf32_split_is_exact_and_rounds_to_nearest(rng):
+    """``tf32_split``, the split the ``tf32x3`` entry makes of every box in
+    shared memory: ``hi`` is ``x`` with its low 13 bits cleared (what the
+    tensor cores read of the loaded f32 word), so the rest ``x - hi`` is
+    exact (``hi + (x - hi) == x`` bit for bit); ``lo`` holds tf32's bits too,
+    the rest rounded to the nearest tf32 (ties away from zero, as
+    ``cvt.rna.tf32.f32``): ``hi + lo`` lies within half a tf32 ulp of the
+    rest from ``x``, 2^-22 of it."""
+    x = np.concatenate([
+        rng.standard_normal(20000) * np.exp2(rng.integers(-30, 30, 20000)),
+        [0.0, -0.0, 1.0, -1.0, 3.0e38, -3.0e38, 1e-40],
+        # rests that tie between two tf32 values, 2^-11 (1 + 2^-11), either
+        # sign (ties round away from zero, to 2^-11 (1 + 2^-10))
+        [1.0 + 2.0 ** -11 + 2.0 ** -22, -(1.0 + 2.0 ** -11 + 2.0 ** -22)],
+    ]).astype(np.float32)
+    xt = torch.from_numpy(x)
+    hi, lo = st.tf32_split(xt)
+    assert hi.dtype == lo.dtype == torch.float32
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    rest = xt - hi
+    assert torch.equal(hi + rest, xt)
+    assert bool((hi.abs() <= xt.abs()).all())  # truncated toward zero
+    tie = 2.0 ** -11 + 2.0 ** -21
+    assert hi[-2].item() == 1.0 and lo[-2].item() == tie and lo[-1].item() == -tie
+    x64 = x.astype(np.float64)
+    err = np.abs(hi.numpy().astype(np.float64) + lo.numpy() - x64)
+    normal = np.abs(x64) >= 2.0 ** -100  # the rest a normal f32 too
+    assert np.all(err[normal] <= 2.0 ** -22 * np.abs(x64[normal]))
+
+
+@pytest.mark.parametrize("d", [784, 960])
+def test_tf32x3_product_holds_fp64_within_the_terms(rng, d):
+    """The ``tf32x3`` entry's arithmetic, modelled on the CPU
+    (``tf32x3_dots``: per 32-column box ``ql xh + qh xl + qh xh`` of the tf32
+    parts, ``ql xl`` left out): ``v = |x|^2 - 2 q.x`` within
+    ``B2_TERM_RTOL`` (1e-6) of its terms ``|x|^2 + 2 |q.x|`` from an fp64
+    evaluation of the same f32 inputs, at the high-d shapes the card runs
+    (bench.py's gauss rows). One tf32 product alone misses that bound."""
+    from hnsw_tpu_torch.bench import f32_dataset
+
+    X, Q = f32_dataset("gauss", rng, 2000, 32, d, 16)
+    Xt, Qt = torch.from_numpy(X), torch.from_numpy(Q)
+    g64 = Qt.double() @ Xt.double().T
+    xsq = (Xt.double() ** 2).sum(1)[None, :]
+    terms = xsq + 2.0 * g64.abs()
+    rtol = _chip_smoke().B2_TERM_RTOL
+    v3 = xsq.float() - 2.0 * st.tf32x3_dots(Qt, Xt)
+    err3 = float(((v3.double() - (xsq - 2.0 * g64)).abs() / terms).max())
+    assert err3 <= rtol, err3
+    qh, xh = st.tf32_split(Qt)[0], st.tf32_split(Xt)[0]
+    v1 = xsq.float() - 2.0 * (qh @ xh.T)
+    err1 = float(((v1.double() - (xsq - 2.0 * g64)).abs() / terms).max())
+    assert err1 > 10 * rtol, err1
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
 
 
 def test_card_geometry_raises_on_what_the_kernels_do_not_take():
@@ -717,12 +861,16 @@ def test_kernels_match_plain_on_card(rng):
     # for B5, d=784 (13 boxes, the last a quarter full) K-looped for both: B=100
     # is not a multiple of its 128-query tile, the 5 tiles split into spans of
     # 2 + 2 + 1, the last tile holds 1240 padding rows. f32 (full-precision
-    # contract) takes the f32-FMA entry at d=128 and d=40.
+    # contract) takes the tf32x3 entry, K-looped in 32-column boxes: d=40 (a
+    # last box of 8 columns), 128, 784 (the last box half full) and 960. The
+    # plain versions' f32 products run in full f32 (TF32 off, as set here).
+    torch.backends.cuda.matmul.allow_tf32 = False
     tn, grp, acc = st.SCAN_TN, st.SCAN_GROUP, 2
     for d, dtype, entry in ((128, torch.bfloat16, "wgmma"), (48, torch.bfloat16, "wgmma"),
                             (100, torch.bfloat16, "wgmma"), (240, torch.bfloat16, "wgmma"),
                             (784, torch.bfloat16, "wgmma"),
-                            (128, torch.float32, "simt"), (40, torch.float32, "simt")):
+                            (128, torch.float32, "tf32x3"), (40, torch.float32, "tf32x3"),
+                            (784, torch.float32, "tf32x3"), (960, torch.float32, "tf32x3")):
         X = rng.standard_normal((9000, d)).astype(np.float32)
         Xp, xsq, _ = st.pad_corpus(X)
         Xd, xd = torch.from_numpy(Xp).to(dev), torch.from_numpy(xsq).to(dev)
