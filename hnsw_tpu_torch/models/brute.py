@@ -26,6 +26,7 @@ from ..ops.beam_search import scores_gathered, smallest
 from ..ops.distances import get_metric
 from ..ops.program import ProgramCache, TopkProgram, call_key
 from ..utils.device import resolve_device
+from ..utils.profiling import PROFILER
 
 # elements of one [queries, N, d] broadcast block of the gathered fallback
 _BROADCAST_ELEMS = 1 << 27
@@ -135,26 +136,31 @@ class BruteForceIndex:
             q = np.atleast_2d(queries)
             return (np.full((len(q), knbn), -1, np.int64),
                     np.full((len(q), knbn), np.inf, np.float32))
-        q = np.atleast_2d(np.asarray(queries, np.float32))
-        kf = self._fetch_width(knbn, filter)
-        if self._use_scan():
-            from ..ops.scan_topk import l2_topk_stream
-            Xd, xsq, Xscan, perm, acc, programs = self._scan_device()
-            d, idx = l2_topk_stream(q, Xd, xsq, kf, Xscan=Xscan,
-                                    overfetch=self.SCAN_OVERFETCH, acc=acc,
-                                    batch=min(2048, max(256, len(q))), programs=programs)
-            idx = perm[np.clip(idx, 0, len(perm) - 1)]
-        else:
-            Xd, xsq = self._device()
-            prog = self._programs.get(
-                None, call_key((Xd, xsq), len(q), torch.float32, self.device, k=kf,
-                               metric=self.metric.name),
-                lambda: TopkProgram(Xd, xsq, len(q), self.device, k=kf,
-                                    metric=self.metric.name))
+        with PROFILER.span("search.call"):
+            q = np.atleast_2d(np.asarray(queries, np.float32))
+            kf = self._fetch_width(knbn, filter)
+            if self._use_scan():
+                from ..ops.scan_topk import l2_topk_stream
+                with PROFILER.span("search.prepare"):
+                    Xd, xsq, Xscan, perm, acc, programs = self._scan_device()
+                d, idx = l2_topk_stream(q, Xd, xsq, kf, Xscan=Xscan,
+                                        overfetch=self.SCAN_OVERFETCH, acc=acc,
+                                        batch=min(2048, max(256, len(q))), programs=programs)
+                with PROFILER.span("search.finish"):
+                    return self._finish(d, perm[np.clip(idx, 0, len(perm) - 1)], knbn,
+                                        filter)
+            with PROFILER.span("search.prepare"):
+                Xd, xsq = self._device()
+                prog = self._programs.get(
+                    None, call_key((Xd, xsq), len(q), torch.float32, self.device, k=kf,
+                                   metric=self.metric.name),
+                    lambda: TopkProgram(Xd, xsq, len(q), self.device, k=kf,
+                                        metric=self.metric.name))
             dj, ij = prog.run(torch.as_tensor(q, device=self.device))
             d = dj.cpu().numpy()
             idx = ij.cpu().numpy()
-        return self._finish(d, idx, knbn, filter)
+            with PROFILER.span("search.finish"):
+                return self._finish(d, idx, knbn, filter)
 
     def _fetch_width(self, knbn: int, filter=None) -> int:
         """Candidates a search fetches: ``k``, or ``kf`` under a filter."""

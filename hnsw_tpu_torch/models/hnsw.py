@@ -28,6 +28,7 @@ from ..ops.distances import Metric, get_metric
 from ..utils.rng import LevelSampler, DEFAULT_SEED
 from ..filter import resolve_filter
 from ..utils.device import resolve_device
+from ..utils.profiling import PROFILER
 
 NB_LAYER_MAX = 16  # reference src/hnsw.rs:42
 MAX_NB_CONNECTION = 256  # reference src/hnsw.rs:784-787
@@ -943,8 +944,9 @@ class Hnsw:
         scored candidate into a reservoir and reranks it exactly — the large-k
         serving mode (beam stays narrow while the pool carries the results)."""
         from ..ops.beam_search import device_search_batch
-        return device_search_batch(self, np.asarray(queries, dtype=self.dtype),
-                                   knbn, ef, filter, pool=pool, seeds=seeds)
+        with PROFILER.span("search.call"):
+            return device_search_batch(self, np.asarray(queries, dtype=self.dtype),
+                                       knbn, ef, filter, pool=pool, seeds=seeds)
 
     # ------------------------------------------------------------- device graph -----
 

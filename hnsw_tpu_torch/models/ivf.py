@@ -46,6 +46,7 @@ from ..ops.beam_search import scores_gathered, scores_matmul, smallest
 from ..ops.distances import get_metric
 from ..ops.program import IvfProgram, KmeansProgram, ProgramCache, call_key
 from ..utils.device import resolve_device
+from ..utils.profiling import PROFILER
 
 _IP_METRICS = ("L2", "DistL2", "Dot", "DistDot", "Cosine", "DistCosine")
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, None: None}
@@ -265,9 +266,7 @@ class IvfFlatIndex:
         """k-means + balanced packing into uniform list slabs."""
         if self._built is not None:
             return
-        from ..utils.profiling import PROFILER
-        with PROFILER.span("ivf.build"):
-            self._build()
+        self._build()
 
     def _build(self):
         n, d = self._X.shape
@@ -337,14 +336,18 @@ class IvfFlatIndex:
             q = np.atleast_2d(queries)
             return (np.full((len(q), knbn), -1, np.int64),
                     np.full((len(q), knbn), np.inf, np.float32))
-        self.build()
-        np_eff, kf = self._probe_plan(knbn, ef, nprobe, filter)
-        q = self._queries(queries)
-        qd = torch.as_tensor(q, device=self.device)
-        outs = [self._dispatch(qd[s:s + chunk], np_eff, kf) for s in range(0, len(q), chunk)]
-        rn = torch.cat([r for r, _ in outs]).cpu().numpy()
-        out_d = torch.cat([dd for _, dd in outs]).cpu().numpy()
-        return self._finish(rn, out_d, knbn, filter)
+        with PROFILER.span("search.call"):
+            with PROFILER.span("search.prepare"):
+                self.build()
+                np_eff, kf = self._probe_plan(knbn, ef, nprobe, filter)
+            q = self._queries(queries)
+            qd = torch.as_tensor(q, device=self.device)
+            outs = [self._dispatch(qd[s:s + chunk], np_eff, kf)
+                    for s in range(0, len(q), chunk)]
+            rn = torch.cat([r for r, _ in outs]).cpu().numpy()
+            out_d = torch.cat([dd for _, dd in outs]).cpu().numpy()
+            with PROFILER.span("search.finish"):
+                return self._finish(rn, out_d, knbn, filter)
 
     def _probe_plan(self, knbn: int, ef: int = 0, nprobe: Optional[int] = None,
                     filter=None):
@@ -391,37 +394,39 @@ class IvfFlatIndex:
         ``(ids[nq, knbn] int64, dists[nq, knbn] f32)``."""
         from ..ops.stream import fetch_host, pipelined_stream, upload_batch
 
-        self.build()
-        row2idx = self._built[5]
-        np_eff, kf = self._probe_plan(knbn, 0, nprobe)
-        q = self._queries(queries)
-        nq = len(q)
-        k = min(knbn, len(self._X))
-        out_i = np.full((nq, knbn), -1, np.int64)
-        out_d = np.full((nq, knbn), np.inf, np.float32)
-        qd = np.dtype(query_dtype) if query_dtype else np.float32
-        # every batch shape's program is built before the threads start: a
-        # capture must not overlap their copies
-        dtype = torch.from_numpy(np.empty(0, qd)).dtype
-        for size in {min(batch, nq - s) for s in range(0, nq, batch)}:
-            self._program(size, dtype, np_eff, kf)
+        with PROFILER.span("search.call"):
+            q = self._queries(queries)
+            nq = len(q)
+            out_i = np.full((nq, knbn), -1, np.int64)
+            out_d = np.full((nq, knbn), np.inf, np.float32)
+            qd = np.dtype(query_dtype) if query_dtype else np.float32
+            with PROFILER.span("search.prepare"):
+                self.build()
+                row2idx = self._built[5]
+                np_eff, kf = self._probe_plan(knbn, 0, nprobe)
+                k = min(knbn, len(self._X))
+                # every batch shape's program is built before the threads start:
+                # a capture must not overlap their copies
+                dtype = torch.from_numpy(np.empty(0, qd)).dtype
+                for size in {min(batch, nq - s) for s in range(0, nq, batch)}:
+                    self._program(size, dtype, np_eff, kf)
 
-        def upload(s):
-            return upload_batch(q[s:s + batch].astype(qd), self.device)
+            def upload(s):
+                return upload_batch(q[s:s + batch].astype(qd), self.device)
 
-        def dispatch(s, staged):
-            return fetch_host(self._dispatch(staged.wait(), np_eff, kf))
+            def dispatch(s, staged):
+                return fetch_host(self._dispatch(staged.wait(), np_eff, kf))
 
-        def fetch(s, out):
-            rows, dd = out.get()
-            rn = rows[:, :k]
-            ii = np.where(rn >= 0, row2idx[rn], -1)
-            out_i[s:s + batch, :k] = np.where(
-                ii >= 0, self._ids[np.clip(ii, 0, len(self._ids) - 1)], -1)
-            out_d[s:s + batch, :k] = np.where(ii >= 0, dd[:, :k], np.inf)
+            def fetch(s, out):
+                rows, dd = out.get()
+                rn = rows[:, :k]
+                ii = np.where(rn >= 0, row2idx[rn], -1)
+                out_i[s:s + batch, :k] = np.where(
+                    ii >= 0, self._ids[np.clip(ii, 0, len(self._ids) - 1)], -1)
+                out_d[s:s + batch, :k] = np.where(ii >= 0, dd[:, :k], np.inf)
 
-        pipelined_stream(range(0, nq, batch), upload, dispatch, fetch)
-        return out_i, out_d
+            pipelined_stream(range(0, nq, batch), upload, dispatch, fetch)
+            return out_i, out_d
 
     def search(self, data, knbn: int, ef: int = 0, filter=None):
         from .hnsw import Neighbour

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..filter import filter_mask
+from ..utils.profiling import PROFILER
 from .codec_scores import codec_scores, codec_scores_gathered
 
 INF = float("inf")
@@ -591,52 +592,52 @@ def device_search_stream(hnsw, queries: np.ndarray, knbn: int, ef: int,
     sends the queries as float16 (all device math stays f32). ``allow_fused``
     as in ``beam_search_layer``."""
     from .stream import pipelined_stream, upload_batch, fetch_host
-    from ..utils.profiling import PROFILER
 
-    q = np.asarray(queries, np.float32)
-    if q.ndim == 1:
-        q = q[None, :]
-    if query_dtype in ("f16", "float16", np.float16):
-        q = q.astype(np.float16)
-    elif query_dtype not in (None, "f32", "float32", np.float32):
-        raise ValueError(f"unsupported query_dtype {query_dtype!r}")
-    nq = q.shape[0]
-    g = hnsw.device_graph()
-    codec = hnsw.device_codec()
-    mask = _device_mask(hnsw, g, filter) if filter is not None else None
-    out_i = np.full((nq, knbn), -1, np.int64)
-    out_d = np.full((nq, knbn), np.inf, np.float32)
-    work = [(s, min(s + batch, nq)) for s in range(0, nq, batch)]
-    dev = g.vectors.device
-    # the programs of the full and the tail batch, built before the stream's
-    # threads start: a capture refuses the uploader's pinned copies
-    dtype = torch.from_numpy(q[:0]).dtype
-    static = serve_static(codec, ef=ef, knbn=knbn, expand=expand, max_iters=max_iters,
-                          term_slack=term_slack, rerank=rerank, pool=pool, seeds=seeds,
-                          allow_fused=allow_fused, use_mask=filter is not None)
-    programs = {we - ws: hnsw.device_program(we - ws, dtype, **static)
-                for ws, we in work}
+    with PROFILER.span("search.call"):
+        q = np.asarray(queries, np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        if query_dtype in ("f16", "float16", np.float16):
+            q = q.astype(np.float16)
+        elif query_dtype not in (None, "f32", "float32", np.float32):
+            raise ValueError(f"unsupported query_dtype {query_dtype!r}")
+        nq = q.shape[0]
+        out_i = np.full((nq, knbn), -1, np.int64)
+        out_d = np.full((nq, knbn), np.inf, np.float32)
+        work = [(s, min(s + batch, nq)) for s in range(0, nq, batch)]
+        with PROFILER.span("search.prepare"):
+            g = hnsw.device_graph()
+            codec = hnsw.device_codec()
+            mask = _device_mask(hnsw, g, filter) if filter is not None else None
+            dev = g.vectors.device
+            # the programs of the full and the tail batch, built before the
+            # stream's threads start: a capture refuses the uploader's pinned copies
+            dtype = torch.from_numpy(q[:0]).dtype
+            static = serve_static(codec, ef=ef, knbn=knbn, expand=expand, max_iters=max_iters,
+                                  term_slack=term_slack, rerank=rerank, pool=pool, seeds=seeds,
+                                  allow_fused=allow_fused, use_mask=filter is not None)
+            programs = {we - ws: hnsw.device_program(we - ws, dtype, **static)
+                        for ws, we in work}
 
-    def _upload(w):
-        ws, we = w
-        return upload_batch(q[ws:we], dev)
+        def _upload(w):
+            ws, we = w
+            return upload_batch(q[ws:we], dev)
 
-    def _dispatch(w, staged):
-        x = staged.wait()
-        return fetch_host(programs[x.shape[0]].run(x, mask))
+        def _dispatch(w, staged):
+            x = staged.wait()
+            return fetch_host(programs[x.shape[0]].run(x, mask))
 
-    def _fetch(w, out):
-        ws, we = w
-        ids_h, d_h = out.get()
-        ids_h = ids_h.astype(np.int64)
-        ids_h[~np.isfinite(d_h)] = -1
-        out_i[ws:we] = ids_h
-        out_d[ws:we] = d_h
+        def _fetch(w, out):
+            ws, we = w
+            ids_h, d_h = out.get()
+            ids_h = ids_h.astype(np.int64)
+            ids_h[~np.isfinite(d_h)] = -1
+            out_i[ws:we] = ids_h
+            out_d[ws:we] = d_h
 
-    PROFILER.add("stream.queries", nq)
-    with PROFILER.span("search.stream"):
+        PROFILER.add("stream.queries", nq)
         pipelined_stream(work, _upload, _dispatch, _fetch)
-    return out_i, out_d
+        return out_i, out_d
 
 
 def device_search_batch(hnsw, queries: np.ndarray, knbn: int, ef: int, filter=None,
@@ -652,13 +653,14 @@ def device_search_batch(hnsw, queries: np.ndarray, knbn: int, ef: int, filter=No
     if hnsw._nb_point == 0:
         B = q.shape[0]
         return np.full((B, knbn), -1, np.int64), np.full((B, knbn), np.inf, np.float32)
-    g = hnsw.device_graph()
-    codec = hnsw.device_codec()
-    mask = _device_mask(hnsw, g, filter) if filter is not None else None
-    prog = hnsw.device_program(q.shape[0], torch.float32, **serve_static(
-        codec, ef=ef, knbn=knbn, expand=expand, max_iters=max_iters,
-        term_slack=term_slack, pool=pool, seeds=seeds, allow_fused=allow_fused,
-        use_mask=filter is not None))
+    with PROFILER.span("search.prepare"):
+        g = hnsw.device_graph()
+        codec = hnsw.device_codec()
+        mask = _device_mask(hnsw, g, filter) if filter is not None else None
+        prog = hnsw.device_program(q.shape[0], torch.float32, **serve_static(
+            codec, ef=ef, knbn=knbn, expand=expand, max_iters=max_iters,
+            term_slack=term_slack, pool=pool, seeds=seeds, allow_fused=allow_fused,
+            use_mask=filter is not None))
     ids, dists = prog.run(torch.as_tensor(q, device=g.vectors.device), mask)
     ids = ids.cpu().numpy().astype(np.int64)
     dists = dists.cpu().numpy()

@@ -65,9 +65,7 @@ class BeamCodec:
         traverse the identically sliced table (``search_program`` does)."""
         if g.metric_name not in cls.SUPPORTED:
             raise ValueError(f"codec unsupported for metric {g.metric_name}")
-        from ..utils.profiling import PROFILER
-        with PROFILER.span("codec.build"):
-            return cls._build(g, kind, layer, width)
+        return cls._build(g, kind, layer, width)
 
     @classmethod
     def _build(cls, g: "GraphArrays", kind: str, layer: int,

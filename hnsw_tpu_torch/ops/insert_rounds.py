@@ -48,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import PROFILER
 from .beam_search import (MAX_HOPS, BeamState, DescentState, beam_finish, beam_iters,
                           beam_run, beam_setup, beam_step, descent_hop, descent_layer,
                           scores_gathered, smallest)
@@ -685,8 +686,9 @@ def round_step(vectors, sqnorms, levels, tables, batch_ids, entry,
     bt = BuildTensors(vectors, sqnorms, levels, tables, vectors_lo, indeg0)
     st = RoundState(cfg.B, vectors.shape[1], vectors.device)
     st.start(batch_ids, entry)
-    for _, make in round_plan(cfg, indeg0 is not None):
-        run_part(make(bt, st))
+    for key, make in round_plan(cfg, indeg0 is not None):
+        with PROFILER.span("build.part." + key[0]):
+            run_part(make(bt, st))
     out = bt.tables()
     return out if indeg0 is None else (out, indeg0)
 
@@ -851,10 +853,14 @@ def device_parallel_insert(hnsw, pairs, batch_size: Optional[int] = None,
     ``pairs`` is a list of ``(vector, id)`` tuples or an ``(X, ids)`` pair.
     On the card every round runs through the build's round programs
     (``program.round_programs``: captured CUDA graphs); on the CPU through
-    the eager ``round_step``. ``hnsw._round_stats`` (and the ``build.*``
-    profiler counters) count the rounds, the rounds replayed, the program
-    keys, the captures, the keys run uncaptured because their captures would
-    take the pool past its budget, and the bytes of the programs' pool.
+    the eager ``round_step``. ``hnsw._round_stats`` counts the rounds, the
+    rounds replayed, the program keys, the captures, the keys run uncaptured
+    because their captures would take the pool past its budget, and the
+    bytes of the programs' pool; the profiler's ``build.*`` counters sum the
+    rounds and the summable ones over builds. The spans: ``build.insert``
+    over the call, ``build.setup``, ``build.plan`` and ``build.round`` (with
+    ``build.part.<kind>`` inside) for each round, ``build.flush``,
+    ``build.repair`` (``utils/profiling.py``).
 
     On the card each key's first round measures its pieces' peaks by
     resetting the card's CUDA peak memory statistics
@@ -862,6 +868,17 @@ def device_parallel_insert(hnsw, pairs, batch_size: Optional[int] = None,
     across a build is the build's last piece's: ``program.peak_memory`` (a
     window started with ``program.reset_peak_memory``) gives the larger of the
     caller's peak and the build's."""
+    with PROFILER.span("build.insert"):
+        _device_parallel_insert(hnsw, pairs, batch_size, expand, build_max_iters)
+
+
+# the build's summable counters (``BuildPrograms.stats``; ``build.rounds``
+# is counted for both forms of the round)
+SUMMED_STATS = ("rounds_replayed", "first_runs", "captures", "capture_s", "chunk_graphs",
+                "widen_replays", "keep_replays")
+
+
+def _device_parallel_insert(hnsw, pairs, batch_size, expand, build_max_iters):
     if isinstance(pairs, tuple) and len(pairs) == 2 and hasattr(pairs[0], "ndim"):
         X, ids = pairs
         if len(X) == 0:
@@ -881,54 +898,54 @@ def device_parallel_insert(hnsw, pairs, batch_size: Optional[int] = None,
         if not pairs:
             return
     from ..utils.logging import init_logging
-    from ..utils.profiling import PROFILER
     from . import program
 
     dev = hnsw.device
-    st = HostBuildState(hnsw, pairs)
-    vectors = torch.as_tensor(st.vec_np(), device=dev)
-    sqnorms = (vectors * vectors).sum(-1)
-    levels_t = torch.as_tensor(st.levels_np(), device=dev)
-    tables = [(torch.as_tensor(i, device=dev), torch.as_tensor(d, device=dev))
-              for i, d in st.tables_np()]
-    B = int(batch_size) if batch_size else int(min(4096, max(64, st.remaining)))
-    if hnsw.extend_candidates:
-        # the widen pass scores [B*(2M)^2, d] f32 neighbours-of-candidates;
-        # cap the round so that operand stays ~6 GB
-        d_ = hnsw._dim or 1
-        cap = max(256, int(6e9 / ((2 * hnsw.max_nb_connection) ** 2 * d_ * 4)))
-        if B > cap:
-            init_logging().warning(
-                "extend_candidates: capping build batch %d -> %d (widen-pass "
-                "memory bound)", B, cap)
-            B = cap
-    metric = hnsw.metric.name
-    # bf16 traversal copy at production scale (inner-product metrics);
-    # HNSW_BUILD_LO=0/1 overrides
-    lo_env = os.environ.get("HNSW_BUILD_LO")
-    use_lo = (metric in ("L2", "DistL2", "Dot", "DistDot", "Cosine", "DistCosine")
-              and st.n_total >= 32768) if lo_env is None else lo_env == "1"
-    vectors_lo = vectors.to(torch.bfloat16) if use_lo else None
-    protect = os.environ.get("HNSW_BUILD_PROTECT", "1") != "0"
-    indeg0 = torch.as_tensor(st.indeg0_np(), device=dev) if protect else None
-    min_indeg = int(os.environ.get("HNSW_MIN_INDEG", 2))
-    PROFILER.add("build.points", st.remaining)
-    progs = program.round_programs(dev)
-    if progs is not None:
-        bt = BuildTensors(vectors, sqnorms, levels_t, tables, vectors_lo, indeg0)
+    with PROFILER.span("build.setup"):
+        st = HostBuildState(hnsw, pairs)
+        vectors = torch.as_tensor(st.vec_np(), device=dev)
+        sqnorms = (vectors * vectors).sum(-1)
+        levels_t = torch.as_tensor(st.levels_np(), device=dev)
+        tables = [(torch.as_tensor(i, device=dev), torch.as_tensor(d, device=dev))
+                  for i, d in st.tables_np()]
+        B = int(batch_size) if batch_size else int(min(4096, max(64, st.remaining)))
+        if hnsw.extend_candidates:
+            # the widen pass scores [B*(2M)^2, d] f32 neighbours-of-candidates;
+            # cap the round so that operand stays ~6 GB
+            d_ = hnsw._dim or 1
+            cap = max(256, int(6e9 / ((2 * hnsw.max_nb_connection) ** 2 * d_ * 4)))
+            if B > cap:
+                init_logging().warning(
+                    "extend_candidates: capping build batch %d -> %d (widen-pass "
+                    "memory bound)", B, cap)
+                B = cap
+        metric = hnsw.metric.name
+        # bf16 traversal copy at production scale (inner-product metrics);
+        # HNSW_BUILD_LO=0/1 overrides
+        lo_env = os.environ.get("HNSW_BUILD_LO")
+        use_lo = (metric in ("L2", "DistL2", "Dot", "DistDot", "Cosine", "DistCosine")
+                  and st.n_total >= 32768) if lo_env is None else lo_env == "1"
+        vectors_lo = vectors.to(torch.bfloat16) if use_lo else None
+        protect = os.environ.get("HNSW_BUILD_PROTECT", "1") != "0"
+        indeg0 = torch.as_tensor(st.indeg0_np(), device=dev) if protect else None
+        min_indeg = int(os.environ.get("HNSW_MIN_INDEG", 2))
+        progs = program.round_programs(dev)
+        if progs is not None:
+            bt = BuildTensors(vectors, sqnorms, levels_t, tables, vectors_lo, indeg0)
     while st.remaining:
-        Br = st.ramp(B)
-        max_obs, nonempty = st.entry_level, tuple(bool(c > 0) for c in st.counts)
-        entry = st.entry
-        bidx, n_hi = st.round_batch(Br)
-        B1 = 0 if n_hi == 0 else int(min(Br, _next_pow2(max(8, n_hi))))
-        cfg = RoundConfig(B=Br, cap1=st.cap1, num_layers=st.L, widths=st.widths,
-                          efc=hnsw.ef_construction, M=hnsw.max_nb_connection,
-                          metric=metric, expand=int(expand), max_obs=max_obs,
-                          nonempty=nonempty,
-                          keep_pruned=bool(hnsw.keep_pruned),
-                          extend=bool(hnsw.extend_candidates), B1=B1,
-                          max_iters=build_max_iters, min_indeg=min_indeg)
+        with PROFILER.span("build.plan"):
+            Br = st.ramp(B)
+            max_obs, nonempty = st.entry_level, tuple(bool(c > 0) for c in st.counts)
+            entry = st.entry
+            bidx, n_hi = st.round_batch(Br)
+            B1 = 0 if n_hi == 0 else int(min(Br, _next_pow2(max(8, n_hi))))
+            cfg = RoundConfig(B=Br, cap1=st.cap1, num_layers=st.L, widths=st.widths,
+                              efc=hnsw.ef_construction, M=hnsw.max_nb_connection,
+                              metric=metric, expand=int(expand), max_obs=max_obs,
+                              nonempty=nonempty,
+                              keep_pruned=bool(hnsw.keep_pruned),
+                              extend=bool(hnsw.extend_candidates), B1=B1,
+                              max_iters=build_max_iters, min_indeg=min_indeg)
         with PROFILER.span("build.round"):
             if progs is None:
                 round_step(vectors, sqnorms, levels_t, tables,
@@ -936,15 +953,16 @@ def device_parallel_insert(hnsw, pairs, batch_size: Optional[int] = None,
                            vectors_lo, indeg0, cfg=cfg)
             else:
                 progs.round(bt, cfg, bidx, entry)
+        PROFILER.add("build.rounds")
         if st.cursor % 50_000 < Br:  # reference prints every 50k (src/hnsw.rs:524-526)
             init_logging().info("device insert: %d points indexed", st.cursor)
     with PROFILER.span("build.flush"):
         st.flush([(i.cpu().numpy(), d.cpu().numpy()) for i, d in tables])
-    if progs is not None:  # before the snapshot and the search programs take memory
-        for k, v in progs.stats.items():
-            PROFILER.add(f"build.{k}", v)
-        hnsw._round_stats = progs.report()
-        progs.clear()
+        if progs is not None:  # before the snapshot and the search programs take memory
+            for k in SUMMED_STATS:
+                PROFILER.add(f"build.{k}", progs.stats[k])
+            hnsw._round_stats = progs.report()
+            progs.clear()
     if getattr(hnsw, "_auto_repair", True):
         import time as _time
         _t0 = _time.time()

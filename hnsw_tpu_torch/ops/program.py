@@ -74,6 +74,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import PROFILER
 from . import kernel_lib
 from .beam_search import BeamState, beam_step, search_begin, search_end, search_iters
 
@@ -280,13 +281,14 @@ class Program:
             # a stream captures (a round program captures mid-build, chunk by
             # chunk, where a full collection each time would cost more than
             # the capture)
-            if warm:
-                gc.collect()
-            gc.disable()
-            try:
-                pieces = [Piece(fn, graph_factory(), capture or in_pool) for fn in fns]
-            finally:
-                gc.enable()
+            with PROFILER.span("program.capture"):
+                if warm:
+                    gc.collect()
+                gc.disable()
+                try:
+                    pieces = [Piece(fn, graph_factory(), capture or in_pool) for fn in fns]
+                finally:
+                    gc.enable()
             if on_card:
                 self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         return pieces
@@ -721,7 +723,8 @@ class BuildPrograms:
     def round(self, bt, cfg, batch_ids, entry):
         """One round through the programs."""
         for prog in self.programs(bt, cfg, batch_ids, entry):
-            prog.run()
+            with PROFILER.span("build.part." + prog.key[0]):
+                prog.run()
         self.account()
 
     def pool_bytes(self) -> int:

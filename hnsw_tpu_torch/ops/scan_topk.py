@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from . import kernel_lib
+from ..utils.profiling import PROFILER
 
 SCAN_TN = 2048
 SCAN_GROUP = 16   # G = SCAN_TN // SCAN_GROUP = 128 lanes (the kernel's width)
@@ -544,9 +545,10 @@ def l2_topk_stream(queries: np.ndarray, X, xsq, k: int, *, tn: int = SCAN_TN,
     dev = X.device
     # built before the stream's threads start: a capture must not overlap
     # their copies
-    prog = scan_program(ProgramCache() if programs is None else programs, X, xsq, batch,
-                        torch.from_numpy(q[:0]).dtype, k=k, tn=tn, group=group, Xscan=Xscan,
-                        overfetch=overfetch, acc=acc, packed=packed)
+    with PROFILER.span("search.prepare"):
+        prog = scan_program(ProgramCache() if programs is None else programs, X, xsq, batch,
+                            torch.from_numpy(q[:0]).dtype, k=k, tn=tn, group=group,
+                            Xscan=Xscan, overfetch=overfetch, acc=acc, packed=packed)
 
     def _upload(w):
         ws, we = w

@@ -56,11 +56,12 @@ class _Staged:
 
 def upload_batch(arr: np.ndarray, device) -> _Staged:
     device = torch.device(device)
-    if device.type != "cuda":
-        return _Staged(torch.from_numpy(np.array(arr)).to(device))
-    host = torch.empty(arr.shape, dtype=torch.from_numpy(arr[:0]).dtype,
-                       pin_memory=True)
-    host.numpy()[...] = arr
+    with PROFILER.span("stream.stage"):
+        if device.type != "cuda":
+            return _Staged(torch.from_numpy(np.array(arr)).to(device))
+        host = torch.empty(arr.shape, dtype=torch.from_numpy(arr[:0]).dtype,
+                           pin_memory=True)
+        host.numpy()[...] = arr
     side = _side_stream(device, "upload")
     with torch.cuda.stream(side):
         dev = host.to(device, non_blocking=True)
@@ -86,7 +87,8 @@ class _Pending:
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 h.copy_(t, non_blocking=True)
                 hosts.append(h)
-        side.synchronize()
+        with PROFILER.span("stream.sync"):
+            side.synchronize()
         self.tensors = None
         return tuple(h.numpy() for h in hosts)
 
@@ -109,18 +111,19 @@ def pipelined_stream(work, upload, dispatch, fetch, depth: int = 2):
     ``upload`` runs on the uploader thread (host->device staging),
     ``dispatch`` on the calling thread, ``fetch`` on the fetcher thread
     (device->host + writing into preallocated outputs, which makes result
-    ordering irrelevant).
+    ordering irrelevant). The workers' spans carry the caller's call id.
     """
     staged = queue.Queue(maxsize=depth)
     results = queue.Queue(maxsize=depth)
     errs: list[BaseException] = []
+    within = PROFILER.current()
 
     def _uploader():
         try:
             for it in work:
                 if errs:
                     break
-                with PROFILER.span("stream.upload"):
+                with PROFILER.span("stream.upload", within):
                     dev = upload(it)
                 staged.put((it, dev))
         except BaseException as e:  # surface in the caller
@@ -135,19 +138,21 @@ def pipelined_stream(work, upload, dispatch, fetch, depth: int = 2):
             if errs:
                 continue  # keep draining so the dispatcher never blocks
             try:
-                with PROFILER.span("stream.fetch"):
+                with PROFILER.span("stream.fetch", within):
                     fetch(*r)
             except BaseException as e:
                 errs.append(e)
 
-    up = threading.Thread(target=_uploader, daemon=True)
-    ft = threading.Thread(target=_fetcher, daemon=True)
-    up.start()
-    ft.start()
+    with PROFILER.span("stream.start"):
+        up = threading.Thread(target=_uploader, daemon=True)
+        ft = threading.Thread(target=_fetcher, daemon=True)
+        up.start()
+        ft.start()
     done_staging = False
     try:
         while True:
-            item = staged.get()
+            with PROFILER.span("stream.wait"):
+                item = staged.get()
             if isinstance(item, BaseException):
                 done_staging = True  # uploader already sent its sentinel next
                 raise item
@@ -161,8 +166,9 @@ def pipelined_stream(work, upload, dispatch, fetch, depth: int = 2):
             with PROFILER.span("stream.dispatch"):
                 out = dispatch(it, dev)
             results.put((it, out))
-        results.put(None)
-        ft.join()
+        with PROFILER.span("stream.drain"):
+            results.put(None)
+            ft.join()
         if errs:
             raise errs[0]
     finally:
