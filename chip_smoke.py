@@ -142,8 +142,8 @@ the full chunk shape held against its direct call: assignments and alternates
 equal, partial sums within 1e-5 of their largest, float atomics). The IVF
 search and the scan replay captured programs (``IvfProgram``,
 ``ScanProgram``): at nprobe 16/32/64 the 512-query program's replay must equal
-a direct call of its pieces and ``search_batch``'s ids and recall the eager
-form's; one 4096-query batch at nprobe 32, program against eager (wall and
+a direct call of its pieces, launch one ``id_scores`` (the refine), and
+``search_batch``'s ids and recall the eager form's; one 4096-query batch at nprobe 32, program against eager (wall and
 busy); a filtered search equal to the eager one; ``AutoIndex("L2")``'s scan
 program replay equal to its direct call, one B2 a replay; every engine's
 pools, released before the next path. After path 4's counts are read, B2
@@ -248,7 +248,7 @@ time against the wall), each card's peak; streamed recall@10 and QPS at ef 64
 search against a 4M fp64 truth (gates 0.97 at ef 96 and 0.999); one search
 batch traced; then shard 0's 1M rows built and served alone on cuda:0 the
 same way, and the ratios of the two. Every line names each card and its
-power limit.
+power limit. ``--cards-parts equality`` (or ``scale``) runs one line alone.
 
 Each kernels line carries median CUDA-event times of the kernel, its plain
 version and a one-call PyTorch yardstick, and the bound the card allows for
@@ -347,6 +347,17 @@ RECALL_EF256 = 0.995        # unfused; path 1 reads 0.9955 at ef=96
 FUSED_UNFUSED_GAP = 0.002   # recall@10 of the two codec routes at ef=256
 MAX_ITERS_EF256 = 66        # max(8, 256 // 4 + 2) beam iterations
 CODEC_EXPANDS = (4, 8)      # beam widths the two paths give B1: [B, E] src rows
+# id_scores' line: a 10,000-query beam on path 1's index (M = 24, layer-0 width
+# 56) without its codec, at expand 8 (448 candidates an iteration), its first
+# 384: sift1m's K at M = 48, expand 4
+ID_SCORES_B, ID_SCORES_E, ID_SCORES_EF, ID_SCORES_K = 10_000, 8, 128, 384
+# id_scores against its plain version: both sum the same exact f32 products
+# (bf16 x bf16 is exact in f32) in different orders, so they differ by a few
+# f32 roundings at the magnitude of the terms, not of the score, which may
+# cancel to near 0 (L2 of a near neighbour, Dot of unnormalised rows): the
+# difference is held against |q| |x| (Dot), (|q| + |x|)^2 for the squared L2
+# distance, and 1 for Cosine, whose terms are normalised
+ID_SCORES_TERM_RTOL = 1e-6
 
 
 def emit(obj):
@@ -654,6 +665,151 @@ def gathered_rows(torch, Q, seed, codec, n):
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "rows": [row], "failures": failures})
     return [row], failures
+
+
+def id_scores_err(torch, metric, got, want, q, sqnorms, ids):
+    """The largest difference of ``id_scores`` from its plain version over
+    the valid ids, each held against its terms (``ID_SCORES_TERM_RTOL``)."""
+    ok = ids >= 0
+    qn = torch.linalg.norm(q.float(), dim=1, keepdim=True)
+    xn = torch.sqrt(sqnorms[ids.clamp_min(0).long()])
+    if metric == "L2":
+        err = (got * got - want * want).abs() / (qn + xn) ** 2
+    elif metric == "Dot":
+        err = (got - want).abs() / (qn * xn).clamp_min(1e-30)
+    else:
+        err = (got - want).abs()
+    return float(err[ok].max()) if bool(ok.any()) else 0.0
+
+
+def beam_ids(torch, h, Q):
+    """The ids an iteration of a codec-free beam over ``h`` hands to
+    ``id_scores`` (-1 where a candidate is not scored), the first
+    ``ID_SCORES_K`` of each query's: the iteration whose share of valid ids is
+    the median of the search's. Returns (queries, ids, each iteration's
+    share)."""
+    from hnsw_tpu_torch.ops import beam_search as bs
+
+    seen, real = [], bs.id_scores
+
+    def record(metric, q, vectors, sqnorms, ids):
+        seen.append(ids.clone())
+        return real(metric, q, vectors, sqnorms, ids)
+    g = h.device_graph()
+    q = torch.as_tensor(Q[:ID_SCORES_B], device=g.vectors.device)
+    s = bs.search_begin(g, q, None, ef=ID_SCORES_EF, knbn=10, expand=ID_SCORES_E,
+                        use_mask=False, codec=None)
+    bs.id_scores = record  # the beam's iterations alone
+    try:
+        bs.beam_run(s.beam)
+    finally:
+        bs.id_scores = real
+    shares = [float((x >= 0).float().mean()) for x in seen]
+    mid = sorted(range(len(seen)), key=shares.__getitem__)[len(seen) // 2]
+    return q, seen[mid][:, :ID_SCORES_K].contiguous(), shares
+
+
+def build_round_ids(torch, X, n0=49_152, batch=16_384):
+    """The ids the beam of one build round at sift1m's settings (M = 48, efC
+    800, level scale 0.5, kept pruned links, batch 16,384) hands to
+    ``id_scores`` on the build's bf16 traversal rows: an index of ``X``'s
+    first ``n0`` rows, then one eager round of the next ``batch``, and of its
+    beam iterations (the calls of the widest K) the one whose share of valid
+    ids is the median. Returns (queries, bf16 rows, squared norms, ids, each
+    iteration's share)."""
+    from hnsw_tpu_torch import Hnsw
+    from hnsw_tpu_torch.ops import beam_search as bs
+
+    h = Hnsw(max_nb_connection=48, max_elements=n0 + batch, ef_construction=800,
+             dist="L2", device="cuda")
+    h.set_keeping_pruned(True)
+    h.modify_level_scale(0.5)
+    h.parallel_insert(X[:n0], mode="device", batch_size=batch)
+    seen, real = [], bs.id_scores
+
+    def record(metric, q, vectors, sqnorms, ids):
+        if vectors.dtype == torch.bfloat16 and ids.shape[0] == batch:
+            seen.append((float((ids >= 0).float().mean()), ids.clone(), q, vectors, sqnorms))
+        return real(metric, q, vectors, sqnorms, ids)
+    bs.id_scores = record
+    try:
+        with eager_rounds():
+            h.parallel_insert(X[n0:n0 + batch], mode="device", batch_size=batch)
+    finally:
+        bs.id_scores = real
+    kmax = max(x[1].shape[1] for x in seen)
+    seen = [x for x in seen if x[1].shape[1] == kmax]
+    shares = [x[0] for x in seen]
+    _, ids, q, V, sq = sorted(seen, key=lambda x: x[0])[len(seen) // 2]
+    return q.clone(), V, sq, ids, shares
+
+
+def id_scores_rows(torch, h, X, Q):
+    """``id_scores`` at the search's shape on f32 rows (B = 10,000, K = 384,
+    d = 128: a real beam iteration's ids on path 1's index) and at the
+    build's on bf16 rows (a real beam iteration of a build round at sift1m's
+    settings, ``build_round_ids``): the three forms against the plain version
+    (gather + ``scores_gathered``), then the kernel's time, back to back, its
+    bound (the distinct valid rows' bytes and norms, the ids, the queries and
+    the scores at 3.35 TB/s: an id named twice may come from L2) and the
+    same with every valid id's row read once, the plain version's time, the share of valid ids, path 1's launches by entry and
+    the ``id_scores.plain`` calls counted so far."""
+    from hnsw_tpu_torch.ops import id_scores as isc
+    from hnsw_tpu_torch.utils.profiling import PROFILER
+
+    failures, rows = [], []
+    plain_calls = PROFILER.report().get("counters", {}).get("id_scores.plain", 0)
+    g = h.device_graph()
+    q, ids, shares = beam_ids(torch, h, Q)
+    shapes = [(q, g.vectors, g.sqnorms, ids, shares,
+               "path 1's index, a beam iteration's ids")]
+    del q, ids
+    shapes.append((*build_round_ids(torch, X),
+                   "a build round at sift1m's settings (M = 48, efC 800, batch 16384) "
+                   "on path 1's first 65,536 rows, a beam iteration's ids"))
+    for q, V, sq, ids, shares, table in shapes:
+        B, K = ids.shape
+        N, d = V.shape
+        entry = isc.id_scores_entry("L2", V.dtype)
+        valid = int((ids >= 0).sum())
+        distinct = int(torch.unique(ids[ids >= 0]).numel())
+        err = 0.0
+        for metric in ("L2", "Dot", "Cosine"):
+            got = isc.id_scores(metric, q, V, sq, ids)
+            want = isc.id_scores_plain(metric, q, V, sq, ids)
+            torch.cuda.synchronize()
+            if not torch.equal(torch.isinf(got), ids < 0):
+                failures.append(f"id_scores {entry} {metric}: +INF not exactly at the -1 ids")
+            e = id_scores_err(torch, metric, got, want, q, sq, ids)
+            err = max(err, e)
+            if e > ID_SCORES_TERM_RTOL:
+                failures.append(f"id_scores {entry} {metric}: {e:.3g} of the terms")
+            del got, want
+        ms, plain_ms = cuda_ms_turns(
+            torch, [lambda: isc.id_scores("L2", q, V, sq, ids),
+                    lambda: isc.id_scores_plain("L2", q, V, sq, ids)],
+            rounds=7, warmup=2)
+        row_bytes = d * V.element_size()
+        rest = 2 * B * K * 4 + B * d * 4  # ids, scores, queries
+        bms, by = bound_ms(distinct * (row_bytes + 4) + rest, 2 * valid * d, F32_FLOPS)
+        every_ms, _ = bound_ms(valid * (row_bytes + 4) + rest, 2 * valid * d, F32_FLOPS)
+        rows.append({"name": f"id_scores {entry}", "route": "cuda",
+                     "source": "hnsw_tpu_torch/csrc/id_scores.cu", "replaces": "none",
+                     "counter": f"id_scores.{entry}", "line": "path1", "entry": entry,
+                     "max_err_over_terms": err, "ms": ms,
+                     "ms_back_to_back": cuda_ms_queued(
+                         torch, lambda: isc.id_scores("L2", q, V, sq, ids)),
+                     "bound_ms": bms, "bound_by": by,
+                     "bound_every_valid_row_ms": every_ms, "plain_ms": plain_ms,
+                     "valid_share": valid / (B * K), "distinct_valid_rows": distinct,
+                     "valid_share_by_iteration": shares,
+                     "id_scores_plain_calls": plain_calls,
+                     "shape": {"B": B, "K": K, "d": d, "N": N, "metric": "L2",
+                               "table": table}})
+    shapes = q = V = sq = ids = None
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "rows": rows, "failures": failures})
+    return rows, failures
 
 
 def cuda_ms_queued(torch, fn, n=20):
@@ -2149,6 +2305,7 @@ def phase_metrics(torch, X, Q, seed):
 # ------------------------------------------------------------------ path 4 ----
 
 RECALL_IVF_NP64 = 0.97
+IVF_REPLAY_LAUNCHES = {"id_scores": 1, "id_scores.f32": 1}  # the refine, a replay
 # the exact scan (bf16, 32 finalists re-scored in f32) on the 1M clustered corpus
 RECALL_EXACT_CLUSTERED = 0.99
 RECALL_AUTO_COSINE = 0.95
@@ -2237,9 +2394,10 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
         by_np[nprobe] = {"recall_at_10": recall_fp64(X, Q, kth, ids, k),
                          "qps": nq / (time.time() - t0)}
     # the IVF search as a captured program: each nprobe's 512-query program
-    # replayed against a direct call of its pieces (no kernel of the repo's
-    # runs in it), and the whole search_batch against the eager form (the
-    # same chunks through the pieces called op by op): ids and recall equal
+    # replayed against a direct call of its pieces (one kernel of the repo's
+    # runs in it: the refine's id_scores on the f32 slab), and the whole
+    # search_batch against the eager form (the same chunks through the pieces
+    # called op by op): ids and recall equal
     ivf_programs = {}
     qd = torch.as_tensor(ix._queries(Q[:512]), device="cuda")
     for nprobe in (16, 32, 64):
@@ -2251,7 +2409,8 @@ def phase_ivf(torch, seed, n=1_000_000, nq=4096, k=10):
         ivf_programs[nprobe] = {"replay_equals_direct": equal, "launches_per_replay": launches,
                                 "ids_equal_eager": bool(np.array_equal(ids_p, ids_e)),
                                 "eager_recall_at_10": r_e}
-        if not (equal and not launches and ivf_programs[nprobe]["ids_equal_eager"]
+        if not (equal and launches == IVF_REPLAY_LAUNCHES
+                and ivf_programs[nprobe]["ids_equal_eager"]
                 and r_e == by_np[nprobe]["recall_at_10"]):
             failures.append(f"ivf program nprobe={nprobe}: {ivf_programs[nprobe]}, recall "
                             f"{by_np[nprobe]['recall_at_10']}")
@@ -3237,19 +3396,25 @@ def cards_scale(torch, seed, many, k=10):
     return line, failures
 
 
-def phase_cards(torch, X, Q, kth, seed, k=10):
+def phase_cards(torch, X, Q, kth, seed, parts, k=10):
     """The sharded tier with one shard a card (``default_devices``: 4 shards
     dealt round-robin over the visible cards, so two a card on two cards):
     ``cards_equality`` at path 5's size against the same shards on cuda:0,
-    then ``cards_scale`` at 4 x 1M rows. Returns the failures."""
+    then ``cards_scale`` at 4 x 1M rows, each where ``parts`` names it.
+    Returns the failures."""
     from hnsw_tpu_torch.parallel.sharded import default_devices
 
     many = default_devices(N_SHARDS)
     one = [torch.device("cuda", 0)] * N_SHARDS
     names = card_lines()
-    eq, failures = cards_equality(torch, X, Q, kth, one, many, k)
-    emit({"phase": "cards", "part": "equality", "cards": names, **eq, "failures": failures})
-    torch.cuda.empty_cache()
+    failures = []
+    if "equality" in parts:
+        eq, failures = cards_equality(torch, X, Q, kth, one, many, k)
+        emit({"phase": "cards", "part": "equality", "cards": names, **eq,
+              "failures": failures})
+        torch.cuda.empty_cache()
+    if "scale" not in parts:
+        return failures
     scale, f = cards_scale(torch, seed, many, k)
     emit({"phase": "cards", "part": "scale", "cards": names, **scale, "failures": f})
     return failures + f
@@ -3902,6 +4067,9 @@ def main():
                             "serve2,filters,native,metrics,ivf,sharded,highd,graft,"
                             "build_budget,user_pivots,topk_gathered,bench_knobs")
     ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--cards-parts", default="equality,scale",
+                    help="the cards phase's lines: equality (the four-card build and "
+                         "answers bit for bit against cuda:0 x 4), scale (4 x 1M rows)")
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, trace one served batch per operating "
                          "point and a second build with torch.profiler")
@@ -4003,6 +4171,10 @@ def main():
             r, f = gathered_rows(torch, Q, args.seed, codec, h._nb_point)
             rows += r
             failures += f
+        if h is not None:
+            r, f = id_scores_rows(torch, h, X, Q)
+            rows += r
+            failures += f
     # the search programs paths 1-2 captured, and the bytes their pools hold,
     # released before the other paths
     emit({"phase": "programs", "held": {
@@ -4058,7 +4230,8 @@ def main():
                       ("user_pivots", lambda: phase_user_pivots(torch, X, Q)),
                       ("topk_gathered", lambda: phase_topk_gathered(torch, X, Q)),
                       ("bench_knobs", lambda: phase_bench_knobs(torch)),
-                      ("cards", lambda: phase_cards(torch, X, Q, kth, args.seed))):
+                      ("cards", lambda: phase_cards(torch, X, Q, kth, args.seed,
+                                                    args.cards_parts.split(",")))):
         if name in phases:
             if name == "bench_knobs":
                 native_ready()

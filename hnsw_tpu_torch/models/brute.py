@@ -22,8 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.beam_search import scores_gathered, smallest
-from ..ops.distances import get_metric
+from ..ops.beam_search import smallest
+from ..ops.distances import get_metric, scores_gathered
 from ..ops.program import ProgramCache, TopkProgram, call_key
 from ..utils.device import resolve_device
 from ..utils.profiling import PROFILER

@@ -42,8 +42,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.beam_search import scores_gathered, scores_matmul, smallest
-from ..ops.distances import get_metric
+from ..ops.beam_search import smallest
+from ..ops.distances import get_metric, scores_gathered, scores_matmul
+from ..ops.id_scores import id_scores
 from ..ops.program import IvfProgram, KmeansProgram, ProgramCache, call_key
 from ..utils.device import resolve_device
 from ..utils.profiling import PROFILER
@@ -181,9 +182,9 @@ def _exact_refine(q, Xf3, xsq3, rows, metric: str):
     Xf = Xf3.reshape(L * cap, d)
     xsqf = xsq3.reshape(L * cap)
     safe = torch.clamp(rows, 0, L * cap - 1)
-    dd = scores_gathered(metric, q.to(torch.float32), Xf[safe], xsqf[safe])
-    # rows < 0: unfilled slots; xsq=inf: slab padding rows
-    dd = torch.where((rows >= 0) & ~torch.isinf(xsqf[safe]), dd, float("inf"))
+    # rows < 0 (unfilled slots) score inf; so do slab padding rows (xsq = inf)
+    dd = id_scores(metric, q.to(torch.float32), Xf, xsqf, rows)
+    dd = torch.where(~torch.isinf(xsqf[safe]), dd, float("inf"))
     dd, o = torch.sort(dd, dim=1, stable=True)
     return torch.gather(rows, 1, o), dd
 

@@ -7,7 +7,9 @@ A batch of queries advances in lock-step; per iteration each query
   2. scores their whole layer-0 neighbourhoods — through the int8 codec
      (kernel B1, ``ops/codec_scores.py``, which also returns the neighbour
      ids; or, with ``allow_fused=False``, a torch gather of the blocks and
-     kernel B4 over them) or the exact f32 vector gather,
+     kernel B4 over them) or, without a codec, the exact vectors named by
+     the candidates' ids (``ops/id_scores.py``: a kernel on the card that
+     reads each valid candidate's row once),
   3. suppresses revisits (beam membership, an expansion-history ring and
      intra-step duplicates), and
   4. merges beam and candidates into the best ``ef``.
@@ -44,6 +46,8 @@ import torch
 from ..filter import filter_mask
 from ..utils.profiling import PROFILER
 from .codec_scores import codec_scores, codec_scores_gathered
+from .distances import DOT_NAMES, L2_NAMES, ip_f32, scores_gathered, scores_matmul
+from .id_scores import id_scores
 
 INF = float("inf")
 
@@ -53,65 +57,6 @@ def smallest(x, k: int):
     ties keep the lower position (``lax.top_k`` on the negated scores)."""
     v, i = torch.sort(x, dim=1, stable=True)
     return v[:, :k], i[:, :k]
-
-
-def _ip_f32(q, cvecs):
-    """[B,d] x [B,K,d] inner products in f32. A bf16 store is scored as f32
-    products of the bf16-rounded inputs (the JAX package's bf16-in, f32-out einsum):
-    a bf16 einsum would round its result to bf16."""
-    if cvecs.dtype == torch.bfloat16:
-        a = q.to(torch.bfloat16).to(torch.float32)
-    else:
-        a = q.to(torch.float32)
-    return torch.einsum("bd,bkd->bk", a, cvecs.to(torch.float32))
-
-
-def scores_gathered(metric_name: str, q, cvecs, csq=None):
-    """Distance of each query to its gathered candidates: [B,d] x [B,K,d] -> [B,K]."""
-    from .distances import get_metric
-
-    qf = q.to(torch.float32)
-    if metric_name in ("L2", "DistL2"):
-        g = _ip_f32(q, cvecs)
-        sq = (qf * qf).sum(-1)[:, None]
-        if csq is None:
-            cf = cvecs.to(torch.float32)
-            csq = (cf * cf).sum(-1)
-        return torch.sqrt(torch.clamp_min(sq - 2.0 * g + csq, 0.0))
-    if metric_name in ("Dot", "DistDot"):
-        return 1.0 - _ip_f32(q, cvecs)
-    if metric_name in ("Cosine", "DistCosine"):
-        s = _ip_f32(q, cvecs)
-        cf = cvecs.to(torch.float32)
-        denom = torch.linalg.norm(qf, dim=-1)[:, None] * torch.linalg.norm(cf, dim=-1)
-        return 1.0 - torch.where(denom > 0, s / torch.clamp_min(denom, 1e-10), 0.0)
-    m = get_metric(metric_name)
-    if m.scores is None:
-        raise NotImplementedError(f"metric {metric_name} has no batched form")
-    return m.scores(q, cvecs)
-
-
-def scores_matmul(metric_name: str, q, pv, psq):
-    """Distances of every query to a fixed pivot set through one matmul:
-    [B,d] x [P,d] -> [B,P] (inner-product family; other metrics through their
-    ``matmul_scores``, a user metric's included)."""
-    qf = q.to(torch.float32)
-    if metric_name in ("L2", "DistL2", "Dot", "DistDot", "Cosine", "DistCosine"):
-        g = qf @ pv.to(torch.float32).T
-    if metric_name in ("L2", "DistL2"):
-        qsq = (qf * qf).sum(-1)[:, None]
-        return torch.sqrt(torch.clamp_min(qsq - 2.0 * g + psq[None, :], 0.0))
-    if metric_name in ("Dot", "DistDot"):
-        return 1.0 - g
-    if metric_name in ("Cosine", "DistCosine"):
-        qn = torch.linalg.norm(qf, dim=-1)[:, None]
-        pn = torch.sqrt(torch.clamp_min(psq, 1e-20))[None, :]
-        return 1.0 - g / torch.clamp_min(qn * pn, 1e-10)
-    from .distances import get_metric
-    m = get_metric(metric_name)
-    if m.matmul_scores is not None:
-        return m.matmul_scores(qf, pv, psq)
-    raise NotImplementedError(f"pivot scan unsupported for {metric_name}")
 
 
 def _dedup_pairs(ids, dd):
@@ -163,7 +108,7 @@ def scores_codec(codec, q, src_c, qsq, qnorm, allow_fused: bool = True):
     with torch indexing first and scored by ``codec_scores_gathered`` (kernel
     B4), which returns no ids. bf16 codecs take a plain gather."""
     m = codec.metric_name
-    form = "l2" if m in ("L2", "DistL2") else "dot" if m in ("Dot", "DistDot") else "cosine"
+    form = "l2" if m in L2_NAMES else "dot" if m in DOT_NAMES else "cosine"
     qsn = qsq if form == "l2" else qnorm
     B, E = src_c.shape
     K = E * codec.M0
@@ -176,7 +121,7 @@ def scores_codec(codec, q, src_c, qsq, qnorm, allow_fused: bool = True):
         return codec_scores_gathered(q, blk.reshape(B, K * codec.dim), csq, qsn,
                                      codec.scale, form), None
     blk = codec.blocks[src_c.long()][:, :, :codec.M0].reshape(B, K, codec.dim)
-    ip = _ip_f32(q, blk) * codec.scale
+    ip = ip_f32(q, blk) * codec.scale
     if form == "l2":
         csq = codec.blocks_sq[src_c.long()].reshape(B, K)
         return torch.sqrt(torch.clamp_min(qsq - 2.0 * ip + csq, 0.0)), None
@@ -187,11 +132,7 @@ def scores_codec(codec, q, src_c, qsq, qnorm, allow_fused: bool = True):
 
 def exact_rerank(metric_name, vectors, sqnorms, q, ids, k: int):
     """Re-score candidate ids against the exact f32 vectors; best k ascending."""
-    cap1 = vectors.shape[0]
-    safe = torch.clamp(ids, 0, cap1 - 1).long()
-    sc = scores_gathered(metric_name, q, vectors[safe], sqnorms[safe])
-    sc = torch.where(ids >= 0, sc, INF)
-    v, order = smallest(sc, k)
+    v, order = smallest(id_scores(metric_name, q, vectors, sqnorms, ids), k)
     out_ids = torch.gather(ids, 1, order)
     return torch.where(v < INF, out_ids, -1), v
 
@@ -309,16 +250,17 @@ def beam_expand(st: BeamState, it: int, step_done, act, sel_d, pos):
     in_hist = _member(nbr, st.hist)
     dup = _first_occurrence_dups(nbr, valid)
     valid = valid & ~in_beam & ~in_hist & ~dup
-    nbr_c = torch.where(valid, nbr, cap1 - 1).long()
-    # 4. exact f32 scores when there is no codec
-    if sc is None:
-        sc = scores_gathered(st.metric_name, st.q, st.vectors[nbr_c], st.sqnorms[nbr_c])
-    sc = torch.where(valid, sc, INF)
     new_ids = torch.where(valid, nbr, -1)
+    # 4. exact scores of the valid candidates when there is no codec (an
+    # invalid one's row is never read)
+    if sc is None:
+        sc = id_scores(st.metric_name, st.q, st.vectors, st.sqnorms, new_ids)
+    else:
+        sc = torch.where(valid, sc, INF)
     # 5. merge into the beams
     st.beam_ids, st.beam_d = _merge_beam(st.beam_ids, st.beam_d, new_ids, sc, st.ef)
     if st.use_mask:
-        passf = valid & st.mask[nbr_c]
+        passf = valid & st.mask[torch.where(valid, nbr, cap1 - 1).long()]
         st.res_ids, st.res_d = _merge_beam(st.res_ids, st.res_d,
                                            torch.where(passf, nbr, -1),
                                            torch.where(passf, sc, INF), st.ef)
@@ -394,10 +336,8 @@ def beam_search_layer(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
 def _best_neighbour(metric_name, vectors, sqnorms, tbl, q, pivot, act):
     cap1 = vectors.shape[0]
     nbr = tbl[torch.clamp(pivot, 0, cap1 - 1).long()]  # [B, M]
-    valid = (nbr >= 0) & act[:, None]
-    nbr_c = torch.where(valid, nbr, cap1 - 1).long()
-    sc = scores_gathered(metric_name, q, vectors[nbr_c], sqnorms[nbr_c])
-    sc = torch.where(valid, sc, INF)
+    sc = id_scores(metric_name, q, vectors, sqnorms,
+                   torch.where((nbr >= 0) & act[:, None], nbr, -1))
     j = torch.argmin(sc, dim=1, keepdim=True)  # first minimum, as jnp.argmin
     return torch.gather(sc, 1, j)[:, 0], torch.gather(nbr, 1, j)[:, 0]
 

@@ -407,3 +407,69 @@ def l2_normalize(x):
     x = np.asarray(x, dtype=np.float32)
     n = np.linalg.norm(x, axis=-1, keepdims=True)
     return x / np.maximum(n, _EPS)
+
+
+# ---------------------------------------------------------------- forms by name ---
+# Device code scores by metric name. The inner-product family is scored from
+# one f32 inner product and the rows' squared norms; every other metric
+# through its registered ``scores`` / ``matmul_scores``.
+L2_NAMES = ("L2", "DistL2")
+DOT_NAMES = ("Dot", "DistDot")
+COSINE_NAMES = ("Cosine", "DistCosine")
+INNER_PRODUCT = L2_NAMES + DOT_NAMES + COSINE_NAMES
+
+
+def ip_f32(q, cvecs):
+    """[B,d] x [B,K,d] inner products in f32. A bf16 store is scored as f32
+    products of the bf16-rounded inputs (the JAX package's bf16-in, f32-out einsum):
+    a bf16 einsum would round its result to bf16."""
+    if cvecs.dtype == torch.bfloat16:
+        a = q.to(torch.bfloat16).to(torch.float32)
+    else:
+        a = q.to(torch.float32)
+    return torch.einsum("bd,bkd->bk", a, cvecs.to(torch.float32))
+
+
+def scores_gathered(metric_name: str, q, cvecs, csq=None):
+    """Distance of each query to its gathered candidates: [B,d] x [B,K,d] -> [B,K]."""
+    qf = q.to(torch.float32)
+    if metric_name in L2_NAMES:
+        g = ip_f32(q, cvecs)
+        sq = (qf * qf).sum(-1)[:, None]
+        if csq is None:
+            cf = cvecs.to(torch.float32)
+            csq = (cf * cf).sum(-1)
+        return torch.sqrt(torch.clamp_min(sq - 2.0 * g + csq, 0.0))
+    if metric_name in DOT_NAMES:
+        return 1.0 - ip_f32(q, cvecs)
+    if metric_name in COSINE_NAMES:
+        s = ip_f32(q, cvecs)
+        cf = cvecs.to(torch.float32)
+        denom = torch.linalg.norm(qf, dim=-1)[:, None] * torch.linalg.norm(cf, dim=-1)
+        return 1.0 - torch.where(denom > 0, s / torch.clamp_min(denom, 1e-10), 0.0)
+    m = get_metric(metric_name)
+    if m.scores is None:
+        raise NotImplementedError(f"metric {metric_name} has no batched form")
+    return m.scores(q, cvecs)
+
+
+def scores_matmul(metric_name: str, q, pv, psq):
+    """Distances of every query to a fixed pivot set through one matmul:
+    [B,d] x [P,d] -> [B,P] (inner-product family; other metrics through their
+    ``matmul_scores``, a user metric's included)."""
+    qf = q.to(torch.float32)
+    if metric_name in INNER_PRODUCT:
+        g = qf @ pv.to(torch.float32).T
+    if metric_name in L2_NAMES:
+        qsq = (qf * qf).sum(-1)[:, None]
+        return torch.sqrt(torch.clamp_min(qsq - 2.0 * g + psq[None, :], 0.0))
+    if metric_name in DOT_NAMES:
+        return 1.0 - g
+    if metric_name in COSINE_NAMES:
+        qn = torch.linalg.norm(qf, dim=-1)[:, None]
+        pn = torch.sqrt(torch.clamp_min(psq, 1e-20))[None, :]
+        return 1.0 - g / torch.clamp_min(qn * pn, 1e-10)
+    m = get_metric(metric_name)
+    if m.matmul_scores is not None:
+        return m.matmul_scores(qf, pv, psq)
+    raise NotImplementedError(f"pivot scan unsupported for {metric_name}")

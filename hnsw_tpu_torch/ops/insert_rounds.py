@@ -51,7 +51,9 @@ import torch
 from ..utils.profiling import PROFILER
 from .beam_search import (MAX_HOPS, BeamState, DescentState, beam_finish, beam_iters,
                           beam_run, beam_setup, beam_step, descent_hop, descent_layer,
-                          scores_gathered, smallest)
+                          smallest)
+from .distances import INNER_PRODUCT, scores_gathered
+from .id_scores import id_scores
 
 INF = float("inf")
 
@@ -196,12 +198,7 @@ def extend_widen(metric: str, vectors, sqnorms, tbl0, q, cand_ids, cand_d,
     # an expand, not repeat_interleave, which may read its output size
     # back to the host (a captured piece must not)
     ok = need[:, None] & (src >= 0)[:, :, None].expand(B, W, M0).reshape(B, P) & (nb >= 0)
-    chunk = max(M0, min(P, (1 << 21) // max(1, q.shape[1])))
-    scs = []
-    for s in range(0, P, chunk):
-        blk = torch.where(ok[:, s:s + chunk], nb[:, s:s + chunk], cap1 - 1).long()
-        scs.append(scores_gathered(metric, q, vectors[blk], sqnorms[blk]))
-    sc = torch.where(ok, torch.cat(scs, dim=1), INF)
+    sc = id_scores(metric, q, vectors, sqnorms, torch.where(ok, nb, -1))
     m_ids = torch.cat([torch.where(cand_ids >= 0, cand_ids, cap1),
                        torch.where(ok, nb, cap1)], dim=1)
     m_d = torch.cat([cand_d, sc], dim=1)
@@ -579,9 +576,7 @@ def _rescore_exact(bt: BuildTensors, metric: str, q, cand_ids, cand_d):
     vectors and re-sorted; without one, as they are."""
     if bt.vectors_lo is None:
         return cand_ids, cand_d
-    safe = torch.clamp(cand_ids, 0, bt.cap1 - 1).long()
-    sc = scores_gathered(metric, q, bt.vectors[safe], bt.sqnorms[safe])
-    sc = torch.where(cand_ids >= 0, sc, INF)
+    sc = id_scores(metric, q, bt.vectors, bt.sqnorms, cand_ids)
     sd, o = torch.sort(sc, dim=1, stable=True)
     return torch.gather(cand_ids, 1, o), sd
 
@@ -923,7 +918,7 @@ def _device_parallel_insert(hnsw, pairs, batch_size, expand, build_max_iters):
         # bf16 traversal copy at production scale (inner-product metrics);
         # HNSW_BUILD_LO=0/1 overrides
         lo_env = os.environ.get("HNSW_BUILD_LO")
-        use_lo = (metric in ("L2", "DistL2", "Dot", "DistDot", "Cosine", "DistCosine")
+        use_lo = (metric in INNER_PRODUCT
                   and st.n_total >= 32768) if lo_env is None else lo_env == "1"
         vectors_lo = vectors.to(torch.bfloat16) if use_lo else None
         protect = os.environ.get("HNSW_BUILD_PROTECT", "1") != "0"

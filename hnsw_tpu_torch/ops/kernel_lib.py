@@ -13,10 +13,11 @@ every module of the package on a machine without ``nvcc``.
 caller can reset the counts, drive a path, and read which kernels that path
 went through. Every kernel has two or three entries, named by its wrapper
 from the shapes alone (``scan_topk.scan_entry``, ``codec_scores.codec_entry``
-and ``gathered_entry``): beside the wrapper's own count, ``<name>.<entry>``
-says which entry each launch took (``wgmma``/``tf32x3``/``simt`` for the
-scans, ``bulk``/``rows`` for the fused codec scores, ``stream``/``rows`` for
-the gathered ones). ``CARD_LAUNCHES`` counts the same launches by card, ``(card index,
+and ``gathered_entry``, ``id_scores.id_scores_entry``): beside the wrapper's
+own count, ``<name>.<entry>`` says which entry each launch took
+(``wgmma``/``tf32x3``/``simt`` for the scans, ``bulk``/``rows`` for the fused
+codec scores, ``stream``/``rows`` for the gathered ones, ``f32``/``bf16`` for
+the id-named row scores). ``CARD_LAUNCHES`` counts the same launches by card, ``(card index,
 counter)``, for a caller that spreads work over several cards (the sharded
 tier): every card's share of a path is read there.
 """
@@ -34,7 +35,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hnsw_tpu_torch"
-SOURCES = ("codec_scores", "codec_scores_gathered", "scan_topk",
+SOURCES = ("codec_scores", "codec_scores_gathered", "id_scores", "scan_topk",
            "scan_topk_unpacked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,9 +44,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SCAN_ENTRIES = ("simt", "wgmma", "tf32x3")
 CODEC_ENTRIES = ("rows", "bulk")
 GATHERED_ENTRIES = ("rows", "stream")
+ID_SCORES_ENTRIES = ("f32", "bf16")
 ENTRIES = {"codec_scores_ids": CODEC_ENTRIES, "codec_scores": CODEC_ENTRIES,
-           "codec_scores_gathered": GATHERED_ENTRIES, "scan_topk": SCAN_ENTRIES,
-           "scan_topk_unpacked": SCAN_ENTRIES}
+           "codec_scores_gathered": GATHERED_ENTRIES, "id_scores": ID_SCORES_ENTRIES,
+           "scan_topk": SCAN_ENTRIES, "scan_topk_unpacked": SCAN_ENTRIES}
 LAUNCHES = {**{name: 0 for name in ENTRIES},
             **{f"{name}.{entry}": 0 for name, entries in ENTRIES.items()
                for entry in entries}}
@@ -178,6 +180,11 @@ def _bind(name: str, lib):
         lib.codec_scores_gathered_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
                                                      _I, _I, _I, _P, _P]
         lib.codec_scores_gathered_launch.restype = _I
+    elif name == "id_scores":
+        # (q, vectors, sqnorms, ids, B, K, N, d, ld, form, bf16, out, stream)
+        lib.id_scores_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
+                                         _I, _I, _P, _P]
+        lib.id_scores_launch.restype = _I
     elif name == "scan_topk_unpacked":
         # (q, X, xsq, B, Np, d, tn, group, acc, bf16, entry, layout, outd, outi,
         #  stream)

@@ -189,7 +189,8 @@ def test_cpu_wrappers_take_the_plain_version(rng):
         "codec_scores_ids", "codec_scores_ids.bulk", "codec_scores_ids.rows",
         "codec_scores", "codec_scores.bulk", "codec_scores.rows",
         "codec_scores_gathered", "codec_scores_gathered.stream",
-        "codec_scores_gathered.rows", "scan_topk", "scan_topk.wgmma", "scan_topk.simt",
+        "codec_scores_gathered.rows", "id_scores", "id_scores.f32", "id_scores.bf16",
+        "scan_topk", "scan_topk.wgmma", "scan_topk.simt",
         "scan_topk.tf32x3", "scan_topk_unpacked", "scan_topk_unpacked.wgmma",
         "scan_topk_unpacked.simt", "scan_topk_unpacked.tf32x3"}
 
@@ -906,3 +907,118 @@ def test_kernels_match_plain_on_card(rng):
         du, iu = st.l2_topk(Q, Xd, xd, 10, Xscan=Xscan, acc=acc, packed=False)
         assert torch.equal(torch.sort(iu, 1).values, torch.sort(ik, 1).values)
         torch.testing.assert_close(du, dk, rtol=1e-5, atol=0)
+
+
+
+@pytest.mark.cuda
+def test_id_scores_match_plain_on_card(rng, monkeypatch):
+    """``id_scores`` against ``id_scores_plain`` on the card: f32 and bf16
+    rows, L2 / Dot / Cosine, B = 1 and 10,000 at K = 384, with -1 ids,
+    repeated ids and the table's last row, at every kind of row the kernel
+    reads: d = 128, 960 and 2048 (16-byte words, the query in registers),
+    36 and 25 (f32 words; bf16 and f32 rows read an element a load), 1536
+    (past the registers: 16-byte words in passes), a table whose rows lie
+    d + 5 elements apart from an address 4 bytes past a 16-byte boundary.
+    Every call launches the kernel (entry by dtype) and none is counted as a
+    plain call, but an f16 table's (no kernel entry), which takes the plain
+    version and bumps ``id_scores.plain``. +INF exactly at the negative ids;
+    elsewhere the two sum the same exact products in different orders and
+    differ by at most ``ID_SCORES_TERM_RTOL`` (1e-6) of the terms
+    (``chip_smoke.id_scores_err``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels compile with nvcc for sm_90a")
+    from hnsw_tpu_torch.ops import id_scores as isc
+    from hnsw_tpu_torch.utils.profiling import PROFILER
+
+    smoke = _chip_smoke()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(PROFILER, "enabled", True)
+    N, K = 50_000, 384
+    cases = [(d, dtype, False) for d in (128, 960, 36, 25, 1536)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(2048, torch.bfloat16, False), (128, torch.float32, True),
+              (128, torch.bfloat16, True), (128, torch.float16, False)]
+    for d, dtype, strided in cases:
+        if strided:  # rows d + 5 apart, the first 4 bytes past a boundary
+            W = torch.from_numpy(rng.standard_normal((N, d + 5)).astype(np.float32))
+            V = W.to(dev).to(dtype)[:, 1:1 + d]
+            assert V.stride() == (d + 5, 1)
+        else:
+            V = torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32)).to(
+                dev).to(dtype).contiguous()
+        Vf = V.float()
+        sq = (Vf * Vf).sum(-1)
+        del Vf
+        entry = isc.id_scores_entry("L2", dtype)
+        for B in (1, 10_000):
+            q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(dev)
+            ids = torch.from_numpy(rng.integers(-1, N, (B, K)).astype(np.int32)).to(dev)
+            ids[:, :5] = torch.tensor([N - 1, N - 1, -1, 7, 7], dtype=torch.int32)
+            for metric in ("L2", "Dot", "Cosine"):
+                kernel_lib.reset_launch_counts()
+                PROFILER.reset()
+                got = isc.id_scores(metric, q, V, sq, ids)
+                torch.cuda.synchronize()
+                counters = PROFILER.report().get("counters", {})
+                if entry is None:
+                    assert kernel_lib.LAUNCHES["id_scores"] == 0
+                    assert counters.get("id_scores.plain") == 1
+                else:
+                    assert kernel_lib.LAUNCHES[f"id_scores.{entry}"] == 1
+                    assert "id_scores.plain" not in counters
+                assert torch.equal(torch.isinf(got), ids < 0)
+                assert bool((got[ids < 0] > 0).all())
+                for s in range(0, B, 2048):  # the plain copy, 2048 queries at a time
+                    c = slice(s, s + 2048)
+                    want = isc.id_scores_plain(metric, q[c], V, sq, ids[c])
+                    err = smoke.id_scores_err(torch, metric, got[c], want, q[c], sq,
+                                              ids[c])
+                    assert err <= smoke.ID_SCORES_TERM_RTOL, (d, dtype, strided, B,
+                                                              metric, err)
+                del got
+        del V, sq
+    PROFILER.reset()
+
+
+@pytest.mark.cuda
+def test_captured_search_without_codec_equals_eager_on_card(rng):
+    """A search program captured at sift1m's settings without a codec (M =
+    48, ef 128, expand 4: the beam scores f32 rows through ``id_scores``)
+    answers what the eager ``search_program`` answers, and none of its
+    scores take the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels compile with nvcc for sm_90a")
+    from hnsw_tpu_torch import Hnsw
+    from hnsw_tpu_torch.ops.beam_search import (device_search_batch, search_program,
+                                                serve_static)
+    from hnsw_tpu_torch.utils.profiling import PROFILER
+
+    X = rng.standard_normal((20_000, 128)).astype(np.float32)
+    Q = rng.standard_normal((2048, 128)).astype(np.float32)
+    h = Hnsw(max_nb_connection=48, max_elements=len(X), ef_construction=200, dist="L2",
+             device="cuda")
+    h.set_traversal_codec(None)
+    h.parallel_insert(X, mode="device", batch_size=4096)
+    was = PROFILER.enabled
+    PROFILER.enabled = True
+    PROFILER.reset()
+    try:
+        kernel_lib.reset_launch_counts()
+        ids_p, d_p = device_search_batch(h, Q, 10, 128)  # captures, then replays
+        ids_p2, d_p2 = device_search_batch(h, Q, 10, 128)
+        assert kernel_lib.LAUNCHES["id_scores.f32"] > 0
+        assert "id_scores.plain" not in PROFILER.report().get("counters", {})
+    finally:
+        PROFILER.enabled = was
+        PROFILER.reset()
+    g = h.device_graph()
+    q = torch.as_tensor(Q, device=g.vectors.device)
+    ids_e, d_e = search_program(g, q, None, codec=None,
+                                **serve_static(None, ef=128, knbn=10))
+    ids_e = ids_e.cpu().numpy().astype(np.int64)
+    d_e = d_e.cpu().numpy()
+    ids_e[~np.isfinite(d_e)] = -1
+    np.testing.assert_array_equal(ids_p, ids_e)
+    np.testing.assert_array_equal(ids_p2, ids_e)
+    np.testing.assert_array_equal(d_p, d_e)

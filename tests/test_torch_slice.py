@@ -229,7 +229,7 @@ def test_kernel_sources_call_no_finished_kernel():
     launch count and binding per library."""
     from hnsw_tpu_torch.ops import kernel_lib
     assert set(kernel_lib.SOURCES) == {"codec_scores", "codec_scores_gathered",
-                                       "scan_topk", "scan_topk_unpacked"}
+                                       "id_scores", "scan_topk", "scan_topk_unpacked"}
     for name in kernel_lib.SOURCES:
         src = (kernel_lib.CSRC / f"{name}.cu").read_text()
         assert "__global__" in src and f"{name}_launch" in src
