@@ -24,8 +24,10 @@ which then share its pool budget, or on the CPU in the tests).
     across the shards, one host read of each shard's ``done`` per chunk;
     each shard's (local id, distance) rows are copied to ``devices[0]`` and
     merged there by a stable sort, which takes the place of the mesh's
-    ``all_gather`` and replicated sort. External ids stay int64 on the host
-    and are mapped after the fetch;
+    ``all_gather`` and replicated sort. External ids stay int64, in a table
+    on ``devices[0]``, and one gather there maps the merged rows before the
+    fetch. The fan-out, lockstep and merge record the ``shard.*`` spans and
+    counters of ``utils/profiling.py``;
   * **exact search**: every shard scans its slice, through the packed exact
     scan (kernel B2) over a bf16 copy or a tiled running top-k, each shard's
     scan a captured program in its cache (``CallProgram``), and the same
@@ -66,6 +68,7 @@ from ..ops.scan_topk import (SCAN_GROUP, SCAN_TN, l2_topk, refine_width, scan_ac
                              scan_depth)
 from ..ops.stream import fetch_host, pipelined_stream, upload_batch
 from ..utils.device import resolve_device
+from ..utils.profiling import PROFILER
 
 INF = float("inf")
 
@@ -121,9 +124,9 @@ class _ShardState:
     vectors: list  # [cap1, d] f32 per shard
     sqnorms: list  # [cap1] per shard
     n_live: list  # live points per shard (masks padding rows and empty shards)
-    host_origin: np.ndarray  # [D, cap1] int64 external ids (-1 pad), on the host:
+    origin: torch.Tensor  # [D, cap1] int64 external ids (-1 pad), on devices[0]:
     # ids stay 64-bit (reference DataId is usize, src/hnsw.rs:51); the merge
-    # carries (shard, local id) pairs and the mapping happens after the fetch
+    # carries (shard, local id) pairs and one gather maps them before the fetch
     layer_ids: list  # per shard: tuple of [cap1, w_l] int32, one per layer
     entry: list  # entry point per shard
     cap1: int
@@ -175,6 +178,17 @@ class ShardedHnsw:
                     pl[int(o)] = s
             self._placement = (versions, pl)
         return self._placement[1][int(k)]
+
+    def set_keeping_pruned(self, flag: bool):
+        """``Hnsw.set_keeping_pruned`` on every shard; the mesh build reads it."""
+        for h in self.shards:
+            h.set_keeping_pruned(flag)
+
+    def modify_level_scale(self, factor: float):
+        """``Hnsw.modify_level_scale`` on every shard: each shard's level
+        generator draws its rows' levels at the new scale."""
+        for h in self.shards:
+            h.modify_level_scale(factor)
 
     def set_traversal_codec(self, kind, width=None):
         """Per-shard beam-traversal codec of the sharded search — the contract
@@ -317,7 +331,8 @@ class ShardedHnsw:
             n_live.append(n)
             org[s, :n] = self.shards[s]._origin[:n]
         self._state = _ShardState(
-            vectors=vectors, sqnorms=sqnorms, n_live=n_live, host_origin=org,
+            vectors=vectors, sqnorms=sqnorms, n_live=n_live,
+            origin=torch.as_tensor(org, device=self.devices[0]),
             layer_ids=[tuple(t[0] for t in tables[s]) for s in range(D)],
             entry=[int(st.entry) for st in states], cap1=cap1, num_layers=L,
             layer_nonempty=tuple(bool(any(st.counts[l] > 0 for st in states))
@@ -362,7 +377,8 @@ class ShardedHnsw:
             entry.append(int(max(h._entry, 0)))
             n_live.append(n)
         state = _ShardState(
-            vectors=vectors, sqnorms=sqnorms, n_live=n_live, host_origin=org,
+            vectors=vectors, sqnorms=sqnorms, n_live=n_live,
+            origin=torch.as_tensor(org, device=self.devices[0]),
             layer_ids=layer_ids, entry=entry, cap1=cap1, num_layers=L,
             layer_nonempty=tuple(any(h.get_layer_nb_point(l) > 0 for h in sh)
                                  for l in range(L)),
@@ -414,13 +430,19 @@ class ShardedHnsw:
         return out
 
     @staticmethod
-    def _to_external(st: _ShardState, local, shard, dists):
-        local, shard, dists = (x.cpu().numpy() if isinstance(x, torch.Tensor) else x
-                               for x in (local, shard, dists))
-        ok = np.isfinite(dists) & (local >= 0)
-        ids = np.full(local.shape, -1, np.int64)
-        ids[ok] = st.host_origin[shard[ok], local[ok]]
-        return ids, np.where(ok, dists, np.inf).astype(np.float32)
+    def _external(st: _ShardState, local, shard, dists):
+        """The merged rows (``_merge_shard_topk``, on ``devices[0]``) as
+        external ids [B, k] int64, -1 where there is no answer, and their
+        distances, INF there: one gather from ``st.origin`` on the card, so
+        the host copies only the answers."""
+        ok = torch.isfinite(dists) & (local >= 0)
+        ids = st.origin[shard.long(), local.clamp_min(0).long()]
+        return torch.where(ok, ids, -1), torch.where(ok, dists, INF)
+
+    @classmethod
+    def _to_external(cls, st: _ShardState, local, shard, dists):
+        """``_external``, fetched: (ids, dists) as numpy arrays."""
+        return tuple(x.cpu().numpy() for x in cls._external(st, local, shard, dists))
 
     # ---------------------------------------------------------------- search -----
 
@@ -476,11 +498,15 @@ class ShardedHnsw:
         shard (int8 codec with kernel B3 and the exact rerank when the codec
         is on), then the merge on ``devices[0]``. Returns (external ids
         [B, k] int64, -1 padded, dists [B, k])."""
-        q = np.asarray(queries, np.float32)
-        if q.ndim == 1:
-            q = q[None]
-        st, _, run = self._search_fn(knbn, ef, filter, expand, rerank)
-        return self._to_external(st, *run(torch.as_tensor(q, device=self.devices[0])))
+        with PROFILER.span("search.call"):
+            q = np.asarray(queries, np.float32)
+            if q.ndim == 1:
+                q = q[None]
+            with PROFILER.span("search.prepare"):
+                st, _, run = self._search_fn(knbn, ef, filter, expand, rerank)
+            out = run(torch.as_tensor(q, device=self.devices[0]))
+            with PROFILER.span("search.finish"):
+                return self._to_external(st, *out)
 
     def _scan_arrays(self, tn: int):
         """Per-shard bf16 scan copy padded to a multiple of ``tn`` rows (and
@@ -514,35 +540,39 @@ class ShardedHnsw:
         mask uploads once for the stream. ``query_dtype="f16"`` sends the
         queries as float16 (the search runs in f32). Returns (external ids
         [nq, k] int64, -1 padded, dists [nq, k])."""
-        q = np.asarray(queries, np.float32)
-        if q.ndim == 1:
-            q = q[None]
-        if query_dtype in ("f16", "float16", np.float16):
-            q = q.astype(np.float16)
-        elif query_dtype not in (None, "f32", "float32", np.float32):
-            raise ValueError(f"unsupported query_dtype {query_dtype!r}")
-        nq = q.shape[0]
-        st, programs, run = self._search_fn(knbn, ef, filter, expand, rerank)
-        out_i = np.full((nq, knbn), -1, np.int64)
-        out_d = np.full((nq, knbn), np.inf, np.float32)
-        work = [(s, min(s + int(batch), nq)) for s in range(0, nq, int(batch))]
-        dtype = torch.from_numpy(q[:0]).dtype
-        for size in {we - ws for ws, we in work}:  # built before the threads start
-            programs(size, dtype)
+        with PROFILER.span("search.call"):
+            q = np.asarray(queries, np.float32)
+            if q.ndim == 1:
+                q = q[None]
+            if query_dtype in ("f16", "float16", np.float16):
+                q = q.astype(np.float16)
+            elif query_dtype not in (None, "f32", "float32", np.float32):
+                raise ValueError(f"unsupported query_dtype {query_dtype!r}")
+            nq = q.shape[0]
+            out_i = np.full((nq, knbn), -1, np.int64)
+            out_d = np.full((nq, knbn), np.inf, np.float32)
+            work = [(s, min(s + int(batch), nq)) for s in range(0, nq, int(batch))]
+            with PROFILER.span("search.prepare"):
+                st, programs, run = self._search_fn(knbn, ef, filter, expand, rerank)
+                dtype = torch.from_numpy(q[:0]).dtype
+                for size in {we - ws for ws, we in work}:  # built before the threads start
+                    programs(size, dtype)
 
-        def _upload(w):
-            return upload_batch(q[w[0]:w[1]], self.devices[0])
+            def _upload(w):
+                return upload_batch(q[w[0]:w[1]], self.devices[0])
 
-        def _dispatch(w, staged):
-            with _on(self.devices[0]):
-                return fetch_host(run(staged.wait()))
+            def _dispatch(w, staged):
+                with _on(self.devices[0]):
+                    out = run(staged.wait())
+                    with PROFILER.span("search.finish"):
+                        return fetch_host(self._external(st, *out))
 
-        def _fetch(w, out):
-            ws, we = w
-            out_i[ws:we], out_d[ws:we] = self._to_external(st, *out.get())
+            def _fetch(w, out):
+                ws, we = w
+                out_i[ws:we], out_d[ws:we] = out.get()
 
-        pipelined_stream(work, _upload, _dispatch, _fetch)
-        return out_i, out_d
+            pipelined_stream(work, _upload, _dispatch, _fetch)
+            return out_i, out_d
 
     def exact_search_batch(self, queries, knbn: int, filter=None,
                            mode: str = "auto", tile: int = 16384):
@@ -849,29 +879,37 @@ def _sharded_search(devices, programs, n_live, q, masks, knbn):
     running, then one host read of each one's ``done``, so no shard's
     launches wait on another's read (the point of the reference's
     ``shard_map``). Then the merge on ``devices[0]``, which waits on the
-    shards' streams, not on the host."""
-    qs = _per_device(q, devices)
-    for p, dev, qq, m in zip(programs, devices, qs, masks):
-        with _on(dev):
-            p.start(qq, m)
+    shards' streams, not on the host. Each chunk adds the live shards to
+    ``shard.steps`` and the finished ones to ``shard.idle_steps``, so the two
+    sum to shards x chunks run."""
+    with PROFILER.span("shard.start"):
+        qs = _per_device(q, devices)
+        for p, dev, qq, m in zip(programs, devices, qs, masks):
+            with _on(dev):
+                p.start(qq, m)
     live = list(range(len(programs)))
     for j in range(programs[0].n_chunks):
-        for s in live:
-            with _on(devices[s]):
-                programs[s].step(j)
-        live = [s for s in live if not programs[s].finished(j)]
+        with PROFILER.span("shard.step"):
+            for s in live:
+                with _on(devices[s]):
+                    programs[s].step(j)
+        PROFILER.add("shard.steps", len(live))
+        PROFILER.add("shard.idle_steps", len(programs) - len(live))
+        with PROFILER.span("shard.poll"):
+            live = [s for s in live if not programs[s].finished(j)]
         if not live:
             break
-    ids, dists = [], []
-    for p, dev, n in zip(programs, devices, n_live):
-        with _on(dev):
-            i, d = p.result()
-            # an empty or padded shard can answer a valid-looking id (the entry
-            # against zero padding): mask by the live count before the merge
-            # (with a codec, the rerank has already restored exact f32
-            # distances, so the merge compares exact values across the
-            # shards' scales)
-            valid = (i >= 0) & (i < n)
-            ids.append(torch.where(valid, i, -1))
-            dists.append(torch.where(valid, d, INF))
-    return _merge_shard_topk(ids, dists, knbn, devices[0])
+    with PROFILER.span("shard.merge"):
+        ids, dists = [], []
+        for p, dev, n in zip(programs, devices, n_live):
+            with _on(dev):
+                i, d = p.result()
+                # an empty or padded shard can answer a valid-looking id (the
+                # entry against zero padding): mask by the live count before the
+                # merge (with a codec, the rerank has already restored exact f32
+                # distances, so the merge compares exact values across the
+                # shards' scales)
+                valid = (i >= 0) & (i < n)
+                ids.append(torch.where(valid, i, -1))
+                dists.append(torch.where(valid, d, INF))
+        return _merge_shard_topk(ids, dists, knbn, devices[0])

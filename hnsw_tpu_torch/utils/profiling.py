@@ -30,9 +30,16 @@ The spans (the calling thread's first):
 
 * ``search.call``: one search entry (``device_search_stream``,
   ``Hnsw.search_batch``, ``BruteForceIndex.search_batch``,
-  ``IvfFlatIndex.search_batch`` and ``search_stream``); ``search.prepare``
-  (snapshot, codec, program lookup or capture) and ``search.finish`` (host
-  work on the answers) inside it;
+  ``IvfFlatIndex.search_batch`` and ``search_stream``,
+  ``ShardedHnsw.search_batch`` and ``search_stream``); ``search.prepare``
+  (snapshot, codec, program lookup or capture) and ``search.finish`` (work
+  on the answers: on the host, or ``ShardedHnsw``'s map to external ids on
+  the first shard's device) inside it;
+* ``shard.start`` (the queries copied to each shard's device, the programs
+  started), ``shard.step`` (one chunk launched on the shards still running),
+  ``shard.poll`` (the host reads of those shards' ``done``: the lockstep's
+  wait on the slowest) and ``shard.merge`` (the shards' results masked and
+  merged on the first shard's device): ``parallel/sharded.py``;
 * ``stream.start`` (the pipeline's threads started), ``stream.wait`` (the
   dispatcher waiting for a staged batch), ``stream.dispatch`` and
   ``stream.drain`` (the last results fetched, the fetcher joined):
@@ -52,7 +59,9 @@ and on the pipeline's worker threads ``stream.upload`` with ``stream.stage``
 ``stream.sync`` (the wait for the fetch stream) inside.
 
 Counters (``PROFILER.add``): ``stream.queries`` (queries handed to the
-device search stream); ``build.rounds`` (device build rounds); on the card
+device search stream); ``shard.steps`` (chunk launches summed over the
+shards) and ``shard.idle_steps`` (per chunk, the shards already finished
+while another still runs); ``build.rounds`` (device build rounds); on the card
 the build's round programs' ``build.rounds_replayed``, ``build.first_runs``,
 ``build.captures``, ``build.capture_s``, ``build.chunk_graphs``,
 ``build.widen_replays`` and ``build.keep_replays`` (each build's own are in

@@ -17,9 +17,10 @@ import hnsw_tpu.ops.insert_rounds as jir
 import hnsw_tpu_torch.ops.insert_rounds as tir
 from hnsw_tpu.parallel.sharded import (ShardedHnsw as JShardedHnsw, default_mesh,
                                        sharded_insert_round_fn as j_round_fn)
-from hnsw_tpu_torch import ShardedHnsw, get_metric, to_arrays
+from hnsw_tpu_torch import Hnsw, ShardedHnsw, get_metric, to_arrays
 from hnsw_tpu_torch.ops import program
 from hnsw_tpu_torch.ops.insert_rounds import BuildTensors
+from hnsw_tpu_torch.parallel import sharded
 from hnsw_tpu_torch.parallel.sharded import (default_devices, sharded_insert_round_fn,
                                              sharded_program_round)
 from test_torch_build import jax_from_state
@@ -137,6 +138,84 @@ def test_mesh_build_uneven_shards(rng):
     Q = rng.random((16, d)).astype(np.float32)
     ids, dists = sh.search_batch(Q, k, 32)
     assert _recall(ids, dists, X, Q, k) >= 0.85
+
+
+def _four_shard_build(X, keep_pruned=None, scale=None):
+    """A mesh build of ``X`` over four CPU shards, after the sharded setters."""
+    sh = ShardedHnsw(n_shards=4, device="cpu", max_elements=len(X) // 4 + 8, **KW)
+    if keep_pruned is not None:
+        sh.set_keeping_pruned(keep_pruned)
+    if scale is not None:
+        sh.modify_level_scale(scale)
+    sh.parallel_insert((X, np.arange(len(X))), mode="mesh", batch_size=128)
+    return sh
+
+
+def _mean_degree0(h) -> float:
+    return float(h._layers[0].counts[: h._nb_point].mean())
+
+
+@pytest.fixture(scope="module")
+def four_builds():
+    """The same 2400 points meshed over four shards: at level scale 0.5 with
+    and without pruned links kept, and at the default scale; each build's
+    round configurations."""
+    X = np.random.default_rng(0x5B).random((2400, 16)).astype(np.float32)
+    out = {}
+    orig = sharded.sharded_insert_round_fn
+    for name, kw in (("half", dict(keep_pruned=False, scale=0.5)),
+                     ("half_kept", dict(keep_pruned=True, scale=0.5)),
+                     ("default", {})):
+        cfgs = []
+
+        def spy(devices, cfg):
+            cfgs.append(cfg)
+            return orig(devices, cfg)
+
+        sharded.sharded_insert_round_fn = spy
+        try:
+            out[name] = (_four_shard_build(X, **kw), cfgs)
+        finally:
+            sharded.sharded_insert_round_fn = orig
+    return X, out
+
+
+def test_mesh_build_takes_the_sharded_level_scale(four_builds):
+    """``modify_level_scale`` reaches every shard's level generator: the share
+    of each shard's rows above layer 0 follows the scale, exp(-1/scale)."""
+    _, builds = four_builds
+    for name, factor in (("half", 0.5), ("default", 1.0)):
+        sh = builds[name][0]
+        scale = factor / np.log(KW["max_nb_connection"])
+        for h in sh.shards:
+            assert h.get_level_scale() == pytest.approx(scale)
+            n = h._nb_point
+            share, p = float((h._level[:n] > 0).mean()), float(np.exp(-1.0 / scale))
+            assert abs(share - p) <= 4 * np.sqrt(p * (1 - p) / n) + 1 / n, (name, share, p)
+    assert all((a._level[: a._nb_point] > 0).sum() < (b._level[: b._nb_point] > 0).sum()
+               for a, b in zip(builds["half"][0].shards, builds["default"][0].shards))
+
+
+def test_mesh_build_keeps_pruned_links_when_set(four_builds):
+    """``set_keeping_pruned`` reaches every shard and the mesh build's rounds:
+    the same levels, fuller layer-0 rows, as a lone ``Hnsw``'s build."""
+    X, builds = four_builds
+    (plain, plain_cfgs), (kept, kept_cfgs) = builds["half"], builds["half_kept"]
+    assert all(h.keep_pruned for h in kept.shards) and not any(h.keep_pruned for h in plain.shards)
+    assert {c.keep_pruned for c in kept_cfgs} == {True}
+    assert {c.keep_pruned for c in plain_cfgs} == {False}
+    for a, b in zip(plain.shards, kept.shards):
+        np.testing.assert_array_equal(a._level[: a._nb_point], b._level[: b._nb_point])
+        assert _mean_degree0(b) > _mean_degree0(a)
+    lone = []
+    for keep in (False, True):
+        h = Hnsw(max_nb_connection=KW["max_nb_connection"], max_elements=len(X) // 4 + 8,
+                 ef_construction=KW["ef_construction"], dist="L2", device="cpu")
+        h.set_keeping_pruned(keep)
+        h.modify_level_scale(0.5)
+        h.parallel_insert((X[::4], np.arange(0, len(X), 4)), mode="device", batch_size=128)
+        lone.append(_mean_degree0(h))
+    assert lone[1] > lone[0]
 
 
 def test_sharded_codec_fast_path_matches_exact(meshed, data):
@@ -325,7 +404,19 @@ def test_round_through_programs_identical_to_reference(meshed, mesh8, monkeypatc
                for p in progs)
 
 
-def _one_round_against_reference(meshed, mesh8, progs):
+@pytest.mark.parametrize("form", ["eager", "programs"])
+def test_round_keeping_pruned_identical_to_reference(meshed, mesh8, monkeypatch, form):
+    """The same round with pruned links kept (the sharded cell's setting),
+    eager and through every shard's round programs, writes what the JAX
+    package's round writes."""
+    progs = None
+    if form == "programs":
+        monkeypatch.setattr(program, "Piece", DeferredPiece)
+        progs = [_programs([]) for _ in range(D)]
+    _one_round_against_reference(meshed, mesh8, progs, keep_pruned=True)
+
+
+def _one_round_against_reference(meshed, mesh8, progs, keep_pruned=False):
     """One round from the states of ``test_round_identical_to_reference``,
     eager (``progs`` None) or through ``progs`` (one ``BuildPrograms`` a
     shard), held against the JAX package's."""
@@ -358,7 +449,7 @@ def _one_round_against_reference(meshed, mesh8, progs):
         B1 = 0 if n_hi == 0 else int(min(Br, mod._next_pow2(max(8, n_hi))))
         cfg = mod.RoundConfig(B=Br, cap1=cap1, num_layers=L, widths=widths, efc=64, M=12,
                               metric="L2", expand=8, max_obs=max_obs, nonempty=nonempty,
-                              keep_pruned=False, B1=B1)
+                              keep_pruned=keep_pruned, B1=B1)
         vec = [st.vec_np() for st in states]
         tabs = [st.tables_np() for st in states]
         ind = [st.indeg0_np() for st in states]
@@ -414,6 +505,30 @@ def test_mesh_build_close_to_reference(meshed, data, jmeshed):
         same.append((ta["layer0_ids"] == tb["layer0_ids"]).all(1))
     assert np.concatenate(same).mean() >= 0.995
     r_t = _recall(*meshed.search_batch(Q, 10, 48), X, Q, 10)
+    r_j = _recall(*j.search_batch(Q, 10, 48), X, Q, 10)
+    assert abs(r_t - r_j) <= 0.005, (r_t, r_j)
+
+
+def test_mesh_build_keeping_pruned_close_to_reference(four_builds):
+    """The sharded cell's build settings (pruned links kept, level scale 0.5)
+    set on every shard of the JAX package's ``ShardedHnsw`` over four
+    devices: its mesh build of the same points and the port's are as close as
+    at the default settings (``test_mesh_build_close_to_reference``)."""
+    X, builds = four_builds
+    sh = builds["half_kept"][0]
+    j = JShardedHnsw(mesh=default_mesh(4), max_elements=len(X) // 4 + 8, **KW)
+    for h in j.shards:
+        h.set_keeping_pruned(True)
+        h.modify_level_scale(0.5)
+    j.parallel_insert((X, np.arange(len(X))), mode="mesh", batch_size=128)
+    same = []
+    for a, b in zip(sh.shards, j.shards):
+        ta, tb = to_arrays(a), to_arrays(b)
+        np.testing.assert_array_equal(ta["_level"], tb["_level"])
+        same.append((ta["layer0_ids"] == tb["layer0_ids"]).all(1))
+    assert np.concatenate(same).mean() >= 0.995
+    Q = np.random.default_rng(0x5C).random((24, 16)).astype(np.float32)
+    r_t = _recall(*sh.search_batch(Q, 10, 48), X, Q, 10)
     r_j = _recall(*j.search_batch(Q, 10, 48), X, Q, 10)
     assert abs(r_t - r_j) <= 0.005, (r_t, r_j)
 
