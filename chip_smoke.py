@@ -358,16 +358,22 @@ ID_SCORES_B, ID_SCORES_E, ID_SCORES_EF, ID_SCORES_K = 10_000, 8, 128, 384
 # difference is held against |q| |x| (Dot), (|q| + |x|)^2 for the squared L2
 # distance, and 1 for Cosine, whose terms are normalised
 ID_SCORES_TERM_RTOL = 1e-6
+# beam_step's lines: a real iteration of each cell's beam on an index at
+# sift1m's settings (M = 48, kept pruned links: a layer-0 table 104 wide): a
+# 10,000-query serve at ef 128, E 4 (serve_static's 34 iterations, a ring of
+# 136 ids) and a build round at efC 800, E 8 (a ring of 1,728)
+BEAM_STEP_SERVE_B, BEAM_STEP_SERVE_EF, BEAM_STEP_SERVE_E = 10_000, 128, 4
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms_turns(torch, fns, rounds=5, warmup=1):
+def cuda_ms_turns(torch, fns, rounds=5, warmup=1, before=None):
     """Median milliseconds of each of ``fns`` over ``rounds`` CUDA-event timed
     calls, taken in turns (a, b, a, b, ...) so that all see the same card
-    state."""
+    state; ``before``, where given, runs ahead of each call, outside the
+    timed span (to restore what a call writes in place)."""
     for _ in range(warmup):
         for fn in fns:
             fn()
@@ -375,6 +381,8 @@ def cuda_ms_turns(torch, fns, rounds=5, warmup=1):
     times = [[] for _ in fns]
     for _ in range(rounds):
         for t, fn in zip(times, fns):
+            if before is not None:
+                before()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -709,6 +717,20 @@ def beam_ids(torch, h, Q):
     return q, seen[mid][:, :ID_SCORES_K].contiguous(), shares
 
 
+def sift_settings_index(torch, X, n0, batch):
+    """An index of ``X``'s first ``n0`` rows at sift1m's settings (M = 48,
+    efC 800, level scale 0.5, kept pruned links), built in rounds of
+    ``batch``, with room for one more round."""
+    from hnsw_tpu_torch import Hnsw
+
+    h = Hnsw(max_nb_connection=48, max_elements=n0 + batch, ef_construction=800,
+             dist="L2", device="cuda")
+    h.set_keeping_pruned(True)
+    h.modify_level_scale(0.5)
+    h.parallel_insert(X[:n0], mode="device", batch_size=batch)
+    return h
+
+
 def build_round_ids(torch, X, n0=49_152, batch=16_384):
     """The ids the beam of one build round at sift1m's settings (M = 48, efC
     800, level scale 0.5, kept pruned links, batch 16,384) hands to
@@ -717,14 +739,9 @@ def build_round_ids(torch, X, n0=49_152, batch=16_384):
     beam iterations (the calls of the widest K) the one whose share of valid
     ids is the median. Returns (queries, bf16 rows, squared norms, ids, each
     iteration's share)."""
-    from hnsw_tpu_torch import Hnsw
     from hnsw_tpu_torch.ops import beam_search as bs
 
-    h = Hnsw(max_nb_connection=48, max_elements=n0 + batch, ef_construction=800,
-             dist="L2", device="cuda")
-    h.set_keeping_pruned(True)
-    h.modify_level_scale(0.5)
-    h.parallel_insert(X[:n0], mode="device", batch_size=batch)
+    h = sift_settings_index(torch, X, n0, batch)
     seen, real = [], bs.id_scores
 
     def record(metric, q, vectors, sqnorms, ids):
@@ -826,6 +843,129 @@ def cuda_ms_queued(torch, fn, n=20):
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / n
+
+
+class StepRecorder:
+    """Copies of the inputs of one real iteration's ``beam_step.select`` and
+    of the beam's ``merge`` that follows it, in the loops of ``B`` queries
+    whose ring is ``H`` ids wide: the last iteration whose number is a power
+    of two (so at least half-way through its loop) that went on to a merge.
+    In its scope both functions are wrapped; they run as they would."""
+
+    def __init__(self, torch, B, H):
+        from hnsw_tpu_torch.ops import beam_step as bstep
+
+        self.bstep, self.shape = bstep, (B, H)
+        self.it, self.hist_ptr, self.pending, self.step = 0, None, None, None
+
+    def __enter__(self):
+        real_select, real_merge = self.real = self.bstep.select, self.bstep.merge
+
+        def select(beam_ids, beam_d, hist, done, **kw):
+            if tuple(hist.shape) == self.shape:
+                if hist.data_ptr() != self.hist_ptr:  # a new loop
+                    self.it, self.hist_ptr = 0, hist.data_ptr()
+                it, self.it = self.it, self.it + 1
+                self.pending = None
+                if it and not it & (it - 1):
+                    self.pending = dict(it=it, beam_ids=beam_ids.clone(), beam_d=beam_d.clone(),
+                                        hist=hist.clone(), done=done.clone(),
+                                        kw={**kw, "tbl_ids": kw["tbl_ids"].clone()})
+            return real_select(beam_ids, beam_d, hist, done, **kw)
+
+        def merge(beam_ids, beam_d, new_ids, new_d, ef):
+            if self.pending is not None:  # the beam's merge comes first
+                self.step = self.pending, dict(beam_ids=beam_ids.clone(),
+                                               beam_d=beam_d.clone(), new_ids=new_ids.clone(),
+                                               new_d=new_d.clone(), ef=ef)
+                self.pending = None
+            return real_merge(beam_ids, beam_d, new_ids, new_d, ef)
+
+        self.bstep.select, self.bstep.merge = select, merge
+        return self
+
+    def __exit__(self, *exc):
+        self.bstep.select, self.bstep.merge = self.real
+
+
+def beam_step_rows(torch, X, Q, n0=49_152, batch=16_384):
+    """``beam_step``'s two kernels on the inputs of real iterations
+    (``StepRecorder``) on an index of ``X``'s first ``n0 + batch`` rows at
+    sift1m's settings: an eager build round of its last ``batch`` rows (efC
+    800, E 8, a ring of 1,728) and a codec-free eager serve of 10,000 of
+    ``Q`` (ef 128, E 4, 34 iterations, a ring of 136). Each kernel against
+    its plain version on the same inputs (``torch.equal`` on every output and
+    on the ring it writes), its median CUDA-event time beside the plain
+    version's (``library_ms``: the library sorts), and its bytes' bound at
+    3.35 TB/s (a query's inputs read and outputs written once)."""
+    from hnsw_tpu_torch.ops import beam_search as bs
+    from hnsw_tpu_torch.ops import beam_step as bstep
+
+    failures, rows = [], []
+    h = sift_settings_index(torch, X, n0, batch)
+    E_build = 8  # device_parallel_insert's expand
+    with eager_rounds(), StepRecorder(torch, batch, E_build * min(
+            bs.beam_iters(800, E_build), 2 * 800 // E_build + 16)) as rec:
+        h.parallel_insert(X[n0:n0 + batch], mode="device", batch_size=batch)
+    steps = [("build", rec.step, "a layer-0 build round at sift1m's settings (M = 48, efC "
+                                 "800, batch 16384) over X's first 65,536 rows")]
+    g = h.device_graph()
+    q = torch.as_tensor(Q[:BEAM_STEP_SERVE_B], device=g.vectors.device)
+    static = bs.serve_static(None, ef=BEAM_STEP_SERVE_EF, knbn=10, expand=BEAM_STEP_SERVE_E)
+    s = bs.search_begin(g, q, None, ef=static["ef"], knbn=10, expand=static["expand"],
+                        use_mask=False, max_iters=static["max_iters"], codec=None)
+    with StepRecorder(torch, len(q), s.beam.hist.shape[1]) as rec:
+        bs.beam_run(s.beam)
+    steps.append(("serve", rec.step, "a codec-free serve of 10,000 queries at ef 128 on "
+                                     "the same index"))
+    for label, step, table in steps:
+        if step is None:
+            failures.append(f"beam_step {label}: no iteration reached a merge")
+            continue
+        sel, mrg = step
+        ids, d, hist0, done, kw = (sel[k] for k in ("beam_ids", "beam_d", "hist", "done", "kw"))
+        B, W = ids.shape
+        H, E = hist0.shape[1], kw["E"]
+        K = E * kw["tbl_ids"].shape[1]
+        h_k, h_p = hist0.clone(), hist0.clone()
+        got = bstep.select(ids, d, h_k, done, **kw)
+        want = bstep.select_plain(ids, d, h_p, done, **kw)
+        torch.cuda.synchronize()
+        sel_equal = torch.equal(h_k, h_p) and all(torch.equal(a, b) for a, b in zip(got, want))
+        mi, md, ni, nd, ef = (mrg[k] for k in ("beam_ids", "beam_d", "new_ids", "new_d", "ef"))
+        merge_equal = all(torch.equal(a, b) for a, b in zip(
+            bstep.merge(mi, md, ni, nd, ef), bstep._merge_beam(mi, md, ni, nd, ef)))
+        ring = hist0.clone()
+        sel_ms, sel_plain_ms = cuda_ms_turns(
+            torch, [lambda: bstep.select(ids, d, ring, done, **kw),
+                    lambda: bstep.select_plain(ids, d, ring, done, **kw)],
+            rounds=7, warmup=2, before=lambda: ring.copy_(hist0))
+        merge_ms, merge_plain_ms = cuda_ms_turns(
+            torch, [lambda: bstep.merge(mi, md, ni, nd, ef),
+                    lambda: bstep._merge_beam(mi, md, ni, nd, ef)], rounds=7, warmup=2)
+        shape = {"B": B, "W": W, "H": H, "E": E, "K": K, "ef_out": ef,
+                 "iteration": sel["it"], "table": table,
+                 "kept_candidates": int((want[2] >= 0).sum()),
+                 "done_before": int(done.sum())}
+        # select: beam ids and distances, ring, done and the K links read; the
+        # ring's E ids, src, done and K ids written. merge: beam and
+        # candidates read, ef ids and distances written
+        for entry, ok, ms, plain_ms, nbytes in (
+                ("fused", sel_equal, sel_ms, sel_plain_ms,
+                 B * (8 * W + 4 * H + 1 + 4 * K + 8 * E + 1 + 4 * K)),
+                ("merge", merge_equal, merge_ms, merge_plain_ms, B * (8 * W + 8 * K + 8 * ef))):
+            if not ok:
+                failures.append(f"beam_step {entry} ({label}): not equal to its plain version")
+            bms, by = bound_ms(nbytes, 0, F32_FLOPS)
+            rows.append({"name": f"beam_step {entry}", "route": "cuda",
+                         "source": "hnsw_tpu_torch/csrc/beam_step.cu", "replaces": "none",
+                         "counter": "beam_step", "entry": entry, "shape_of": label,
+                         "equal": ok, "ms": ms, "library_ms": plain_ms, "bound_ms": bms,
+                         "bound_by": by, "shape": shape})
+    h = g = q = s = steps = None
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "rows": rows, "failures": failures})
+    return rows, failures
 
 
 F32_SMALL = (9000, 300, 2)  # (rows, queries, tiles per span) of the f32 checks
@@ -4175,6 +4315,9 @@ def main():
             r, f = id_scores_rows(torch, h, X, Q)
             rows += r
             failures += f
+            r, f = beam_step_rows(torch, X, Q)
+            rows += r
+            failures += f
     # the search programs paths 1-2 captured, and the bytes their pools hold,
     # released before the other paths
     emit({"phase": "programs", "held": {
@@ -4295,10 +4438,13 @@ def main():
     paths = {"path1": path1, "path2": path2, "path3": path3, "path4": path4,
              "path5": path5, **later}
     # (ran, counts, must launch there)
+    # every graph search and build runs beam_step's two entries
     needed = {"B1": [(ran1, path1, True), (ran2, path2, False)],
               "B2": [(ran1, path1, True), (ran4, path4, True), (ran5, path5, True)],
               "B3": [(ran5, path5, True)],
-              "B4": [(ran2, path2, True)], "B5": [(ran2, path2, True)]}
+              "B4": [(ran2, path2, True)], "B5": [(ran2, path2, True)],
+              **{f"beam_step {e}": [(ran1, path1, True), (ran2, path2, True),
+                                    (ran5, path5, True)] for e in ("fused", "merge")}}
     if ran5:
         other = {c: path5[c] for c in ("codec_scores_ids", "codec_scores_gathered",
                                        "scan_topk_unpacked") if path5[c]}
@@ -4338,6 +4484,9 @@ def main():
                 continue
             if counts[c] == 0:
                 if must:
+                    failures.append(f"kernel {r['name']} never launched on its path")
+            elif c == "beam_step":  # two entries, each launched every iteration
+                if counts[e] == 0:
                     failures.append(f"kernel {r['name']} never launched on its path")
             elif counts[e] != counts[c]:
                 failures.append(f"kernel {r['name']} did not run its path through the "

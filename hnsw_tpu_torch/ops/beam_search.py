@@ -24,9 +24,18 @@ entry points replay (one graph up to 48 iterations, as the reference
 unrolls; chunks above). The 8/128 alignment gate on the kernels is gone: both
 codec kernels serve every loop length and shape, and ``allow_fused`` — which
 the JAX package derives from ``max_iters <= 48`` — is the caller's switch
-here. Revisit tests are
-sorted-membership lookups (``torch.searchsorted``) instead of [B, K, H]
-broadcast compares; the answers are the same.
+here.
+
+Steps 1, 3 and 4's bookkeeping (the selection, the history ring's write,
+the revisit suppression and the merge) go through ``ops/beam_step.py``: on
+the card its kernels (``csrc/beam_step.cu``: a hash set and a merge by rank
+in shared memory, one block a query; the selection, the ring write and the
+suppression one launch, the merge another), on the CPU their plain versions,
+sorted-membership lookups (``torch.searchsorted``) and stable key-value
+sorts in place of the reference's [B, K, H] broadcast compares and
+``lax.sort``. The two routes answer bit for bit alike. The suppression reads
+the neighbour ids from the link table, also under a codec whose id rows
+carry them (they are the same table's rows).
 
 With the int8 codec, traversal scores follow the kernel's arithmetic (f32
 query against dequantized blocks), not the JAX CPU path's int8 x int8 dot
@@ -45,18 +54,13 @@ import torch
 
 from ..filter import filter_mask
 from ..utils.profiling import PROFILER
+from . import beam_step as bstep
+from .beam_step import smallest
 from .codec_scores import codec_scores, codec_scores_gathered
 from .distances import DOT_NAMES, L2_NAMES, ip_f32, scores_gathered, scores_matmul
 from .id_scores import id_scores
 
 INF = float("inf")
-
-
-def smallest(x, k: int):
-    """(values, positions) of the ``k`` smallest entries per row, ascending;
-    ties keep the lower position (``lax.top_k`` on the negated scores)."""
-    v, i = torch.sort(x, dim=1, stable=True)
-    return v[:, :k], i[:, :k]
 
 
 def _dedup_pairs(ids, dd):
@@ -71,32 +75,6 @@ def _dedup_pairs(ids, dd):
     si = torch.where(dup, -1, si)
     sd2, o2 = torch.sort(sd, dim=1, stable=True)
     return torch.gather(si, 1, o2), sd2
-
-
-def _merge_beam(beam_ids, beam_d, new_ids, new_d, ef: int):
-    """(beam ∪ candidates) -> best ef, ascending (exact, one key-value sort)."""
-    cat_ids = torch.cat([beam_ids, new_ids], dim=1)
-    cat_d = torch.cat([beam_d, new_d], dim=1)
-    sd, o = torch.sort(cat_d, dim=1, stable=True)
-    return torch.gather(cat_ids, 1, o[:, :ef]), sd[:, :ef]
-
-
-def _member(x, pool):
-    """[B,K] bool: is x[b,k] one of pool[b,:]? (sorted lookup)"""
-    ps = torch.sort(pool, dim=1).values
-    pos = torch.searchsorted(ps, x.contiguous())
-    return torch.gather(ps, 1, torch.clamp_max(pos, ps.shape[1] - 1)) == x
-
-
-def _first_occurrence_dups(nbr, valid):
-    """[B,K] bool: a valid entry whose id already occurs at a lower position
-    among the valid entries (the intra-step duplicate mask)."""
-    B = nbr.shape[0]
-    key = torch.where(valid, nbr, -1)
-    sk, order = torch.sort(key, dim=1, stable=True)
-    ds = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=nbr.device),
-                    sk[:, 1:] == sk[:, :-1]], dim=1) & (sk >= 0)
-    return torch.empty_like(ds).scatter_(1, order, ds)
 
 
 def scores_codec(codec, q, src_c, qsq, qnorm, allow_fused: bool = True):
@@ -158,7 +136,8 @@ def beam_setup(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
                max_iters: Optional[int] = None, codec=None, term_slack: float = 1.0,
                pool: int = 0, allow_fused: bool = True) -> BeamState:
     """The beam loop's set-up (arguments as ``beam_search_layer``): the
-    start beams, the reservoir, the history ring and the query norms."""
+    start beams and the reservoir (the start entries in stable ascending
+    order), the history ring and the query norms."""
     st = BeamState()
     B, d = q.shape
     cap1, M = tbl_ids.shape
@@ -177,32 +156,32 @@ def beam_setup(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
     start_ids = start_ids.to(torch.int32)
     start_dists = start_dists.to(torch.float32)
     start_ok = active[:, None] & (start_ids >= 0)
-    pad_ids = torch.full((B, ef - S), -1, dtype=torch.int32, device=dev)
-    pad_d = torch.full((B, ef - S), INF, device=dev)
-    st.beam_ids = torch.cat([torch.where(start_ok, start_ids, -1), pad_ids], dim=1)
-    st.beam_d = torch.cat([torch.where(start_ok, start_dists, INF), pad_d], dim=1)
+
+    def starts(ok, width):
+        # the start entries where ``ok`` (else -1/INF), in stable ascending
+        # order (every merge takes an ascending beam), padded to ``width``
+        ids, sd = torch.where(ok, start_ids, -1), torch.where(ok, start_dists, INF)
+        if S > 1:
+            sd, o = torch.sort(sd, dim=1, stable=True)
+            ids = torch.gather(ids, 1, o)
+        return (torch.cat([ids, torch.full((B, width - S), -1, dtype=torch.int32,
+                                           device=dev)], dim=1),
+                torch.cat([sd, torch.full((B, width - S), INF, device=dev)], dim=1))
+
+    st.beam_ids, st.beam_d = starts(start_ok, ef)
     st.use_mask = mask is not None
     st.res_ids = st.res_d = st.pool_ids = st.pool_d = None
     if st.use_mask:
         start_pass = start_ok & mask[torch.clamp(start_ids, 0, cap1 - 1).long()]
-        st.res_ids = torch.cat([torch.where(start_pass, start_ids, -1), pad_ids], dim=1)
-        st.res_d = torch.cat([torch.where(start_pass, start_dists, INF), pad_d], dim=1)
+        st.res_ids, st.res_d = starts(start_pass, ef)
     st.R = R = int(pool)
     if R:
-        seed_ok = start_pass if st.use_mask else start_ok
-        st.pool_ids = torch.cat([torch.where(seed_ok, start_ids, -1),
-                                 torch.full((B, R - S), -1, dtype=torch.int32, device=dev)], 1)
-        st.pool_d = torch.cat([torch.where(seed_ok, start_dists, INF),
-                               torch.full((B, R - S), INF, device=dev)], 1)
+        st.pool_ids, st.pool_d = starts(start_pass if st.use_mask else start_ok, R)
     st.hist = torch.full((B, H), -2, dtype=torch.int32, device=dev)  # -2 matches nothing
     st.done = ~start_ok.any(dim=1)
     qf = q.to(torch.float32)
     st.qsq = (qf * qf).sum(-1)[:, None]
     st.qnorm = torch.sqrt(torch.clamp_min(st.qsq, 1e-20))
-    # the kernel's id output replaces the table gather when the codec blocks
-    # carry this table's rows
-    st.codec_ids = (allow_fused and codec is not None and codec.id_rows > 0
-                    and codec.M0 == M and codec.blocks.dtype == torch.int8)
     st.metric_name, st.vectors, st.sqnorms, st.tbl_ids = metric_name, vectors, sqnorms, tbl_ids
     st.q, st.mask, st.codec, st.allow_fused = q, mask, codec, allow_fused
     st.ef, st.E, st.M, st.K, st.cap1 = ef, E, M, E * M, cap1
@@ -210,64 +189,38 @@ def beam_setup(metric_name: str, vectors, sqnorms, tbl_ids, q, start_ids,
     return st
 
 
-def beam_select(st: BeamState):
-    """Step 1 of an iteration: the E nearest unexpanded beam entries
-    (expanded == in the ring) and the termination test. Returns (step_done,
-    act, sel_d, pos)."""
-    beam_exp = _member(st.beam_ids, st.hist)
-    cand_d = torch.where(beam_exp | (st.beam_ids < 0), INF, st.beam_d)
-    sel_d, pos = smallest(cand_d, st.E)
-    nearest_d = sel_d[:, 0]
-    worst = st.beam_d[:, st.ef - 1]
-    if st.term_slack == 1.0:
-        thresh = worst
-    else:
-        thresh = torch.where(torch.isfinite(worst),
-                             worst + (st.term_slack - 1.0) * worst.abs(), INF)
-    step_done = st.done | (nearest_d == INF) | (nearest_d > thresh)
-    return step_done, ~step_done, sel_d, pos
+def beam_select(st: BeamState, it: int):
+    """Steps 1 and 3 of iteration ``it`` (a Python int, so the ring slot is a
+    static slice): the E nearest unexpanded beam entries (expanded == in the
+    ring), the termination test, the selected ids logged in the ring, and the
+    revisit suppression of their neighbours (``beam_step.select``: one launch
+    on the card). Returns (step_done, src_c, new_ids)."""
+    return bstep.select(st.beam_ids, st.beam_d, st.hist, st.done,
+                        slot=(it % st.n_slots) * st.E, E=st.E, term_slack=st.term_slack,
+                        cap1=st.cap1, tbl_ids=st.tbl_ids)
 
 
-def beam_expand(st: BeamState, it: int, step_done, act, sel_d, pos):
-    """Steps 2-5 of iteration ``it`` (a Python int, so the ring slot is a
-    static slice): log the selected entries in the history ring, score their
-    neighbourhoods, suppress revisits and merge into the beams."""
-    B, E, M, K, cap1 = st.beam_ids.shape[0], st.E, st.M, st.K, st.cap1
-    # 2. log them in the history ring and fetch their neighbourhoods
-    sel_ok = act[:, None] & (sel_d < INF)
-    src = torch.gather(st.beam_ids, 1, pos)
-    slot = (it % st.n_slots) * E
-    st.hist[:, slot:slot + E] = torch.where(sel_ok, src, -2)
-    src_c = torch.clamp(src, 0, cap1 - 1)
-    sc = None
+def beam_expand(st: BeamState, step_done, src_c, new_ids):
+    """Steps 2 and 4 after ``beam_select``: score the kept candidates and
+    merge them into the beams."""
+    # 2. scores: through the codec (its neighbour ids, where it gives them,
+    # are the link table's), else exact ones of the kept candidates (a
+    # suppressed one's row is never read)
     if st.codec is not None:
-        sc, nbr = scores_codec(st.codec, st.q, src_c, st.qsq, st.qnorm, st.allow_fused)
-    if not st.codec_ids:
-        nbr = st.tbl_ids[src_c.long()].reshape(B, K)
-    valid = sel_ok[:, :, None].expand(B, E, M).reshape(B, K) & (nbr >= 0)
-    # 3. revisit suppression: beam, history ring, intra-step duplicates
-    in_beam = _member(nbr, st.beam_ids)
-    in_hist = _member(nbr, st.hist)
-    dup = _first_occurrence_dups(nbr, valid)
-    valid = valid & ~in_beam & ~in_hist & ~dup
-    new_ids = torch.where(valid, nbr, -1)
-    # 4. exact scores of the valid candidates when there is no codec (an
-    # invalid one's row is never read)
-    if sc is None:
-        sc = id_scores(st.metric_name, st.q, st.vectors, st.sqnorms, new_ids)
+        sc, _ = scores_codec(st.codec, st.q, src_c, st.qsq, st.qnorm, st.allow_fused)
+        sc = torch.where(new_ids >= 0, sc, INF)
     else:
-        sc = torch.where(valid, sc, INF)
-    # 5. merge into the beams
-    st.beam_ids, st.beam_d = _merge_beam(st.beam_ids, st.beam_d, new_ids, sc, st.ef)
+        sc = id_scores(st.metric_name, st.q, st.vectors, st.sqnorms, new_ids)
+    # 4. merge into the beams
+    st.beam_ids, st.beam_d = bstep.merge(st.beam_ids, st.beam_d, new_ids, sc, st.ef)
     if st.use_mask:
-        passf = valid & st.mask[torch.where(valid, nbr, cap1 - 1).long()]
-        st.res_ids, st.res_d = _merge_beam(st.res_ids, st.res_d,
-                                           torch.where(passf, nbr, -1),
-                                           torch.where(passf, sc, INF), st.ef)
+        valid = new_ids >= 0
+        passf = valid & st.mask[torch.where(valid, new_ids, st.cap1 - 1).long()]
+        pass_ids, pass_d = torch.where(passf, new_ids, -1), torch.where(passf, sc, INF)
+        st.res_ids, st.res_d = bstep.merge(st.res_ids, st.res_d, pass_ids, pass_d, st.ef)
     if st.R:
-        c_ids = torch.where(passf, nbr, -1) if st.use_mask else new_ids
-        c_d = torch.where(passf, sc, INF) if st.use_mask else sc
-        st.pool_ids, st.pool_d = _merge_beam(st.pool_ids, st.pool_d, c_ids, c_d, st.R)
+        c_ids, c_d = (pass_ids, pass_d) if st.use_mask else (new_ids, sc)
+        st.pool_ids, st.pool_d = bstep.merge(st.pool_ids, st.pool_d, c_ids, c_d, st.R)
     st.done = step_done
 
 
@@ -276,17 +229,17 @@ def beam_step(st: BeamState, it: int):
     changes no output: ``done`` is sticky, so nothing is selected or valid,
     every merge keeps its (sorted) beam, and the ring's -2 writes are read by
     no later selection that could act."""
-    beam_expand(st, it, *beam_select(st))
+    beam_expand(st, *beam_select(st, it))
 
 
 def beam_run(st: BeamState):
     """The eager loop: up to ``max_iters`` iterations, stopping at the first
     in which every query is done (one host read per iteration)."""
     for it in range(st.max_iters):
-        sel = beam_select(st)
-        if not bool(sel[1].any()):
+        sel = beam_select(st, it)
+        if bool(sel[0].all()):
             break  # every query done: the rest of the iteration is a no-op
-        beam_expand(st, it, *sel)
+        beam_expand(st, *sel)
 
 
 def beam_finish(st: BeamState):

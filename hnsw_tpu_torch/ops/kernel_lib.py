@@ -17,9 +17,11 @@ and ``gathered_entry``, ``id_scores.id_scores_entry``): beside the wrapper's
 own count, ``<name>.<entry>`` says which entry each launch took
 (``wgmma``/``tf32x3``/``simt`` for the scans, ``bulk``/``rows`` for the fused
 codec scores, ``stream``/``rows`` for the gathered ones, ``f32``/``bf16`` for
-the id-named row scores). ``CARD_LAUNCHES`` counts the same launches by card, ``(card index,
-counter)``, for a caller that spreads work over several cards (the sharded
-tier): every card's share of a path is read there.
+the id-named row scores, ``fused``/``merge`` for the beam's bookkeeping,
+``beam_step``, which takes its entry from the caller). ``CARD_LAUNCHES``
+counts the same launches by card, ``(card index, counter)``, for a caller
+that spreads work over several cards (the sharded tier): every card's share
+of a path is read there.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hnsw_tpu_torch"
-SOURCES = ("codec_scores", "codec_scores_gathered", "id_scores", "scan_topk",
+SOURCES = ("beam_step", "codec_scores", "codec_scores_gathered", "id_scores", "scan_topk",
            "scan_topk_unpacked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,8 +47,9 @@ SCAN_ENTRIES = ("simt", "wgmma", "tf32x3")
 CODEC_ENTRIES = ("rows", "bulk")
 GATHERED_ENTRIES = ("rows", "stream")
 ID_SCORES_ENTRIES = ("f32", "bf16")
-ENTRIES = {"codec_scores_ids": CODEC_ENTRIES, "codec_scores": CODEC_ENTRIES,
-           "codec_scores_gathered": GATHERED_ENTRIES, "id_scores": ID_SCORES_ENTRIES,
+BEAM_STEP_ENTRIES = ("fused", "merge")
+ENTRIES = {"beam_step": BEAM_STEP_ENTRIES, "codec_scores_ids": CODEC_ENTRIES,
+           "codec_scores": CODEC_ENTRIES, "codec_scores_gathered": GATHERED_ENTRIES, "id_scores": ID_SCORES_ENTRIES,
            "scan_topk": SCAN_ENTRIES, "scan_topk_unpacked": SCAN_ENTRIES}
 LAUNCHES = {**{name: 0 for name in ENTRIES},
             **{f"{name}.{entry}": 0 for name, entries in ENTRIES.items()
@@ -185,6 +188,23 @@ def _bind(name: str, lib):
         lib.id_scores_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
                                          _I, _I, _P, _P]
         lib.id_scores_launch.restype = _I
+    elif name == "beam_step":
+        # (beam_ids, beam_d, B, W, hist, H, slot, E, done, done_out, src_out,
+        #  slack_m1, slack_one, cap1, tbl, ld, M, new_ids, K, threads, log_t,
+        #  stream)
+        lib.beam_step_launch.argtypes = [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                                         ctypes.c_float, _I, _I, _P, ctypes.c_longlong, _I,
+                                         _P, _I, _I, _I, _P]
+        lib.beam_step_launch.restype = _I
+        # (beam_ids, beam_d, B, W, cand_ids, cand_d, K, ef, threads, n_pad,
+        #  out_ids, out_d, stream)
+        lib.beam_step_merge_launch.argtypes = [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+        lib.beam_step_merge_launch.restype = _I
+        # shared memory bytes of a launch: (W, K, E, log_t), (W, n_pad)
+        lib.beam_step_smem.argtypes = [_I, _I, _I, _I]
+        lib.beam_step_smem.restype = ctypes.c_longlong
+        lib.beam_step_merge_smem.argtypes = [_I, _I]
+        lib.beam_step_merge_smem.restype = ctypes.c_longlong
     elif name == "scan_topk_unpacked":
         # (q, X, xsq, B, Np, d, tn, group, acc, bf16, entry, layout, outd, outi,
         #  stream)

@@ -20,8 +20,17 @@ function itself on the CPU), timed as the best of three replays over
   topk_E      the E smallest of [B, ef] (``smallest``: a stable sort)
   body        one whole ``beam_step`` (all of the above, the selection and
               the history ring) on the same table through the codec
+  bookkeeping ``ops/beam_step.py``'s ``select`` (with the link table: the
+              selection, the ring write and the suppression, one kernel
+              launch on the card) and ``merge``, and their plain versions
+              (the library sorts), at the serving cells' shape (ef 128, E 4,
+              M0 96, a ring of 34 slots, B 10,000) and the build's (ef 800,
+              E 8, M0 96, 216 slots, B 16,384), B capped at IB; each beside
+              its bytes' bound at 3.35 TB/s
 
 The JSON line on stdout holds each part's ``ms`` (and the score's GB/s),
+``bookkeeping`` (per shape: ``select_ms``, ``merge_ms``, ``plain_select_ms``,
+``plain_merge_ms``, ``bound_select_ms``, ``bound_merge_ms``),
 ``parts_ms`` (the five parts' sum), ``sort_parts_ms`` (merge + masks + topk_E,
 the parts built on sorts) and its share of the parts and of ``body``, the
 knobs and the device (the card's name and power limit). The parts are timed
@@ -47,8 +56,9 @@ import time
 import torch
 
 from ..bench import device_info, log
-from ..ops.beam_search import (_first_occurrence_dups, _member, _merge_beam, beam_setup,
-                               beam_step, smallest)
+from ..ops import beam_step as bstep
+from ..ops.beam_search import beam_setup, beam_step
+from ..ops.beam_step import _first_occurrence_dups, _member, _merge_beam, smallest
 from ..ops.codec_scores import codec_scores
 from ..ops.graph_arrays import BeamCodec
 from ..ops.program import CallProgram
@@ -97,6 +107,63 @@ def timed(device, prog, xs, outer: int = 3) -> float:
             torch.cuda.synchronize(device)
         best = min(best, time.perf_counter() - t0)
     return best
+
+
+HBM_BYTES_PER_S = 3.35e12
+# (B, ef, E, M0, ring slots): the serving cells' iteration and the build's
+BOOK_SHAPES = {"serving": (10_000, 128, 4, 96, 34), "build": (16_384, 800, 8, 96, 216)}
+
+
+def bookkeeping(device, N: int, B_cap: int, REPS: int) -> dict:
+    """``select`` (with the link table) and ``merge`` chained ``REPS`` times
+    at each of ``BOOK_SHAPES``, through the route the device takes and
+    through the plain versions: ms a call, and the bytes' bound (a query's
+    beam, ring, links and ids read and written once)."""
+    out = {}
+    for name, (B, ef, E, M0, slots) in BOOK_SHAPES.items():
+        B = min(B, B_cap)
+        H, K = E * slots, E * M0
+        gen = torch.Generator(device=device).manual_seed(11)
+        bd = torch.rand((B, ef), generator=gen, device=device)
+        bd[:, ef * 3 // 4:] = float("inf")
+        bd = torch.sort(bd, 1).values
+        bi = torch.randint(0, N - 1, (B, ef), generator=gen, dtype=torch.int32, device=device)
+        bi = torch.where(bd < float("inf"), bi, -1)
+        ring0 = torch.full((B, H), -2, dtype=torch.int32, device=device)
+        tbl = torch.randint(0, N - 1, (N, M0), generator=gen, dtype=torch.int32,
+                            device=device)
+        done = torch.zeros((B,), dtype=torch.bool, device=device)
+        new = bstep.select_plain(bi, bd, ring0.clone(), done, slot=0, E=E, term_slack=1.0,
+                                 cap1=N, tbl_ids=tbl)[2]
+        new_d = torch.where(new >= 0, torch.rand((B, K), generator=gen, device=device),
+                            float("inf"))
+        row = {}
+        for label, sel, mrg in (("", bstep.select, bstep.merge),
+                                ("plain_", bstep.select_plain, _merge_beam)):
+
+            def chain_select(ring, sel=sel):
+                for r in range(REPS):  # each call reads the ring the last one wrote
+                    sel(bi, bd, ring, done, slot=(r % slots) * E, E=E, term_slack=1.0,
+                        cap1=N, tbl_ids=tbl)
+                return (ring,)
+
+            def chain_merge(ids, d, mrg=mrg):
+                for _ in range(REPS):
+                    ids, d = mrg(ids, d, new, new_d, ef)
+                return ids, d
+
+            for part, fn, xs in (("select", chain_select, [ring0]),
+                                 ("merge", chain_merge, [bi, bd])):
+                prog = CallProgram(fn, [(tuple(x.shape), x.dtype) for x in xs], device)
+                row[f"{label}{part}_ms"] = timed(device, prog, xs) / REPS * 1e3
+        sel_bytes = B * (8 * ef + 4 * H + 8 * K + 8 * E + 2)
+        merge_bytes = B * (8 * ef + 8 * K + 8 * ef)
+        row.update(B=B, ef=ef, E=E, M0=M0, H=H, K=K,
+                   bound_select_ms=sel_bytes / HBM_BYTES_PER_S * 1e3,
+                   bound_merge_ms=merge_bytes / HBM_BYTES_PER_S * 1e3)
+        out[name] = row
+        log(f"[iter] bookkeeping {name}: {json.dumps(row)}")
+    return out
 
 
 def main(argv=None) -> dict:
@@ -202,12 +269,14 @@ def main(argv=None) -> dict:
 
     part("body", chain_body, [src0[:, 0].contiguous(), rand(B).abs()])
 
+    book = bookkeeping(device, N, B, REPS)
     sorts = sum(results[p]["ms"] for p in ("merge", "masks", "topk_E"))
     parts = sorts + results["score"]["ms"] + results["tbl_gather"]["ms"]
     out = {"tool": "exp_iter", **kn, "K": K, "id_rows": rid, **results,
            "parts_ms": parts, "sort_parts_ms": sorts,
            "sort_parts_share_of_parts": sorts / parts,
            "sort_parts_share_of_body": sorts / results["body"]["ms"],
+           "bookkeeping": book,
            "device": device_info(device)}
     print(json.dumps(out), flush=True)
     return out

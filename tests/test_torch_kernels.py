@@ -186,6 +186,7 @@ def test_cpu_wrappers_take_the_plain_version(rng):
     assert all(v == 0 for v in kernel_lib.LAUNCHES.values())
     # every wrapper has its own counter and one per kernel entry
     assert set(kernel_lib.LAUNCHES) == {
+        "beam_step", "beam_step.fused", "beam_step.merge",
         "codec_scores_ids", "codec_scores_ids.bulk", "codec_scores_ids.rows",
         "codec_scores", "codec_scores.bulk", "codec_scores.rows",
         "codec_scores_gathered", "codec_scores_gathered.stream",

@@ -228,7 +228,7 @@ def test_kernel_sources_call_no_finished_kernel():
     interface: no cuBLAS, CUTLASS, cuDNN or PyTorch header, and one source,
     launch count and binding per library."""
     from hnsw_tpu_torch.ops import kernel_lib
-    assert set(kernel_lib.SOURCES) == {"codec_scores", "codec_scores_gathered",
+    assert set(kernel_lib.SOURCES) == {"beam_step", "codec_scores", "codec_scores_gathered",
                                        "id_scores", "scan_topk", "scan_topk_unpacked"}
     for name in kernel_lib.SOURCES:
         src = (kernel_lib.CSRC / f"{name}.cu").read_text()

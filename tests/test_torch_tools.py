@@ -38,6 +38,12 @@ def test_exp_iter_tiny(monkeypatch, capsys):
         assert line[p]["ms"] > 0, p
     assert line["score"]["gbps"] > 0 and line["sort_parts_share_of_body"] > 0
     assert line["device"] == {"name": "cpu"}
+    for shape, (ef, E, K) in (("serving", (128, 4, 384)), ("build", (800, 8, 768))):
+        row = line["bookkeeping"][shape]
+        assert (row["B"], row["ef"], row["E"], row["K"]) == (64, ef, E, K)
+        for k in ("select_ms", "merge_ms", "plain_select_ms", "plain_merge_ms",
+                  "bound_select_ms", "bound_merge_ms"):
+            assert row[k] > 0, (shape, k)
 
 
 def test_exp_iter_chains_are_the_beam_pieces():
