@@ -2874,6 +2874,9 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     if any(d != torch.device("cuda", 0) for d in sh.devices):
         failures.append(f"path 5's shards are not all on cuda:0: {sh.devices}")
     blocks, _, scale, M0, _ = sh.device_codec_arrays()
+    id_rows = [c.id_rows for c in sh._codecs()]
+    if any(id_rows):
+        failures.append(f"sharded: a shard's codec carries id rows: {id_rows}")
     by_ef, stream_ids = {}, None
     for ef in (64, 96):
         ids, _ = sh.search_stream(Q, k, ef, batch=16384)
@@ -2890,8 +2893,14 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
     # a warmed batch: B3 launches and wall time, then each shard's replay
     # against a direct call of its pieces
     q1 = torch.as_tensor(Q[:16384], device="cuda")
-    _, programs, run = sh._search_fn(k, 96, None, 4, None)
+    st, programs, run = sh._search_fn(k, 96, None, 4, None)
     progs = programs(len(q1), torch.float32)
+    # each shard's program reads its own snapshot (GraphArrays, no pivot set)
+    # and its codec
+    snapshots = all(p.g is g and g.pivot_ids is None and p.codec is c
+                    for p, g, c in zip(progs, st.graphs, sh._codecs()))
+    if not snapshots:
+        failures.append("sharded: a shard's program does not hold its snapshot and codec")
     b3_before = kernel_lib.LAUNCHES["codec_scores"]
     torch.cuda.synchronize()
     t0 = time.time()
@@ -2901,6 +2910,7 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
                  "b3_launches": kernel_lib.LAUNCHES["codec_scores"] - b3_before,
                  "chunks": [p.n_chunks for p in progs],
                  "pool_bytes": sum(c.pool_bytes() for c in sh._programs),
+                 "programs_hold_snapshots": snapshots,
                  "replay_equals_direct": [replay_equals_direct(torch, p, q1) for p in progs]}
     if not all(one_batch["replay_equals_direct"]):
         failures.append("sharded: a shard's program replay differs from the direct call")
@@ -2975,7 +2985,7 @@ def phase_sharded(torch, X, Q, kth, ids_bf, k=10):
           "rounds": sh._mesh_rounds, "layer0_widths": [int(s._layers[0].width)
                                                        for s in sh.shards],
           "shard_sizes": [s._nb_point for s in sh.shards],
-          "codec": {"M0": M0, "id_rows": 0, "scales": [float(x) for x in scale],
+          "codec": {"M0": M0, "id_rows": id_rows, "scales": [float(x) for x in scale],
                     "blocks_shape": list(blocks[0].shape)},
           "by_ef": by_ef, "one_batch_ef96": one_batch, "batch_ids_equal_stream": batch_equal,
           "exact": {"queries": nq, "b2_launches": b2, "recall_at_10": r_exact,
@@ -3372,6 +3382,13 @@ def cards_equality(torch, X, Q, kth, one, many, k=10):
               for a, b, n in zip(tab_a, tab_b, sizes)]
     codec_equal = [all(torch.equal(x[s], y[s].to(dev0)) for x, y in zip(cod_a[:3], cod_b[:3]))
                    for s in range(N_SHARDS)] if cod_a and cod_b else [False]
+    # each shard's search snapshot (GraphArrays): the same tensors and fields
+    snapshots_equal = [
+        all(torch.equal(x, y.to(dev0)) for x, y in zip((ga.vectors, ga.sqnorms, *ga.layer_ids),
+                                                      (gb.vectors, gb.sqnorms, *gb.layer_ids)))
+        and (ga.entry, ga.n, ga.cap1, ga.entry_level, ga.layer_nonempty)
+        == (gb.entry, gb.n, gb.cap1, gb.entry_level, gb.layer_nonempty)
+        for ga, gb in zip(sh_a.searcher().graphs, sh_b.searcher().graphs)]
     answers = {key: answers_equal(ans_a[key], ans_b[key]) for key in ans_a}
     wrong_place = [str(d) for s, d in enumerate(sh_b.devices) if d != many[s]]
     # the manifest dumps (equal builds: equal bytes), each reloaded onto the
@@ -3407,7 +3424,8 @@ def cards_equality(torch, X, Q, kth, one, many, k=10):
     line = {"n": len(X), "shards": N_SHARDS, "forms": forms,
             "tables_equal": [e for e, _ in tables],
             "first_difference": next((d for e, d in tables if not e), None),
-            "codec_equal": codec_equal, "answers_equal": answers,
+            "codec_equal": codec_equal, "snapshots_equal": snapshots_equal,
+            "answers_equal": answers,
             "dumps_byte_equal": dumps_equal, "reload": reload_line,
             "reloads_equal": reload_equal}
     if len(program.cards(many)) < CARDS_MIN or wrong_place:
@@ -3417,6 +3435,8 @@ def cards_equality(torch, X, Q, kth, one, many, k=10):
         failures.append(f"cards: the builds' tables differ: {line['first_difference']}")
     if not all(codec_equal):
         failures.append(f"cards: the codecs differ by shard: {codec_equal}")
+    if not all(snapshots_equal):
+        failures.append(f"cards: the search snapshots differ by shard: {snapshots_equal}")
     if not all(answers.values()):
         failures.append(f"cards: answers differ across placements: {answers}")
     if not dumps_equal:

@@ -984,16 +984,11 @@ class Hnsw:
             self._device_cache = GraphArrays.from_host(self, **kw)
         return self._device_cache
 
-    # traversal codec: blocked-quantized store is the default above this size —
-    # below it the exact f32 gather is already cheap and codec build time dominates
-    CODEC_MIN_POINTS = 32_768
-    CODEC_MAX_BYTES = 8 << 30  # above this the codec's blocks dominate device memory
-
     def set_traversal_codec(self, kind, width=None):
         """Beam-traversal vector codec: ``"i8"`` (blocked int8 store + exact f32
         rerank — the fast path), ``"bf16"``, ``None`` (exact f32 gather), or
-        ``"auto"`` (default: i8 for inner-product metrics once the index exceeds
-        CODEC_MIN_POINTS and the blocks fit CODEC_MAX_BYTES).
+        ``"auto"`` (default: i8 once the index reaches ``CODEC_MIN_POINTS`` and
+        the blocks fit ``CODEC_MAX_BYTES``, ``ops/graph_arrays.py::codec_kind``).
 
         ``width`` caps the blocked neighborhood to the nearest ``width`` layer-0
         links per node (default: the full table width, 2*M)."""
@@ -1008,25 +1003,23 @@ class Hnsw:
 
     def device_codec(self):
         """The (cached) BeamCodec for the current graph version, or None."""
-        from ..ops.graph_arrays import BeamCodec
-        kind = getattr(self, "_codec_kind", "auto")
-        if kind is None or self.metric.name not in BeamCodec.SUPPORTED:
-            return None
-        if kind == "auto":
+        from ..ops.graph_arrays import BeamCodec, codec_kind
+        cw = getattr(self, "_codec_width", None)
+
+        def est():
             g0 = self.device_graph()
             w = g0.layer_ids[0].shape[1]
-            cw = getattr(self, "_codec_width", None)
             if cw is not None:
                 w = min(int(cw), w)  # width-capped codec is smaller — size it as such
-            est = g0.cap1 * (w + 8) * (self._dim or 1)  # +8: codec id rows
-            if self._nb_point < self.CODEC_MIN_POINTS or est > self.CODEC_MAX_BYTES:
-                return None
-            kind = "i8"
+            return g0.cap1 * (w + 8) * (self._dim or 1)  # +8: codec id rows
+
+        kind = codec_kind(getattr(self, "_codec_kind", "auto"), self.metric.name,
+                          self._nb_point, est)
+        if kind is None:
+            return None
         cache = getattr(self, "_codec_cache", None)
         if cache is None or cache[0] != self._version:
-            cache = (self._version,
-                     BeamCodec.build(self.device_graph(), kind=kind,
-                                     width=getattr(self, "_codec_width", None)))
+            cache = (self._version, BeamCodec.build(self.device_graph(), kind=kind, width=cw))
             self._codec_cache = cache
         return cache[1]
 

@@ -393,14 +393,11 @@ class IvfFlatIndex:
         overlapped (``ops.stream.pipelined_stream``), f16 query ingest by
         default (device math is f32 either way). Returns
         ``(ids[nq, knbn] int64, dists[nq, knbn] f32)``."""
-        from ..ops.stream import fetch_host, pipelined_stream, upload_batch
+        from ..ops.stream import fetch_host, pipelined_stream, query_stream, upload_batch
 
         with PROFILER.span("search.call"):
-            q = self._queries(queries)
-            nq = len(q)
-            out_i = np.full((nq, knbn), -1, np.int64)
-            out_d = np.full((nq, knbn), np.inf, np.float32)
-            qd = np.dtype(query_dtype) if query_dtype else np.float32
+            q, out_i, out_d, work = query_stream(self._queries(queries), knbn, batch,
+                                                 query_dtype)
             with PROFILER.span("search.prepare"):
                 self.build()
                 row2idx = self._built[5]
@@ -408,25 +405,26 @@ class IvfFlatIndex:
                 k = min(knbn, len(self._X))
                 # every batch shape's program is built before the threads start:
                 # a capture must not overlap their copies
-                dtype = torch.from_numpy(np.empty(0, qd)).dtype
-                for size in {min(batch, nq - s) for s in range(0, nq, batch)}:
+                dtype = torch.from_numpy(q[:0]).dtype
+                for size in {we - ws for ws, we in work}:
                     self._program(size, dtype, np_eff, kf)
 
-            def upload(s):
-                return upload_batch(q[s:s + batch].astype(qd), self.device)
+            def upload(w):
+                return upload_batch(q[w[0]:w[1]], self.device)
 
-            def dispatch(s, staged):
+            def dispatch(w, staged):
                 return fetch_host(self._dispatch(staged.wait(), np_eff, kf))
 
-            def fetch(s, out):
+            def fetch(w, out):
+                ws, we = w
                 rows, dd = out.get()
                 rn = rows[:, :k]
                 ii = np.where(rn >= 0, row2idx[rn], -1)
-                out_i[s:s + batch, :k] = np.where(
+                out_i[ws:we, :k] = np.where(
                     ii >= 0, self._ids[np.clip(ii, 0, len(self._ids) - 1)], -1)
-                out_d[s:s + batch, :k] = np.where(ii >= 0, dd[:, :k], np.inf)
+                out_d[ws:we, :k] = np.where(ii >= 0, dd[:, :k], np.inf)
 
-            pipelined_stream(range(0, nq, batch), upload, dispatch, fetch)
+            pipelined_stream(work, upload, dispatch, fetch)
             return out_i, out_d
 
     def search(self, data, knbn: int, ef: int = 0, filter=None):

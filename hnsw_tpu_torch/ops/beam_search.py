@@ -349,16 +349,6 @@ def descent_layer(ds: DescentState, metric_name, vectors, sqnorms, tbl, q,
         descent_hop(ds, metric_name, vectors, sqnorms, tbl, q)
 
 
-# Termination slack with a quantized codec when the caller picks none.
-DEFAULT_CODEC_SLACK = 1.0
-
-
-def _resolve_slack(term_slack, codec) -> float:
-    if term_slack is not None:
-        return float(term_slack)
-    return DEFAULT_CODEC_SLACK if codec is not None else 1.0
-
-
 def search_iters(ef: int, knbn: int, expand: int, max_iters=None,
                  pool: Optional[int] = None) -> int:
     """The beam loop's iteration cap for ``search_program``'s arguments."""
@@ -456,12 +446,13 @@ def serve_static(codec, *, ef: int, knbn: int, expand: int = 4, max_iters=None,
                  pool: int | None = None, seeds: int = 4, allow_fused: bool = True,
                  use_mask: bool = False) -> dict:
     """``search_program``'s static arguments as the serving entry points
-    derive them (``max_iters`` ``max(8, ef // expand + 2)``, the codec's
-    termination slack): the key of the program they replay."""
+    derive them (``max_iters`` ``max(8, ef // expand + 2)``, the termination
+    slack 1.0 unless given): the key of the program they replay."""
     if max_iters is None:
         max_iters = max(8, int(ef) // int(expand) + 2)
     return dict(ef=int(ef), knbn=int(knbn), expand=int(expand), use_mask=bool(use_mask),
-                max_iters=int(max_iters), term_slack=_resolve_slack(term_slack, codec),
+                max_iters=int(max_iters),
+                term_slack=1.0 if term_slack is None else float(term_slack),
                 rerank=rerank, pool=pool, seeds=int(seeds), allow_fused=bool(allow_fused))
 
 
@@ -484,20 +475,10 @@ def device_search_stream(hnsw, queries: np.ndarray, knbn: int, ef: int,
     dists) over all queries (internal ids, -1 padded). ``query_dtype="f16"``
     sends the queries as float16 (all device math stays f32). ``allow_fused``
     as in ``beam_search_layer``."""
-    from .stream import pipelined_stream, upload_batch, fetch_host
+    from .stream import fetch_host, pipelined_stream, query_stream, upload_batch
 
     with PROFILER.span("search.call"):
-        q = np.asarray(queries, np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
-        if query_dtype in ("f16", "float16", np.float16):
-            q = q.astype(np.float16)
-        elif query_dtype not in (None, "f32", "float32", np.float32):
-            raise ValueError(f"unsupported query_dtype {query_dtype!r}")
-        nq = q.shape[0]
-        out_i = np.full((nq, knbn), -1, np.int64)
-        out_d = np.full((nq, knbn), np.inf, np.float32)
-        work = [(s, min(s + batch, nq)) for s in range(0, nq, batch)]
+        q, out_i, out_d, work = query_stream(queries, knbn, batch, query_dtype)
         with PROFILER.span("search.prepare"):
             g = hnsw.device_graph()
             codec = hnsw.device_codec()
@@ -528,7 +509,7 @@ def device_search_stream(hnsw, queries: np.ndarray, knbn: int, ef: int,
             out_i[ws:we] = ids_h
             out_d[ws:we] = d_h
 
-        PROFILER.add("stream.queries", nq)
+        PROFILER.add("stream.queries", len(q))
         pipelined_stream(work, _upload, _dispatch, _fetch)
         return out_i, out_d
 

@@ -59,17 +59,19 @@ class BeamCodec:
 
     @classmethod
     def build(cls, g: "GraphArrays", kind: str = "i8", layer: int = 0,
-              width: Optional[int] = None) -> "BeamCodec":
+              width: Optional[int] = None, with_ids: bool = True) -> "BeamCodec":
         """Build from a graph snapshot. ``width`` keeps the first ``width``
         table columns (rows are distance-sorted: the nearest links); callers
-        traverse the identically sliced table (``search_program`` does)."""
+        traverse the identically sliced table (``search_program`` does).
+        ``with_ids=False`` (the sharded tier's codec, kernel B3's layout)
+        leaves the id rows out."""
         if g.metric_name not in cls.SUPPORTED:
             raise ValueError(f"codec unsupported for metric {g.metric_name}")
-        return cls._build(g, kind, layer, width)
+        return cls._build(g, kind, layer, width, with_ids)
 
     @classmethod
     def _build(cls, g: "GraphArrays", kind: str, layer: int,
-               width: Optional[int]) -> "BeamCodec":
+               width: Optional[int], with_ids: bool = True) -> "BeamCodec":
         tbl = g.layer_ids[layer]
         if width is not None and width < tbl.shape[1]:
             tbl = tbl[:, :width]
@@ -95,7 +97,7 @@ class BeamCodec:
         # out): the node's M0 table ids as int32 bytes, -1 padded to whole
         # [r_id, d] rows with M0 + r_id a multiple of 8
         r_id = 0
-        if kind != "bf16" and d % 128 == 0:
+        if with_ids and kind != "bf16" and d % 128 == 0:
             r_id = _round_up(M0 + max(1, -(-(M0 * 4) // d)), 8) - M0
         blocks = torch.empty((cap1, M0 + r_id, d), dtype=vq.dtype, device=v.device)
         blocks_sq = torch.empty((cap1, M0), dtype=torch.float32, device=v.device)
@@ -117,6 +119,24 @@ class BeamCodec:
     def nbytes(self) -> int:
         return (self.blocks.numel() * self.blocks.element_size()
                 + self.blocks_sq.numel() * 4)
+
+
+# "auto" takes the codec from this many points (below it the exact beam is
+# cheap and the codec's build dominates) while its blocks fit this many bytes.
+CODEC_MIN_POINTS = 32_768
+CODEC_MAX_BYTES = 8 << 30
+
+
+def codec_kind(kind, metric_name: str, n_points: int, est_bytes) -> Optional[str]:
+    """The codec a snapshot gets for ``set_traversal_codec``'s ``kind``:
+    None for a metric without one; under ``"auto"`` int8 from
+    ``CODEC_MIN_POINTS`` points while ``est_bytes()``, the caller's estimate
+    of the blocks, fits ``CODEC_MAX_BYTES``."""
+    if kind is None or metric_name not in BeamCodec.SUPPORTED:
+        return None
+    if kind != "auto":
+        return kind
+    return "i8" if n_points >= CODEC_MIN_POINTS and est_bytes() <= CODEC_MAX_BYTES else None
 
 
 # Pivot-start threshold: below it the greedy upper-layer descent is already
@@ -167,45 +187,44 @@ class GraphArrays:
         return len(self.layer_ids)
 
     @classmethod
-    def from_host(cls, hnsw, with_dists: bool = False,
-                  device_dtype=torch.float32) -> "GraphArrays":
+    def from_host(cls, hnsw, with_dists: bool = False, device_dtype=torch.float32,
+                  geometry: Optional[tuple] = None) -> "GraphArrays":
         """Snapshot a host index (``hnsw_tpu_torch.models.hnsw.Hnsw``) to
-        tensors on ``hnsw.device``."""
+        tensors on ``hnsw.device``; the layer distance tables only
+        ``with_dists``. ``geometry`` (set by ``shards`` alone) replaces the
+        index's own shapes and leaves the pivot set out."""
         dev = hnsw.device
         n = hnsw._nb_point
-        dim = hnsw._dim or 1
-        cap1 = _round_up(max(n, 8), 8) + 1  # +1 sink row
+        cap1, dim, widths = geometry or _geometry([hnsw])
         v = np.zeros((cap1, dim), np.float32)
         if n:
             v[:n] = np.asarray(hnsw._data[:n], np.float32)
         levels = np.full(cap1, -1, np.int32)
         levels[:n] = hnsw._level[:n]
-        max_layer = max(hnsw._layers.keys(), default=0)
         lids, ldists = [], []
-        for l in range(max_layer + 1):
+        for l, w in enumerate(widths):
             t = hnsw._layers.get(l)
-            w = hnsw._layer_width(l)
-            if t is not None:
-                w = max(w, t.width)  # repaired graphs carry reserve columns
             ids = np.full((cap1, w), -1, np.int32)
-            dd = np.full((cap1, w), np.inf, np.float32)
             if t is not None:
                 ids[:n, : t.width] = t.ids[:n]
-                dd[:n, : t.width] = t.dists[:n]
             lids.append(torch.as_tensor(ids, device=dev))
-            ldists.append(torch.as_tensor(dd, device=dev))
+            if with_dists:
+                dd = np.full((cap1, w), np.inf, np.float32)
+                if t is not None:
+                    dd[:n, : t.width] = t.dists[:n]
+                ldists.append(torch.as_tensor(dd, device=dev))
         vf = torch.as_tensor(v, device=dev)
         vec = vf.to(device_dtype)
         vv = vec.to(torch.float32)
-        nonempty = tuple(bool(hnsw.get_layer_nb_point(l) > 0) for l in range(max_layer + 1))
-        pv = compute_pivots(hnsw, lids[0], n)
+        nonempty = tuple(bool(hnsw.get_layer_nb_point(l) > 0) for l in range(len(widths)))
+        pv = compute_pivots(hnsw, lids[0], n) if geometry is None else None
         pivots = torch.as_tensor(pv, dtype=torch.int32, device=dev) if pv is not None else None
         return cls(
             vectors=vec,
             sqnorms=(vv * vv).sum(-1),
             levels=torch.as_tensor(levels, device=dev),
             layer_ids=tuple(lids),
-            layer_dists=tuple(ldists) if with_dists else (),
+            layer_dists=tuple(ldists),
             entry=int(hnsw._entry if hnsw._entry >= 0 else 0),
             pivot_ids=pivots,
             n=n,
@@ -215,3 +234,30 @@ class GraphArrays:
             metric_name=hnsw.metric.name,
             version=hnsw._version,
         )
+
+    @classmethod
+    def shards(cls, hosts) -> list:
+        """One f32 snapshot a shard of a corpus-sharded index (each on its
+        shard's device) on one geometry, so that every shard's search program
+        has the same shapes: ``_geometry`` of all the shards, the union of the
+        non-empty layers and the highest entry level. No pivot set: the
+        shards enter by the greedy descent."""
+        geometry = _geometry(hosts)
+        nonempty = tuple(any(h.get_layer_nb_point(l) > 0 for h in hosts)
+                         for l in range(len(geometry[2])))
+        level = max(h.get_max_level_observed() for h in hosts)
+        return [dataclasses.replace(cls.from_host(h, geometry=geometry),
+                                    layer_nonempty=nonempty, entry_level=level)
+                for h in hosts]
+
+
+def _geometry(hosts) -> tuple:
+    """(cap1, dim, one width a layer) that holds every host index's rows
+    (+1: the sink row) and each layer's widest table (repaired graphs carry
+    reserve columns)."""
+    cap1 = max(_round_up(max(h._nb_point, 8), 8) + 1 for h in hosts)
+    dim = next((h._dim for h in hosts if h._dim), 1)
+    L = max(max(h._layers.keys(), default=0) + 1 for h in hosts)
+    return cap1, dim, [max([hosts[0]._layer_width(l)]
+                           + [h._layers[l].width for h in hosts if l in h._layers])
+                       for l in range(L)]

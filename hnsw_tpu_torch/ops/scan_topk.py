@@ -529,19 +529,9 @@ def l2_topk_stream(queries: np.ndarray, X, xsq, k: int, *, tn: int = SCAN_TN,
     stream. Returns (dists [nq, k] f32, ids [nq, k] int64 — scan row
     indices)."""
     from .program import ProgramCache
-    from .stream import pipelined_stream, upload_batch, fetch_host
+    from .stream import fetch_host, pipelined_stream, query_stream, upload_batch
 
-    q = np.asarray(queries, np.float32)
-    if q.ndim == 1:
-        q = q[None, :]
-    if query_dtype in ("f16", "float16", np.float16):
-        q = q.astype(np.float16)
-    elif query_dtype not in (None, "f32", "float32", np.float32):
-        raise ValueError(f"unsupported query_dtype {query_dtype!r}")
-    nq = q.shape[0]
-    out_d = np.empty((nq, k), np.float32)
-    out_i = np.empty((nq, k), np.int64)
-    work = [(s, min(s + batch, nq)) for s in range(0, nq, batch)]
+    q, out_i, out_d, work = query_stream(queries, k, batch, query_dtype)
     dev = X.device
     # built before the stream's threads start: a capture must not overlap
     # their copies

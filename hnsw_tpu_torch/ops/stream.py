@@ -13,7 +13,9 @@ specifics live in two helpers the stages use:
     thread waits on it from a second side stream, copies the results into
     pinned host memory and hands back numpy arrays.
 
-CPU tensors pass straight through both helpers.
+CPU tensors pass straight through both helpers. ``query_stream`` is the
+front end every stream shares: the queries cast, the outputs and the
+batches.
 
 The helper owns the shutdown/error contract: an exception in any stage
 propagates to the caller, a blocked uploader is drained, and the fetcher
@@ -52,6 +54,25 @@ class _Staged:
             cur.wait_event(self.event)
             self.tensor.record_stream(cur)
         return self.tensor
+
+
+def query_stream(queries, k: int, batch: int, query_dtype=None):
+    """The start every pipelined search shares: the queries as float32 rows
+    (one query a batch of one), or float16 where ``query_dtype`` says
+    ``"f16"`` (any other than f16 or f32 raises ValueError); the outputs,
+    ids [nq, k] int64 of -1 and distances [nq, k] of inf; and the (start,
+    end) rows of each batch of ``batch``. Returns (queries, ids, dists,
+    batches)."""
+    q = np.asarray(queries, np.float32)
+    if q.ndim == 1:
+        q = q[None, :]
+    if query_dtype in ("f16", "float16", np.float16):
+        q = q.astype(np.float16)
+    elif query_dtype not in (None, "f32", "float32", np.float32):
+        raise ValueError(f"unsupported query_dtype {query_dtype!r}")
+    nq, batch = q.shape[0], int(batch)
+    return (q, np.full((nq, k), -1, np.int64), np.full((nq, k), np.inf, np.float32),
+            [(s, min(s + batch, nq)) for s in range(0, nq, batch)])
 
 
 def upload_batch(arr: np.ndarray, device) -> _Staged:

@@ -3,43 +3,36 @@
 
 The JAX package runs one program over a device mesh (``shard_map``), driven
 by one Python process. The port keeps that single-controller design without
-``torch.distributed``: one process holds a list of torch devices, and shard
-``s`` lives on ``devices[s]`` — its vectors, tables, codec and scan copy, and
-its beam program. On several cards the shards' launches overlap because
-CUDA is asynchronous, and a shard's work runs with its card current
-(``_on``); the shards answer bit for bit what the same shards answer on one
-card. A device may also appear more than once (several shards on one card,
-which then share its pool budget, or on the CPU in the tests).
+``torch.distributed``: shard ``s`` lives on ``devices[s]`` and runs the
+one-card device layer there: its ``GraphArrays`` snapshot
+(``GraphArrays.shards``, one geometry for all shards), its ``BeamCodec``
+(without id rows: kernel B3) and its search programs, keyed by
+``program_key`` as the one-card ones are. A device may repeat (several
+shards on one card share its pool budget; the CPU in the tests). The shards'
+launches overlap across cards because CUDA is asynchronous, each with its
+card current (``_on``), and answer bit for bit what they answer on one card.
 
-  * **build**: the corpus is split round-robin; ``mode="mesh"`` runs one
-    synchronized insertion round per shard per step on one shared geometry,
-    subgraphs being independent: on the card through each shard's round
-    programs (``ops/program.py::BuildPrograms``), interleaved part by part
-    and chunk by chunk across the shards, as the search is; on the CPU the
-    eager ``round_step`` per shard;
-  * **search**: every shard runs the single-card search program (the int8
-    codec without id rows, so kernel B3 scores each beam iteration, then the
-    exact rerank), captured per shard on its device (``ops/program.py``; the
-    chunked form, the cap being ``4*ef//E + 32``) and replayed chunk by chunk
-    across the shards, one host read of each shard's ``done`` per chunk;
-    each shard's (local id, distance) rows are copied to ``devices[0]`` and
-    merged there by a stable sort, which takes the place of the mesh's
-    ``all_gather`` and replicated sort. External ids stay int64, in a table
-    on ``devices[0]``, and one gather there maps the merged rows before the
-    fetch. The fan-out, lockstep and merge record the ``shard.*`` spans and
-    counters of ``utils/profiling.py``;
-  * **exact search**: every shard scans its slice, through the packed exact
-    scan (kernel B2) over a bf16 copy or a tiled running top-k, each shard's
-    scan a captured program in its cache (``CallProgram``), and the same
-    merge follows.
+  * **build**: the corpus is dealt round-robin; ``mode="mesh"`` runs one
+    synchronized round per shard per step on one shared geometry, on the
+    card through each shard's round programs (``BuildPrograms``), part by
+    part in ``_lockstep``, on the CPU the eager ``round_step``; the device
+    tables then seed the snapshots;
+  * **search**: every shard's chunked program (the cap ``4*ef//E + 32``) in
+    ``_lockstep``: chunk j on every shard still running, then one host read
+    of each one's ``done``. The shards' (local id, distance) rows are merged
+    on ``devices[0]`` by a stable sort (the mesh's ``all_gather`` and
+    replicated sort) and one gather there maps them to int64 external ids
+    before the fetch. The fan-out, lockstep and merge record the ``shard.*``
+    spans and counters of ``utils/profiling.py``;
+  * **exact search**: every shard scans its slice (kernel B2 over a bf16
+    copy, or a tiled running top-k), a captured ``CallProgram`` each, and
+    the same merge follows.
 
-Left out, as TPU habits: the batch padding to a multiple of 8, ``pick_tn``
-(the scan takes the port's ``SCAN_TN``/``scan_acc`` geometry), the codec's
-M0 padding and width rounding to 8. The program cache is per shard
-(``ProgramCache``), dropped with a new graph version or codec. Kept: stable
-sorts (ties to the lower position) and the mesh build's use of the
-in-degree guarantee whatever ``HNSW_BUILD_PROTECT`` and ``HNSW_MIN_INDEG``
-say (a fault of the reference, ``sharded.py:209``, reproduced on purpose).
+Left out, as TPU habits: the batch padding to a multiple of 8, ``pick_tn``,
+the codec's M0 padding and width rounding to 8. Kept: stable sorts (ties to
+the lower position) and the mesh build's in-degree guarantee whatever
+``HNSW_BUILD_PROTECT`` and ``HNSW_MIN_INDEG`` say (a fault of the
+reference, ``sharded.py:209``, reproduced on purpose).
 """
 
 from __future__ import annotations
@@ -54,19 +47,18 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..filter import filter_mask
 from ..io.hnswio import HnswIo
 from ..models.hnsw import Hnsw
-from ..ops.beam_search import _resolve_slack, smallest
+from ..ops.beam_search import _device_mask, smallest
 from ..ops.distances import get_metric
-from ..ops.graph_arrays import BeamCodec, _round_up
+from ..ops.graph_arrays import BeamCodec, GraphArrays, codec_kind
 from ..ops import program
 from ..ops.insert_rounds import (BuildTensors, HostBuildState, RoundConfig, _next_pow2,
                                  round_step)
-from ..ops.program import POOL_SHARE, CallProgram, ProgramCache, SearchProgram
+from ..ops.program import POOL_SHARE, CallProgram, ProgramCache, SearchProgram, program_key
 from ..ops.scan_topk import (SCAN_GROUP, SCAN_TN, l2_topk, refine_width, scan_acc,
                              scan_depth)
-from ..ops.stream import fetch_host, pipelined_stream, upload_batch
+from ..ops.stream import fetch_host, pipelined_stream, query_stream, upload_batch
 from ..utils.device import resolve_device
 from ..utils.profiling import PROFILER
 
@@ -119,20 +111,20 @@ def _per_device(x, devices):
 
 @dataclasses.dataclass
 class _ShardState:
-    """Per-shard device state on one shared geometry (lists indexed by shard)."""
+    """The sharded search's device state at one set of graph versions: one
+    snapshot a shard on one shared geometry, the external ids of every
+    shard's rows, and what is built on the snapshots."""
 
-    vectors: list  # [cap1, d] f32 per shard
-    sqnorms: list  # [cap1] per shard
-    n_live: list  # live points per shard (masks padding rows and empty shards)
+    graphs: list  # per shard: its GraphArrays, on its device (``n`` its live rows)
     origin: torch.Tensor  # [D, cap1] int64 external ids (-1 pad), on devices[0]:
     # ids stay 64-bit (reference DataId is usize, src/hnsw.rs:51); the merge
     # carries (shard, local id) pairs and one gather maps them before the fetch
-    layer_ids: list  # per shard: tuple of [cap1, w_l] int32, one per layer
-    entry: list  # entry point per shard
-    cap1: int
-    num_layers: int
-    layer_nonempty: tuple
-    entry_level: int
+    codec: Optional[tuple] = None  # ((kind, width), one BeamCodec a shard)
+    scans: dict = dataclasses.field(default_factory=dict)  # tn: the exact scan's copies
+
+    @property
+    def cap1(self) -> int:
+        return self.graphs[0].cap1
 
 
 class ShardedHnsw:
@@ -156,8 +148,6 @@ class ShardedHnsw:
         self._versions = None
         self._codec_kind = "auto"
         self._codec_width = None
-        self._codec_state = None
-        self._scan_state = None
         # per shard: its captured search programs (ops/program.py), the
         # shards of one card sharing an index's share of its memory
         self._programs = [ProgramCache(share) for share in pool_shares(self.devices)]
@@ -197,7 +187,8 @@ class ShardedHnsw:
             raise ValueError(f"unknown codec kind {kind!r}")
         self._codec_kind = kind
         self._codec_width = width
-        self._codec_state = None
+        if self._state is not None:
+            self._state.codec = None
         for c in self._programs:
             c.clear()
 
@@ -252,7 +243,7 @@ class ShardedHnsw:
         the shards' round programs on the card (``sharded_program_round``;
         ``self._round_stats``, one dict a shard) and ``round_step`` on the CPU
         (``sharded_insert_round_fn``); afterwards the device tables seed the
-        search state directly."""
+        shards' snapshots directly."""
         D = self.n_shards
         dim = next((b[0].shape[1] for b in buckets if len(b[0])), None)
         if dim is None:
@@ -324,110 +315,69 @@ class ShardedHnsw:
             self._round_stats = [p.report() for p in progs]
             for p in progs:
                 p.clear()
-        org = np.full((D, cap1), -1, np.int64)
-        n_live = []
-        for s in range(D):
-            n = self.shards[s]._nb_point
-            n_live.append(n)
-            org[s, :n] = self.shards[s]._origin[:n]
-        self._state = _ShardState(
-            vectors=vectors, sqnorms=sqnorms, n_live=n_live,
-            origin=torch.as_tensor(org, device=self.devices[0]),
-            layer_ids=[tuple(t[0] for t in tables[s]) for s in range(D)],
-            entry=[int(st.entry) for st in states], cap1=cap1, num_layers=L,
-            layer_nonempty=tuple(bool(any(st.counts[l] > 0 for st in states))
-                                 for l in range(L)),
-            entry_level=max(st.entry_level for st in states))
-        self._versions = tuple(s._version for s in self.shards)
+        nonempty = tuple(bool(any(st.counts[l] > 0 for st in states)) for l in range(L))
+        level = max(st.entry_level for st in states)
+        self._build_state([
+            GraphArrays(vectors=vectors[s], sqnorms=sqnorms[s], levels=levels[s],
+                        layer_ids=tuple(t[0] for t in tables[s]), layer_dists=(),
+                        entry=int(st.entry), n=self.shards[s]._nb_point, cap1=cap1,
+                        entry_level=level, layer_nonempty=nonempty,
+                        metric_name=h0.metric.name, version=self.shards[s]._version)
+            for s, st in enumerate(states)])
 
     # ---------------------------------------------------------- device state -----
 
-    def _build_state(self) -> _ShardState:
-        """The per-shard device state from the host shards (cached per graph
-        version), on one geometry: the largest shard's row count and each
-        layer's widest table."""
+    def _build_state(self, graphs=None) -> _ShardState:
+        """The search state on the shards' snapshots: ``graphs`` (the mesh
+        build's), else ``GraphArrays.shards`` of the host shards; cached per
+        graph version."""
         versions = tuple(s._version for s in self.shards)
-        if self._state is not None and self._versions == versions:
-            return self._state
-        sh = self.shards
-        cap1 = max(_round_up(max(s._nb_point, 8), 8) + 1 for s in sh)  # +1 sink row
-        L = max(max(s._layers.keys(), default=0) + 1 for s in sh)
-        d = next((s._dim for s in sh if s._dim), 1)
-        widths = [max([sh[0]._layer_width(l)] + [s._layers[l].width for s in sh
-                                                  if l in s._layers]) for l in range(L)]
-        org = np.full((self.n_shards, cap1), -1, np.int64)
-        vectors, sqnorms, layer_ids, entry, n_live = [], [], [], [], []
-        for s, (h, dev) in enumerate(zip(sh, self.devices)):
-            n = h._nb_point
-            vec = np.zeros((cap1, d), np.float32)
-            if n:
-                vec[:n] = np.asarray(h._data[:n], np.float32)
-            org[s, :n] = h._origin[:n]
-            tabs = []
-            for l in range(L):
-                ids = np.full((cap1, widths[l]), -1, np.int32)
-                t = h._layers.get(l)
-                if t is not None:
-                    ids[:n, : t.width] = t.ids[:n]
-                tabs.append(torch.as_tensor(ids, device=dev))
-            v = torch.as_tensor(vec, device=dev)
-            vectors.append(v)
-            sqnorms.append((v * v).sum(-1))
-            layer_ids.append(tuple(tabs))
-            entry.append(int(max(h._entry, 0)))
-            n_live.append(n)
-        state = _ShardState(
-            vectors=vectors, sqnorms=sqnorms, n_live=n_live,
-            origin=torch.as_tensor(org, device=self.devices[0]),
-            layer_ids=layer_ids, entry=entry, cap1=cap1, num_layers=L,
-            layer_nonempty=tuple(any(h.get_layer_nb_point(l) > 0 for h in sh)
-                                 for l in range(L)),
-            entry_level=max(h.get_max_level_observed() for h in sh))
-        self._state = state
+        if graphs is None:
+            if self._state is not None and self._versions == versions:
+                return self._state
+            graphs = GraphArrays.shards(self.shards)
+        org = np.full((self.n_shards, graphs[0].cap1), -1, np.int64)
+        for s, h in enumerate(self.shards):
+            org[s, :h._nb_point] = h._origin[:h._nb_point]
+        self._state = _ShardState(graphs, torch.as_tensor(org, device=self.devices[0]))
         self._versions = versions
-        return state
+        return self._state
+
+    def _codecs(self) -> Optional[list]:
+        """Every shard's traversal codec, ``BeamCodec.build`` on its snapshot
+        without id rows (kernel B3 scores it), or None. Cached per graph
+        version and codec setting."""
+        def est():  # "auto": all the shards' blocks as on one card
+            g = self._build_state().graphs[0]
+            w = g.layer_ids[0].shape[1]
+            w = w if self._codec_width is None else min(int(self._codec_width), w)
+            return self.n_shards * g.cap1 * w * g.vectors.shape[1]
+
+        kind = codec_kind(self._codec_kind, self.shards[0].metric.name, len(self), est)
+        if kind is None:
+            return None
+        st, key = self._build_state(), (kind, self._codec_width)
+        if st.codec is None or st.codec[0] != key:
+            codecs = []
+            for g, dev in zip(st.graphs, self.devices):
+                with _on(dev):
+                    codecs.append(BeamCodec.build(g, kind, width=self._codec_width,
+                                                  with_ids=False))
+            st.codec = (key, codecs)
+        return st.codec[1]
 
     def device_codec_arrays(self):
-        """The per-shard blocked traversal codec, built on each shard's device
-        (``_sharded_codec_build_fn``), or None: ``(blocks, blocks_sq, scale,
-        M0, dim)`` with one ``[cap1, M0, d]`` block table, ``[cap1, M0]``
-        squared norms and scale per shard. The blocks carry no id rows, so the
-        search scores them through kernel B3."""
-        kind = self._codec_kind
-        metric = self.shards[0].metric.name
-        if kind is None or metric not in BeamCodec.SUPPORTED:
+        """``_codecs`` as ``(blocks, blocks_sq, scale, M0, dim)``, a list of
+        each shard's tensors in the first three, or None."""
+        codecs = self._codecs()
+        if codecs is None:
             return None
-        st = self._build_state()
-        w = st.layer_ids[0][0].shape[1]
-        if self._codec_width is not None:
-            w = min(int(self._codec_width), w)
-        if kind == "auto":
-            d = st.vectors[0].shape[1]
-            est = self.n_shards * st.cap1 * w * d
-            if len(self) < Hnsw.CODEC_MIN_POINTS or est > Hnsw.CODEC_MAX_BYTES:
-                return None
-            kind = "i8"
-        versions = tuple(s._version for s in self.shards)
-        cs = self._codec_state
-        if cs is not None and cs[0] == (versions, kind, self._codec_width):
-            return cs[1]
-        tbl = [t[0][:, :w] for t in st.layer_ids]
-        blocks, bsq, scale = _sharded_codec_build_fn(self.devices, metric, kind)(
-            st.vectors, tbl)
-        out = (blocks, bsq, scale, int(w), int(st.vectors[0].shape[1]))
-        self._codec_state = ((versions, kind, self._codec_width), out)
-        return out
+        return ([c.blocks for c in codecs], [c.blocks_sq for c in codecs],
+                [c.scale for c in codecs], codecs[0].M0, codecs[0].dim)
 
     def _masks(self, filter, st: _ShardState):
         """The filter as one [cap1] bool mask per shard, on its device."""
-        out = []
-        for sh, dev in zip(self.shards, self.devices):
-            m = np.zeros(st.cap1, bool)
-            n = sh._nb_point
-            if n:
-                m[:n] = filter_mask(filter, sh._origin[:n])
-            out.append(torch.as_tensor(m, device=dev))
-        return out
+        return [_device_mask(h, g, filter) for h, g in zip(self.shards, st.graphs)]
 
     @staticmethod
     def _external(st: _ShardState, local, shard, dists):
@@ -451,40 +401,25 @@ class ShardedHnsw:
         where ``programs(batch, dtype)`` builds (or finds) every shard's
         search program for a batch shape and ``run(q)`` answers a batch."""
         st = self._build_state()
-        codec = self.device_codec_arrays()
-        if codec is not None:
-            blocks, bsq, scale, M0, dim = codec
-        else:
-            M0 = dim = 0
+        codecs = self._codecs() or [None] * self.n_shards
         masks = self._masks(filter, st) if filter is not None else [None] * self.n_shards
-        cfg = _SearchCfg(num_layers=st.num_layers, layer_nonempty=st.layer_nonempty,
-                         cap1=st.cap1, entry_level=st.entry_level,
-                         metric=self.shards[0].metric.name, ef=int(ef), knbn=int(knbn),
-                         expand=int(expand), use_codec=codec is not None, codec_M0=M0,
-                         codec_dim=dim, use_mask=filter is not None,
-                         rerank=None if rerank is None else int(rerank))
+        # the beam's own cap (4*ef//E + 32: the chunked program) and no pivot
+        # seeds, as the JAX package's shards search
+        static = dict(ef=int(ef), knbn=int(knbn), expand=int(expand),
+                      use_mask=filter is not None, max_iters=None, term_slack=1.0,
+                      rerank=None if rerank is None else int(rerank), pool=None, seeds=1,
+                      allow_fused=True)
         tag = self._program_tag()
 
-        def build(s, batch, dtype):
-            g = _GA(vectors=st.vectors[s], sqnorms=st.sqnorms[s], levels=None,
-                    layer_ids=st.layer_ids[s], layer_dists=(), entry=st.entry[s],
-                    n=cfg.cap1 - 1, cap1=cfg.cap1, entry_level=cfg.entry_level,
-                    layer_nonempty=cfg.layer_nonempty, metric_name=cfg.metric,
-                    num_layers=cfg.num_layers)
-            c = (BeamCodec(blocks=blocks[s], blocks_sq=bsq[s], scale=scale[s], M0=M0,
-                           dim=dim, metric_name=cfg.metric) if codec is not None else None)
-            return SearchProgram(g, c, batch, dtype, self.devices[s], ef=cfg.ef,
-                                 knbn=cfg.knbn, expand=cfg.expand, use_mask=cfg.use_mask,
-                                 term_slack=_resolve_slack(None, c), rerank=cfg.rerank)
-
         def programs(batch, dtype):
-            return [self._programs[s].get(tag, (int(batch), str(dtype), cfg),
-                                          lambda s=s: build(s, batch, dtype))
-                    for s in range(self.n_shards)]
+            return [self._programs[s].get(
+                tag, program_key(g, c, batch, dtype, dev, **static),
+                lambda g=g, c=c, dev=dev: SearchProgram(g, c, batch, dtype, dev, **static))
+                for s, (g, c, dev) in enumerate(zip(st.graphs, codecs, self.devices))]
 
         def run(q):
-            return _sharded_search(self.devices, programs(q.shape[0], q.dtype),
-                                   st.n_live, q, masks, cfg.knbn)
+            return _sharded_search(self.devices, programs(q.shape[0], q.dtype), q, masks,
+                                   int(knbn))
         return st, programs, run
 
     def _program_tag(self):
@@ -499,9 +434,7 @@ class ShardedHnsw:
         is on), then the merge on ``devices[0]``. Returns (external ids
         [B, k] int64, -1 padded, dists [B, k])."""
         with PROFILER.span("search.call"):
-            q = np.asarray(queries, np.float32)
-            if q.ndim == 1:
-                q = q[None]
+            q = np.atleast_2d(np.asarray(queries, np.float32))
             with PROFILER.span("search.prepare"):
                 st, _, run = self._search_fn(knbn, ef, filter, expand, rerank)
             out = run(torch.as_tensor(q, device=self.devices[0]))
@@ -514,14 +447,13 @@ class ShardedHnsw:
         its squared norms with 3e38 past the live rows so that padding never
         enters a top-k (the sharded counterpart of ``pad_corpus``); cached per
         graph version."""
-        versions = tuple(s._version for s in self.shards)
-        cs = self._scan_state
-        if cs is not None and cs[0] == (versions, tn):
-            return cs[1]
         st = self._build_state()
+        if tn in st.scans:
+            return st.scans[tn]
         Np = -(-st.cap1 // tn) * tn
         Xp, xsqp = [], []
-        for v, sq, n in zip(st.vectors, st.sqnorms, st.n_live):
+        for g in st.graphs:
+            v, sq, n = g.vectors, g.sqnorms, g.n
             vb = torch.zeros((Np, scan_depth(v.shape[1])), dtype=torch.bfloat16,
                              device=v.device)
             vb[: st.cap1, : v.shape[1]] = v.to(torch.bfloat16)
@@ -529,8 +461,8 @@ class ShardedHnsw:
             xs[:n] = sq[:n]
             Xp.append(vb)
             xsqp.append(xs)
-        self._scan_state = ((versions, tn), (Xp, xsqp, Np))
-        return self._scan_state[1]
+        st.scans[tn] = (Xp, xsqp, Np)
+        return st.scans[tn]
 
     def search_stream(self, queries, knbn: int, ef: int, filter=None,
                       expand: int = 4, rerank: Optional[int] = None,
@@ -541,17 +473,7 @@ class ShardedHnsw:
         queries as float16 (the search runs in f32). Returns (external ids
         [nq, k] int64, -1 padded, dists [nq, k])."""
         with PROFILER.span("search.call"):
-            q = np.asarray(queries, np.float32)
-            if q.ndim == 1:
-                q = q[None]
-            if query_dtype in ("f16", "float16", np.float16):
-                q = q.astype(np.float16)
-            elif query_dtype not in (None, "f32", "float32", np.float32):
-                raise ValueError(f"unsupported query_dtype {query_dtype!r}")
-            nq = q.shape[0]
-            out_i = np.full((nq, knbn), -1, np.int64)
-            out_d = np.full((nq, knbn), np.inf, np.float32)
-            work = [(s, min(s + int(batch), nq)) for s in range(0, nq, int(batch))]
+            q, out_i, out_d, work = query_stream(queries, knbn, batch, query_dtype)
             with PROFILER.span("search.prepare"):
                 st, programs, run = self._search_fn(knbn, ef, filter, expand, rerank)
                 dtype = torch.from_numpy(q[:0]).dtype
@@ -598,10 +520,8 @@ class ShardedHnsw:
         if mode == "auto":
             mode = ("pallas" if metric in ("L2", "DistL2") and filter is None
                     and knbn <= 128 else "tiled")
-        q = np.asarray(queries, np.float32)
-        if q.ndim == 1:
-            q = q[None]
-        qd = torch.as_tensor(q, device=self.devices[0])
+        qd = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
+                             device=self.devices[0])
         k = int(min(knbn, st.cap1))
         masks = None
         if mode == "pallas":
@@ -609,12 +529,12 @@ class ShardedHnsw:
                 raise ValueError("pallas sharded scan is L2-only, unfiltered")
             Xp, xsqp, Np = self._scan_arrays(SCAN_TN)
             local_scan = _sharded_scan_pallas_fn(k, SCAN_TN, Np, st.cap1)
-            held = list(zip(st.vectors, st.n_live, Xp, xsqp))
+            held = [(g.vectors, g.n, x, xs) for g, x, xs in zip(st.graphs, Xp, xsqp)]
             tile = None
         elif mode == "tiled":
             tile = int(min(tile, st.cap1))
             local_scan = _sharded_scan_fn(metric, k, tile)
-            held = list(zip(st.vectors, st.sqnorms, st.n_live))
+            held = [(g.vectors, g.sqnorms, g.n) for g in st.graphs]
             if filter is not None:
                 masks = self._masks(filter, st)
         else:
@@ -636,11 +556,8 @@ class ShardedHnsw:
             dists.append(d)
         local, shard, dists = _merge_shard_topk(ids, dists, k, self.devices[0])
         ids, dists = self._to_external(st, local, shard, dists)
-        if ids.shape[1] < knbn:
-            pad = knbn - ids.shape[1]
-            ids = np.concatenate([ids, np.full((len(ids), pad), -1, np.int64)], 1)
-            dists = np.concatenate([dists, np.full((len(ids), pad), np.inf, np.float32)], 1)
-        return ids, dists
+        pad = ((0, 0), (0, knbn - ids.shape[1]))  # k past the rows: -1 / inf
+        return np.pad(ids, pad, constant_values=-1), np.pad(dists, pad, constant_values=INF)
 
     # --------------------------------------------------------------- persist -----
 
@@ -699,67 +616,52 @@ def sharded_insert_round_fn(devices, cfg):
     return step
 
 
+def _lockstep(devices, parts, inputs=None, traced=False):
+    """Run one program a shard (``parts[s]`` on ``devices[s]``: a search's
+    ``SearchProgram`` or a part of a build round) in lockstep: ``start`` on
+    every card (with ``inputs()``'s arguments, one tuple a shard), then chunk
+    j on every shard still looping, each with its card current, and one host
+    read of each one's flag, so no shard's launches wait on another's read.
+    ``traced`` (the search) records the spans ``shard.start``, ``.step`` and
+    ``.poll`` and adds each chunk's live shards to ``shard.steps``, its
+    finished ones to ``shard.idle_steps`` (the two sum to shards x chunks)."""
+    span = PROFILER.span if traced else (lambda name: contextlib.nullcontext())
+    with span("shard.start"):
+        for p, dev, args in zip(parts, devices, inputs() if inputs else [()] * len(parts)):
+            with _on(dev):
+                p.start(*args)
+    live = list(range(len(parts)))
+    for j in range(parts[0].n_chunks):
+        with span("shard.step"):
+            for s in live:
+                with _on(devices[s]):
+                    parts[s].step(j)
+        if traced:
+            PROFILER.add("shard.steps", len(live))
+            PROFILER.add("shard.idle_steps", len(parts) - len(live))
+        with span("shard.poll"):
+            live = [s for s in live if not parts[s].finished(j)]
+        if not live:
+            break
+
+
 def sharded_program_round(devices, programs, bts, cfg, batch_ids, entry):
     """One synchronized insertion round on every shard through its round
     programs (``programs[s]``, a ``BuildPrograms`` on ``devices[s]``, on the
-    shard's ``BuildTensors`` ``bts[s]``), part by part: each part's ``begin``
-    on every shard, then chunk j on every shard still looping followed by
-    one host read of each one's flag, so no shard's launches wait on
-    another's read, then each part's ``end``. The tables and in-degrees are
-    updated in place."""
+    shard's ``BuildTensors`` ``bts[s]``), part by part: each part in
+    ``_lockstep`` across the shards, then its ``end`` on every shard. The
+    tables and in-degrees are updated in place."""
     rounds = []
     for s, dev in enumerate(devices):
         with _on(dev):
             rounds.append(programs[s].programs(bts[s], cfg, batch_ids[s], entry[s]))
     for parts in zip(*rounds):
-        for p, dev in zip(parts, devices):
-            with _on(dev):
-                p.start()
-        live = list(range(len(parts)))
-        for j in range(parts[0].n_chunks):
-            for s in live:
-                with _on(devices[s]):
-                    parts[s].step(j)
-            live = [s for s in live if not parts[s].finished(j)]
-            if not live:
-                break
+        _lockstep(devices, parts)
         for p, dev in zip(parts, devices):
             with _on(dev):
                 p.finish()
     for p in programs:
         p.account()
-
-
-def _sharded_codec_build_fn(devices, metric, kind):
-    """The blocked traversal codec of every shard, built on its device (the
-    sharded counterpart of ``BeamCodec.build``): a per-shard int8 scale (or
-    bf16 store), Cosine rows normalized first, and the one-gather
-    neighbourhood blocks, with no id rows."""
-
-    def build(vectors, tbls):
-        blocks, bsq, scales = [], [], []
-        for v, t, dev in zip(vectors, tbls, devices):
-            with _on(dev):
-                v = v.to(torch.float32)
-                if metric in ("Cosine", "DistCosine"):
-                    v = v / torch.sqrt(torch.clamp_min((v * v).sum(-1, keepdim=True), 1e-20))
-                safe = torch.clamp(t, 0, v.shape[0] - 1).long()
-                if kind == "bf16":
-                    vq = v.to(torch.bfloat16)
-                    scale = torch.tensor(1.0, dtype=torch.float32, device=v.device)
-                    vf = vq.to(torch.float32)
-                    qsq = (vf * vf).sum(-1)
-                else:
-                    amax = torch.clamp_min(v.abs().max(), 1e-12)
-                    vq = torch.clamp(torch.round(v * (127.0 / amax)), -127, 127).to(torch.int8)
-                    scale = (amax / 127.0).to(torch.float32)
-                    qi = vq.to(torch.int32)
-                    qsq = (qi * qi).sum(-1).to(torch.float32) * (scale * scale)
-                blocks.append(vq[safe].contiguous())  # [cap1, M0, d]
-                bsq.append(qsq[safe])
-                scales.append(scale)
-        return blocks, bsq, scales
-    return build
 
 
 def _merge_shard_topk(ids, dists, k, device):
@@ -834,76 +736,20 @@ def _sharded_scan_pallas_fn(k: int, tn: int, Np: int, cap1: int):
     return local_scan
 
 
-@dataclasses.dataclass(frozen=True)
-class _SearchCfg:
-    num_layers: int
-    layer_nonempty: tuple
-    cap1: int
-    entry_level: int
-    metric: str
-    ef: int
-    knbn: int
-    expand: int
-    use_codec: bool
-    codec_M0: int
-    codec_dim: int
-    use_mask: bool
-    rerank: Optional[int]
-
-
-@dataclasses.dataclass(frozen=True)
-class _GA:
-    """What ``search_program`` reads of a graph snapshot, for one shard (no
-    pivot set: the shards enter by the greedy descent, as in the JAX
-    package)."""
-
-    vectors: object
-    sqnorms: object
-    levels: object
-    layer_ids: object
-    layer_dists: object
-    entry: int
-    n: int
-    cap1: int
-    entry_level: int
-    layer_nonempty: tuple
-    metric_name: str
-    num_layers: int
-    pivot_ids: object = None
-
-
-def _sharded_search(devices, programs, n_live, q, masks, knbn):
+def _sharded_search(devices, programs, q, masks, knbn):
     """The sharded search: every shard's search program (the blocked int8
     codec, kernel B3 on the card, the exact f32 rerank and the in-search
-    filter mask) on its device, chunk by chunk: chunk j on every shard still
-    running, then one host read of each one's ``done``, so no shard's
-    launches wait on another's read (the point of the reference's
-    ``shard_map``). Then the merge on ``devices[0]``, which waits on the
-    shards' streams, not on the host. Each chunk adds the live shards to
-    ``shard.steps`` and the finished ones to ``shard.idle_steps``, so the two
-    sum to shards x chunks run."""
-    with PROFILER.span("shard.start"):
-        qs = _per_device(q, devices)
-        for p, dev, qq, m in zip(programs, devices, qs, masks):
-            with _on(dev):
-                p.start(qq, m)
-    live = list(range(len(programs)))
-    for j in range(programs[0].n_chunks):
-        with PROFILER.span("shard.step"):
-            for s in live:
-                with _on(devices[s]):
-                    programs[s].step(j)
-        PROFILER.add("shard.steps", len(live))
-        PROFILER.add("shard.idle_steps", len(programs) - len(live))
-        with PROFILER.span("shard.poll"):
-            live = [s for s in live if not programs[s].finished(j)]
-        if not live:
-            break
+    filter mask) on its device, in ``_lockstep`` (the point of the
+    reference's ``shard_map``: no shard's launches wait on another's read),
+    then the merge on ``devices[0]``, which waits on the shards' streams, not
+    on the host."""
+    _lockstep(devices, programs, lambda: zip(_per_device(q, devices), masks), traced=True)
     with PROFILER.span("shard.merge"):
         ids, dists = [], []
-        for p, dev, n in zip(programs, devices, n_live):
+        for p, dev in zip(programs, devices):
             with _on(dev):
                 i, d = p.result()
+                n = p.g.n
                 # an empty or padded shard can answer a valid-looking id (the
                 # entry against zero padding): mask by the live count before the
                 # merge (with a codec, the rerank has already restored exact f32

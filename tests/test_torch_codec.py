@@ -76,6 +76,60 @@ def test_beam_codec_byte_equal(graphs, metric):
     np.testing.assert_array_equal(ids.numpy(), _np(gt.layer_ids[0])[:, :ct.M0])
 
 
+def test_codec_without_id_rows_is_the_codec_less_its_id_rows(graphs):
+    """``with_ids=False`` (the sharded tier's codec, kernel B3's layout)
+    builds the one-card codec's vector rows, squared norms and scale, and no
+    id rows."""
+    _, ht = graphs
+    g = ht.device_graph()
+    full = tga.BeamCodec.build(g, kind="i8")
+    bare = tga.BeamCodec.build(g, kind="i8", with_ids=False)
+    assert full.id_rows > 0 and bare.id_rows == 0 and (bare.M0, bare.dim) == (full.M0, full.dim)
+    assert bare.blocks.shape == (g.cap1, full.M0, full.dim)
+    assert torch.equal(bare.blocks, full.blocks[:, :full.M0])
+    assert torch.equal(bare.blocks_sq, full.blocks_sq) and torch.equal(bare.scale, full.scale)
+
+
+def test_codec_kind_rules():
+    """``codec_kind``, which the one-card and the sharded codec both ask: no
+    codec without a kind or for a metric the codec does not serve; under
+    "auto" int8 from CODEC_MIN_POINTS points up while the caller's estimate
+    fits CODEC_MAX_BYTES (asked only past the point count), so at the
+    benchmark's shapes, sift1m on one card and sift4m over four shards, both
+    decline; any other kind as given."""
+    asked = []
+
+    def est(nbytes):
+        return lambda: asked.append(nbytes) or nbytes
+
+    assert tga.codec_kind(None, "L2", 10**6, est(0)) is None
+    assert tga.codec_kind("i8", "Hamming", 10**6, est(0)) is None
+    assert tga.codec_kind("bf16", "L2", 10, est(0)) == "bf16"
+    assert tga.codec_kind("auto", "L2", tga.CODEC_MIN_POINTS - 1, est(0)) is None
+    assert asked == []
+    assert tga.codec_kind("auto", "Cosine", tga.CODEC_MIN_POINTS,
+                          est(tga.CODEC_MAX_BYTES)) == "i8"
+    assert tga.codec_kind("auto", "L2", tga.CODEC_MIN_POINTS,
+                          est(tga.CODEC_MAX_BYTES + 1)) is None
+    cap1 = 1_000_009
+    assert tga.codec_kind("auto", "L2", 10**6, est(cap1 * (96 + 8) * 128)) is None
+    assert tga.codec_kind("auto", "L2", 4 * 10**6, est(4 * cap1 * 96 * 128)) is None
+
+
+def test_snapshot_uploads_distances_only_with_dists(graphs):
+    _, ht = graphs
+    g = tga.GraphArrays.from_host(ht)
+    assert g.layer_dists == ()
+    gd = tga.GraphArrays.from_host(ht, with_dists=True)
+    assert len(gd.layer_dists) == len(gd.layer_ids) == len(g.layer_ids)
+    n = ht._nb_point
+    for l, (ids, dd) in enumerate(zip(gd.layer_ids, gd.layer_dists)):
+        t = ht._layers[l]
+        assert torch.equal(ids, g.layer_ids[l]) and dd.shape == ids.shape
+        np.testing.assert_array_equal(dd[:n, :t.width].numpy(), t.dists[:n])
+        assert torch.isinf(dd[n:]).all()
+
+
 def test_compute_pivots_equal(graphs, monkeypatch):
     """With PIVOT_MIN_POINTS lowered in both packages, both pick the same
     entry-pivot set (the pivot entry production uses)."""

@@ -330,17 +330,16 @@ def test_sharded_exact_programs_equal_eager(sharded, mode, filtered):
     sh, Q = sharded
     flt = list(range(0, 800, 3)) if filtered else None
     ids, dists = sh.exact_search_batch(Q, 10, filter=flt, mode=mode, tile=64)
-    st_ = sh._build_state()
+    st_ = sh._build_state()  # one GraphArrays a shard
     qt = torch.from_numpy(Q)
     if mode == "pallas":
         Xp, xsqp, Np = sh._scan_arrays(st.SCAN_TN)
         scan = _sharded_scan_pallas_fn(10, st.SCAN_TN, Np, st_.cap1)
-        out = [scan(v, n, x, s, qt) for v, n, x, s in zip(st_.vectors, st_.n_live, Xp, xsqp)]
+        out = [scan(g.vectors, g.n, x, s, qt) for g, x, s in zip(st_.graphs, Xp, xsqp)]
     else:
         scan = _sharded_scan_fn("L2", 10, 64)
         masks = sh._masks(flt, st_) if filtered else [None] * 8
-        out = [scan(v, s, n, qt, m) for v, s, n, m in
-               zip(st_.vectors, st_.sqnorms, st_.n_live, masks)]
+        out = [scan(g.vectors, g.sqnorms, g.n, qt, m) for g, m in zip(st_.graphs, masks)]
     want = sh._to_external(st_, *_merge_shard_topk([o[0] for o in out],
                                                    [o[1] for o in out], 10, "cpu"))
     np.testing.assert_array_equal(ids, want[0])

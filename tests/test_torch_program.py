@@ -17,13 +17,15 @@ import torch
 torch.set_num_threads(2)
 
 from hnsw_tpu.ops.beam_search import device_search_batch as j_search
-from hnsw_tpu_torch import Hnsw, ShardedHnsw, bench
+from hnsw_tpu_torch import Hnsw, IvfFlatIndex, ShardedHnsw, bench
 from hnsw_tpu_torch.ops import beam_search as tbs
 from hnsw_tpu_torch.ops import kernel_lib, program
 from hnsw_tpu_torch.ops.beam_search import (_device_mask, device_search_batch,
                                             device_search_stream, search_program,
                                             serve_static)
 from hnsw_tpu_torch.ops.codec_scores import codec_scores_plain
+from hnsw_tpu_torch.ops.scan_topk import l2_topk_stream, pad_corpus
+from hnsw_tpu_torch.ops.stream import query_stream
 from hnsw_tpu_torch.parallel.sharded import _merge_shard_topk
 from test_torch_search import K, N, _assert_set_equal, pair  # noqa: F401 (fixture)
 
@@ -309,12 +311,19 @@ def test_sharded_programs_equal_eager(sharded, codec):
         st, programs, _ = sh._search_fn(10, 64, list(range(0, 1600, 2)), 4, None)
         progs = programs(len(Q), torch.float32)
         assert all(p.n_chunks == 12 for p in progs)  # 96 iterations
+        # each shard's program holds its snapshot and codec, keyed as a
+        # one-card program is
+        codecs = sh._codecs() or [None] * 8
+        assert [p.g for p in progs] == st.graphs and [p.codec for p in progs] == codecs
         assert (progs[0].codec is not None) == (codec is not None)
+        for c, p, g, cd in zip(sh._programs, progs, st.graphs, codecs):
+            assert c._progs[program.program_key(g, cd, len(Q), torch.float32, "cpu", **{
+                k: v for k, v in p.kw.items() if k != "codec"})] is p
         masks = sh._masks(list(range(0, 1600, 2)), st)
         e_ids, e_d = [], []
-        for p, m, n in zip(progs, masks, st.n_live):
+        for p, m in zip(progs, masks):
             i, d = search_program(p.g, torch.as_tensor(Q), m, **p.kw)
-            ok = (i >= 0) & (i < n)
+            ok = (i >= 0) & (i < p.g.n)
             e_ids.append(torch.where(ok, i, -1))
             e_d.append(torch.where(ok, d, float("inf")))
         want = sh._to_external(st, *_merge_shard_topk(e_ids, e_d, 10, sh.devices[0]))
@@ -323,6 +332,46 @@ def test_sharded_programs_equal_eager(sharded, codec):
     np.testing.assert_array_equal(ids, want[0])
     np.testing.assert_array_equal(dists, want[1])
     assert (ids[ids >= 0] % 2 == 0).all()
+
+
+def test_query_stream_front_end():
+    """The front end every stream shares: float32 rows (one query a batch of
+    one), float16 for "f16", the outputs -1 and inf, the batches' rows; any
+    other query dtype raises."""
+    q, ids, dists, work = query_stream(np.arange(4, dtype=np.float64), 3, 2)
+    assert q.dtype == np.float32 and q.shape == (1, 4) and work == [(0, 1)]
+    q, ids, dists, work = query_stream(np.ones((5, 4)), 3, 2, query_dtype="f16")
+    assert q.dtype == np.float16 and work == [(0, 2), (2, 4), (4, 5)]
+    assert ids.dtype == np.int64 and (ids == -1).all() and ids.shape == (5, 3)
+    assert dists.dtype == np.float32 and np.isinf(dists).all() and dists.shape == (5, 3)
+    with pytest.raises(ValueError, match="query_dtype"):
+        query_stream(np.ones((5, 4)), 3, 2, query_dtype="bf16")
+
+
+@pytest.mark.parametrize("entry", ["device_search_stream", "l2_topk_stream",
+                                   "ShardedHnsw.search_stream", "IvfFlatIndex.search_stream"])
+def test_every_stream_takes_the_shared_front_end(sharded, entry):
+    """The four streams answer one 1-d query as a batch of one and refuse a
+    query dtype other than f16 or f32."""
+    sh, Q = sharded
+    h = sh.shards[0]
+    X = np.asarray(h._data[:h._nb_point], np.float32)
+    if entry == "l2_topk_stream":
+        Xp, xsq, _ = pad_corpus(X)
+        Xp, xsq = torch.from_numpy(Xp), torch.from_numpy(xsq)
+    if entry == "IvfFlatIndex.search_stream":
+        ix = IvfFlatIndex(n_clusters=8, nprobe=4, device="cpu")
+        ix.parallel_insert((X, np.arange(len(X))))
+    run = {"device_search_stream": lambda q, **kw: device_search_stream(h, q, 5, 16, **kw),
+           "l2_topk_stream": lambda q, **kw: l2_topk_stream(
+               q, Xp, xsq, 5, batch=8, acc=1, **kw)[::-1],
+           "ShardedHnsw.search_stream": lambda q, **kw: sh.search_stream(q, 5, 16, **kw),
+           "IvfFlatIndex.search_stream": lambda q, **kw: ix.search_stream(q, 5, batch=8, **kw),
+           }[entry]
+    ids, dists = run(Q[0])
+    assert ids.shape == dists.shape == (1, 5) and ids.dtype == np.int64
+    with pytest.raises(ValueError, match="query_dtype"):
+        run(Q[0], query_dtype="bf16")
 
 
 def test_kernel_rate_replays_the_stream_program(small, monkeypatch):

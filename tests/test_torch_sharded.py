@@ -19,10 +19,12 @@ from hnsw_tpu.parallel.sharded import (ShardedHnsw as JShardedHnsw, default_mesh
                                        sharded_insert_round_fn as j_round_fn)
 from hnsw_tpu_torch import Hnsw, ShardedHnsw, get_metric, to_arrays
 from hnsw_tpu_torch.ops import program
+from hnsw_tpu_torch.ops.graph_arrays import GraphArrays
 from hnsw_tpu_torch.ops.insert_rounds import BuildTensors
 from hnsw_tpu_torch.parallel import sharded
 from hnsw_tpu_torch.parallel.sharded import (default_devices, sharded_insert_round_fn,
                                              sharded_program_round)
+from hnsw_tpu_torch.utils.profiling import PROFILER, enable_profiling
 from test_torch_build import jax_from_state
 from test_torch_build_program import DeferredPiece, _peaks_by_kind, _programs, rounds_through
 
@@ -610,6 +612,90 @@ def test_search_and_exact_on_same_graphs(meshed, data, mesh8):
         for b in range(len(Q)):
             assert set(it[b].tolist()) == set(ij[b].tolist()), (mode, b)
         np.testing.assert_allclose(dt, dj, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["serial", "meshed"])
+def test_shard_snapshots_match_the_reference_state(request, mesh8, which):
+    """Each shard's snapshot, a ``GraphArrays`` (``GraphArrays.shards`` from
+    the host shards, or seeded by the mesh build from its own device tables),
+    holds what the JAX package's stacked state holds for that shard: its
+    vectors and squared norms, every layer's ids and its entry, on the one
+    geometry of all shards (``cap1``, the layer count, the union of the
+    non-empty layers, the highest entry level), with no pivot set."""
+    sh = request.getfixturevalue(which)
+    st, ref = sh.searcher(), _carried(sh, mesh8)._build_state()
+    assert st.cap1 == ref.cap1 and len(st.graphs) == D
+    for s, g in enumerate(st.graphs):
+        assert isinstance(g, GraphArrays) and g.pivot_ids is None and g.layer_dists == ()
+        assert (g.cap1, g.num_layers, g.layer_nonempty, g.entry_level) == (
+            ref.cap1, ref.num_layers, tuple(ref.layer_nonempty), ref.entry_level)
+        assert g.n == sh.shards[s]._nb_point and g.entry == int(np.asarray(ref.entry)[s])
+        assert g.vectors.dtype == torch.float32
+        np.testing.assert_array_equal(g.vectors.numpy(), np.asarray(ref.vectors)[s])
+        np.testing.assert_allclose(g.sqnorms.numpy(), np.asarray(ref.sqnorms)[s], rtol=1e-6)
+        for a, b in zip(g.layer_ids, ref.layer_ids, strict=True):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b)[s])
+
+
+def test_sharded_codec_is_the_one_card_codec_without_id_rows(meshed, mesh8):
+    """Each shard's codec is ``BeamCodec.build`` on its snapshot with no id
+    rows (kernel B3's layout), and its bytes are the JAX package's sharded
+    codec's: at a table width of 24, a multiple of 8 (the JAX codec pads
+    nothing), equal blocks on every shard, and scales and squared norms
+    within an ulp (XLA rounds the division by 127 and the product with the
+    squared scale its own way)."""
+    j = _carried(meshed, mesh8)
+    meshed.set_traversal_codec("i8")
+    j.set_traversal_codec("i8")
+    try:
+        blocks, bsq, scale, M0, dim = meshed.device_codec_arrays()
+        codecs = meshed._codecs()
+        jb, jq, js, jM0, jdim = j.device_codec_arrays()
+    finally:
+        meshed.set_traversal_codec("auto")
+    assert (M0, dim) == (jM0, jdim) == (24, 16)
+    jb, jq, js = np.asarray(jb), np.asarray(jq), np.asarray(js)
+    for s, c in enumerate(codecs):
+        assert c.id_rows == 0 and c.blocks is blocks[s] and c.M0 == M0
+        assert c.blocks.shape == (meshed.searcher().cap1, M0, dim)
+        np.testing.assert_array_equal(blocks[s].numpy(), jb[s])
+        np.testing.assert_allclose(bsq[s].numpy(), jq[s], rtol=3e-7, atol=0)
+        np.testing.assert_allclose(scale[s].numpy(), js[s].reshape(()), rtol=3e-7, atol=0)
+
+
+def test_mesh_build_records_no_shard_spans(data, monkeypatch):
+    """The mesh build's rounds run through the search's lockstep loop
+    (``_lockstep``, on round programs of stub graphs) and record none of
+    its spans or counters, which the search alone records: ``shard.steps``
+    and ``shard.idle_steps`` (``straggler_pct.cards``) and ``shard.poll``
+    (``lockstep_ms.cards``)."""
+    monkeypatch.setattr(program, "Piece", DeferredPiece)
+    real, traced = sharded._lockstep, []
+
+    def watched(*args, **kw):
+        traced.append(kw.get("traced", False))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(sharded, "_lockstep", watched)
+    X, Q = data
+    sh = ShardedHnsw(n_shards=4, device="cpu", max_elements=208, **KW)
+    PROFILER.reset()
+    enable_profiling()
+    try:
+        with rounds_through([]):
+            sh.parallel_insert((X[:800], np.arange(800)), mode="mesh", batch_size=128)
+        built = ({e.name for e in PROFILER.events()}, PROFILER.report().get("counters", {}))
+        n_build = len(traced)
+        sh.search_batch(Q, 10, 48)
+        searched = ({e.name for e in PROFILER.events()}, PROFILER.report()["counters"])
+    finally:
+        enable_profiling(False)
+        PROFILER.reset()
+    assert n_build > 0 and not any(traced[:n_build]) and traced[n_build:] == [True]
+    assert not any(n.startswith("shard.") for n in built[0])
+    assert not any(n.startswith("shard.") for n in built[1])
+    assert {"shard.start", "shard.step", "shard.poll", "shard.merge"} <= searched[0]
+    assert searched[1]["shard.steps"] > 0
 
 
 def test_manifests_cross_reload(serial, data, mesh8, tmp_path):

@@ -84,6 +84,8 @@ def test_merged_rows_map_to_external_ids_as_the_shards_origins_say(cell):
     -1 or an infinite distance), every other row its shard's external id."""
     _, _, sh = cell
     st = sh._build_state()
+    assert [g.n for g in st.graphs] == [h._nb_point for h in sh.shards]
+    assert st.origin.shape == (SHARDS, st.cap1)
     g = torch.Generator().manual_seed(7)
     shard = torch.randint(0, SHARDS, (64, K), generator=g, dtype=torch.int32)
     local = torch.randint(0, N // SHARDS, (64, K), generator=g, dtype=torch.int32)
